@@ -34,7 +34,8 @@ backends take ``device=None`` to mean the card.
 Entry points: :func:`evaluate_batch`, :func:`comm_cost_batch`,
 :func:`directional_cdv_batch`, :func:`make_scorer`, and
 :meth:`BatchedNoC.make_fused_scorer` (one pass that computes exactly the
-metrics a weighted objective needs).
+metrics a weighted objective needs), and the incident-edge tables behind
+O(degree) swap deltas (:func:`build_incident_tables`, :func:`delta_comm_cost`).
 """
 from __future__ import annotations
 
@@ -180,6 +181,116 @@ def _check_placements(placements, n_nodes: int, n_cores: int | None):
         if np.any(s[:, 1:] == s[:, :-1]):
             raise ValueError("placement must map nodes to distinct cores")
     return P
+
+
+# ---------------------------------------------------------------------------
+# Incident-edge tables (O(degree) delta-cost evaluation)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class IncidentTables:
+    """Per-node incident-edge tables of one :class:`LogicalGraph`, padded
+    dense — the graph-side companion of :class:`NoCTables` (which is
+    per-topology; incident edges depend on the graph, so they are built per
+    graph next to the route tables rather than inside them).
+
+    Row ``u`` lists every directed edge touching node ``u`` (as source or
+    destination). Row ``n`` is the all-padding sentinel row a free-slot swap
+    index resolves to, so gathering by a clamped node id is always safe.
+    Padding entries use ``other == n`` with ``vol == 0`` — they contribute
+    exactly zero to any delta. Self-edges are dropped (``hops[c, c] == 0``
+    for every routing, so they can never change a comm cost).
+
+    A pairwise swap of two placement slots only perturbs the edges incident
+    to the (at most two) moved nodes, so incremental evaluation through these
+    tables is O(degree) instead of O(E) — see :func:`delta_comm_cost` (exact
+    numpy reference) and :mod:`repro_torch.core.placement.device_search`
+    (the torch gather path and the ``delta_cost`` kernel used inside the SA
+    step).
+    """
+    other: np.ndarray    # [n+1, D] int32 other endpoint (pad: n)
+    vol: np.ndarray      # [n+1, D] float64 edge volume (pad: 0)
+    is_src: np.ndarray   # [n+1, D] bool — node is the edge's source
+    degree: np.ndarray   # [n+1] int64 valid entries per row
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.other.shape[1])
+
+
+def build_incident_tables(graph: LogicalGraph) -> IncidentTables:
+    """Build the padded per-node incident-edge tables of ``graph``."""
+    src, dst, vol = graph.edge_arrays()
+    keep = src != dst                  # self-edges never move a comm cost
+    src, dst, vol = src[keep], dst[keep], vol[keep]
+    n = graph.n
+    nodes = np.concatenate([src, dst])
+    others = np.concatenate([dst, src])
+    vols = np.concatenate([vol, vol])
+    is_src = np.concatenate([np.ones(src.size, bool), np.zeros(dst.size, bool)])
+    degree = np.zeros(n + 1, dtype=np.int64)
+    if nodes.size:
+        degree[:n] = np.bincount(nodes, minlength=n)
+    D = max(int(degree.max()), 1)
+    other_t = np.full((n + 1, D), n, dtype=np.int32)
+    vol_t = np.zeros((n + 1, D), dtype=np.float64)
+    src_t = np.zeros((n + 1, D), dtype=bool)
+    if nodes.size:
+        order = np.argsort(nodes, kind="stable")
+        sorted_nodes = nodes[order]
+        first = np.searchsorted(sorted_nodes, np.arange(n + 1))
+        pos = np.arange(sorted_nodes.size) - first[sorted_nodes]
+        other_t[sorted_nodes, pos] = others[order]
+        vol_t[sorted_nodes, pos] = vols[order]
+        src_t[sorted_nodes, pos] = is_src[order]
+    return IncidentTables(other=other_t, vol=vol_t, is_src=src_t,
+                          degree=degree)
+
+
+def delta_comm_cost(noc: Topology, graph: LogicalGraph, slots, i: int, j: int,
+                    tables: IncidentTables | None = None) -> float:
+    """Exact comm-cost change of swapping ``slots[i]`` and ``slots[j]``.
+
+    ``slots`` is a placement extended with free cores (the SA slots array:
+    entries ``[0, graph.n)`` are placed nodes, the rest free cores). On
+    integer-volume graphs the result equals
+    ``comm_cost(after) - comm_cost(before)`` *bit-exactly* (every term is an
+    exactly-representable integer product), in O(degree) instead of O(E) —
+    the numpy reference the torch delta path and the ``delta_cost`` kernel
+    are validated against. Routing direction is respected (``is_src``), so
+    asymmetric detour routes on degraded topologies are handled too.
+    """
+    if i == j:
+        return 0.0
+    if tables is None:
+        tables = build_incident_tables(graph)
+    hops = batched_noc(noc).tables.hops
+    slots = np.asarray(slots, dtype=np.int64)
+    n = graph.n
+    a = i if i < n else n                  # n == free-slot sentinel row
+    b = j if j < n else n
+    ci, cj = int(slots[i]), int(slots[j])
+    p_pad = np.append(slots[:n], 0)        # sentinel gathers core 0, vol 0
+    delta = 0.0
+    # (node, its core before, its core after, other-endpoint id to skip)
+    for u, cu_before, cu_after, skip in ((a, ci, cj, -1), (b, cj, ci, a)):
+        if u == n:
+            continue
+        others = tables.other[u].astype(np.int64)
+        vols = tables.vol[u]
+        if skip >= 0:                      # a<->b edges already counted via a
+            vols = np.where(others == skip, 0.0, vols)
+        is_src = tables.is_src[u]
+        oc_before = p_pad[others]
+        oc_after = np.where(others == a, cj,
+                            np.where(others == b, ci, oc_before))
+        src_b = np.where(is_src, cu_before, oc_before)
+        dst_b = np.where(is_src, oc_before, cu_before)
+        src_a = np.where(is_src, cu_after, oc_after)
+        dst_a = np.where(is_src, oc_after, cu_after)
+        delta += float((vols * (hops[src_a, dst_a].astype(np.float64)
+                                - hops[src_b, dst_b])).sum())
+    return delta
 
 
 # ---------------------------------------------------------------------------

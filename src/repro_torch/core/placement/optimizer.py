@@ -2,29 +2,38 @@
 
 ``optimize_placement(graph, noc, method=...)`` returns a uniform
 :class:`PlacementResult`. ``noc`` is any :class:`..topology.Topology`.
-This slice of the port implements ``ppo`` (the paper's RL placer) and the
-``zigzag``/``sigmate`` constructors; every other method of the reference
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Every method of the reference is ported except ``policy``, which raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 
-``device`` (``None``: the card) is where PPO trains and where the torch/cuda
-scorers run. ``backend=None`` resolves to ``"cuda"`` on a CUDA device (the
-link-traffic kernel for link-level objectives) and to ``"batch"`` (numpy
-float64, as in the reference) on the CPU. ``objective`` selects what the
-searches minimize (see :mod:`repro_torch.deploy.objective`); the constructors
-build the same placement whatever the objective, only their reported
-``objective_cost`` changes. The final metrics come from the topology's own
-``evaluate``, the host reference loop.
+``device`` (``None``: the card) is where PPO trains, where the torch/cuda
+scorers run and where the device searches run. ``backend=None`` resolves to
+``"cuda"`` on a CUDA device (float32 scoring on the card; the link-traffic
+kernel for link-level objectives) and to ``"batch"`` (numpy float64, as in
+the reference) on the CPU. ``backend="device"`` (``simulated_annealing``/
+``sa``, ``genetic``/``ga`` and ``multilevel``'s coarse level) switches to the
+device-resident searches of :mod:`.device_search` — O(degree) delta costs
+through the ``delta_cost`` kernel, plus ``restarts=N`` parallel SA chains —
+a float32 method variant, not a replay of the host backends. The host
+searches draw from numpy RNG, so on ``backend="batch"`` they match the
+reference seed for seed.
+
+``objective`` selects what the searches minimize (see
+:mod:`repro_torch.deploy.objective`); the deterministic constructors
+(``zigzag``, ``sigmate``, ``greedy``) build the same placement whatever the
+objective, only their reported ``objective_cost`` changes. The final metrics
+come from the topology's own ``evaluate``, the host reference loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 
 from ...deploy.objective import as_objective
-from ...device import resolve_device
+from ...device import resolve_backend, resolve_device
 from ...obs import maybe_span
-from . import baselines
+from . import baselines, device_search, multilevel, population
 from .ppo import PPOConfig, run_ppo
 
 
@@ -66,16 +75,12 @@ METHOD_ALIASES = {"sa": "simulated_annealing", "ga": "genetic",
                   "rs": "random_search", "ml": "multilevel"}
 
 #: methods of the reference not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "random_search": "queue 1, item 3 (host searches)",
-    "simulated_annealing": "queue 1, item 3 (host searches)",
-    "greedy": "queue 1, item 3 (host searches)",
-    "genetic": "queue 1, item 3 (host searches)",
-    "population_random_search": "queue 1, item 3 (host searches)",
-    "population_simulated_annealing": "queue 1, item 3 (host searches)",
-    "policy": "queue 1, item 4 (policy_baseline)",
-    "multilevel": "queue 1, item 7 (multilevel placement)",
-}
+NOT_PORTED = {"policy": "queue 1, item 4 (policy_baseline)"}
+
+# arguments optimize_placement supplies itself — never forwardable via **kw
+_OWN_PARAMS = frozenset({"graph", "noc", "seed", "backend", "objective",
+                            "recorder", "budget", "generations", "iters",
+                            "device"})
 
 
 def _check_method(method: str) -> str:
@@ -89,14 +94,49 @@ def _check_method(method: str) -> str:
     return method
 
 
-def method_kwargs(method: str) -> frozenset:
+def _fn_kwargs(fn) -> frozenset:
+    """Tunable kwargs a search function accepts, minus the ones
+    :func:`optimize_placement` sets itself."""
+    return frozenset(inspect.signature(fn).parameters) - _OWN_PARAMS
+
+
+def method_kwargs(method: str, backend: str | None = None,
+                  coarse_method: str | None = None) -> frozenset:
     """The ``**method_kw`` names :func:`optimize_placement` accepts for
-    ``method`` (alias-resolved). Constructors take none; ``ppo`` takes the
-    :class:`PPOConfig` fields :func:`optimize_placement` does not set
-    itself, plus ``cfg`` and ``init``."""
+    ``method`` (alias-resolved) under ``backend``.
+
+    ``iters``/``generations`` are always accepted (they alias ``budget``);
+    deterministic constructors take none; ``multilevel`` additionally accepts
+    everything its ``coarse_method`` does (pass the requested coarse method,
+    default ``simulated_annealing``); ``ppo`` takes the :class:`PPOConfig`
+    fields :func:`optimize_placement` does not set itself, plus ``cfg`` and
+    ``init``.
+    """
     method = _check_method(method)
-    if method in ("zigzag", "sigmate"):
+    budgets = frozenset({"iters", "generations"})
+    if method in ("zigzag", "sigmate", "greedy"):
         return frozenset()
+    if method == "random_search":
+        return _fn_kwargs(baselines.random_search) | budgets
+    if method == "simulated_annealing":
+        fn = (device_search.simulated_annealing_device
+              if backend == "device" else baselines.simulated_annealing)
+        return _fn_kwargs(fn) | budgets
+    if method == "population_random_search":
+        return _fn_kwargs(population.random_search_population) | budgets
+    if method == "population_simulated_annealing":
+        return _fn_kwargs(population.simulated_annealing_population) | budgets
+    if method == "genetic":
+        fn = (device_search.genetic_device if backend == "device"
+              else population.genetic_population)
+        return _fn_kwargs(fn) | budgets
+    if method == "multilevel":
+        own = frozenset({"coarsen_to", "refine_iters", "coarse_method"})
+        coarse = METHOD_ALIASES.get(coarse_method or "simulated_annealing",
+                                    coarse_method or "simulated_annealing")
+        if coarse == "multilevel":        # no recursive coarsening
+            return own | budgets
+        return own | method_kwargs(coarse, backend=backend) | budgets
     fields = frozenset(f.name for f in dataclasses.fields(PPOConfig))
     return (fields - frozenset({"iterations", "seed", "backend",
                                 "objective"})) | frozenset({"cfg", "init"})
@@ -106,7 +146,8 @@ def validate_method_kw(method: str, kw: dict,
                        backend: str | None = None) -> None:
     """Raise ``TypeError`` listing the accepted kwargs when ``kw`` contains
     names ``method`` does not take."""
-    allowed = method_kwargs(method)
+    allowed = method_kwargs(method, backend=backend,
+                            coarse_method=kw.get("coarse_method"))
     unknown = sorted(set(kw) - allowed)
     if unknown:
         method = METHOD_ALIASES.get(method, method)
@@ -134,32 +175,48 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
     caller-supplied ``cfg`` keeps its own values); an explicit value
     overrides everywhere, including a passed ``cfg``.
 
-    ``recorder`` runs the dispatch inside a ``place.<method>`` span and
-    collects PPO's per-iteration events and the scorer's counters.
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`) turns on
+    search-trajectory telemetry: the whole dispatch runs inside a
+    ``place.<method>`` span, every search method emits per-iteration events
+    (cost, best-so-far, acceptance/temperature/diversity where meaningful),
+    and the scorer counts evaluations and dispatches. Detached (``None``, the
+    default) results are identical.
 
     On a multi-chip topology with a chip-aware partition (``graph.chip_of``),
-    the chip-respecting constructor :func:`baselines.chip_init` joins the
-    candidate set PPO's returned placement is drawn from, as does a
-    user-supplied ``init`` placement.
+    the searches are seeded with :func:`baselines.chip_init` — slices
+    pre-binned to their assigned chip's cores: SA/genetic/RS get it as their
+    ``init``; for ppo the seed joins the candidate set the returned best
+    placement is drawn from, as does a user-supplied ``init``. An explicit
+    ``init=`` kwarg always wins. The deterministic flat constructors
+    (``zigzag``/``sigmate``/``greedy``) stay chip-oblivious baselines.
     """
     history = None
     method = _check_method(method)
     validate_method_kw(method, kw, backend=backend)
     dev = resolve_device(device)
-    if backend == "device":
-        raise NotImplementedError(
-            "backend='device' (the one-dispatch device searches) is not "
-            "ported yet (ROADMAP queue 1, item 6)")
-    bk = backend or ("cuda" if dev.type == "cuda" else "batch")
+    bk = resolve_backend(backend, dev)
     ob = objective if objective is not None else "comm_cost"
+    if bk == "device" and method not in ("simulated_annealing", "genetic",
+                                         "multilevel"):
+        raise ValueError(
+            f"backend='device' implements simulated_annealing (sa) and "
+            f"genetic (ga) only, not {method!r}")
     if method == "ppo" and \
             getattr(noc, "n_alive_cores", noc.n_cores) != noc.n_cores:
         raise ValueError(
             f"method {method!r} does not support degraded topologies — its "
-            "discretizer can land on dropped cores")
-    chip_seed = _chip_seed(graph, noc) if method == "ppo" else None
-    # a user-supplied ``init`` joins the best-of candidate set like the
-    # chip seed
+            "discretizer can land on dropped cores; use "
+            "simulated_annealing / genetic / random_search (the methods the "
+            "online re-placement loop warm-starts) on faulty fabrics")
+    init_methods = ("random_search", "simulated_annealing", "genetic",
+                    "population_random_search",
+                    "population_simulated_annealing")
+    chip_seed = (_chip_seed(graph, noc)
+                 if method in init_methods + ("ppo",) else None)
+    if chip_seed is not None and method in init_methods:
+        kw.setdefault("init", chip_seed)
+    # ppo has no init hook; a user-supplied ``init`` (e.g. a fast device-SA
+    # placement) joins the best-of candidate set like the chip seed
     rl_init = kw.pop("init", None) if method == "ppo" else None
     with maybe_span(recorder, f"place.{method}", seed=seed,
                     backend=bk) as sp:
@@ -167,6 +224,59 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
             placement = baselines.zigzag(graph.n, noc)
         elif method == "sigmate":
             placement = baselines.sigmate(graph.n, noc)
+        elif method == "random_search":
+            placement = baselines.random_search(
+                graph, noc, iters=kw.pop("iters", None) or budget or 2000,
+                seed=seed, backend=bk, objective=ob, recorder=recorder,
+                device=dev, **kw)
+        elif method == "simulated_annealing":
+            iters = kw.pop("iters", None) or budget or 5000
+            if bk == "device":
+                placement = device_search.simulated_annealing_device(
+                    graph, noc, iters=iters, seed=seed, objective=ob,
+                    recorder=recorder, device=dev, **kw)
+            else:
+                placement = baselines.simulated_annealing(
+                    graph, noc, iters=iters, seed=seed, backend=bk,
+                    objective=ob, recorder=recorder, device=dev, **kw)
+        elif method == "population_random_search":
+            placement = population.random_search_population(
+                graph, noc, iters=kw.pop("iters", None) or budget or 2000,
+                seed=seed, backend=bk, objective=ob, recorder=recorder,
+                device=dev, **kw)
+        elif method == "population_simulated_annealing":
+            # budget counts total evaluations for every method; population SA
+            # performs pop_size evaluations per lock-step iteration
+            pop = max(1, kw.get("pop_size", 16))
+            iters = kw.pop("iters", None) or max(1, (budget or 16000) // pop)
+            placement = population.simulated_annealing_population(
+                graph, noc, iters=iters, seed=seed, backend=bk, objective=ob,
+                recorder=recorder, device=dev, **kw)
+        elif method == "genetic":
+            # one whole-population scoring call per generation (+ the initial
+            # one), so budgets below 2*pop_size still spend up to 2*pop_size
+            # evaluations; genetic_population validates pop_size itself
+            pop = kw.setdefault("pop_size", 64)
+            gens = kw.pop("generations", None)
+            if gens is None:
+                gens = max(1, (budget or 6400) // max(pop, 1) - 1)
+            if bk == "device":
+                placement = device_search.genetic_device(
+                    graph, noc, generations=gens, seed=seed,
+                    objective=ob, recorder=recorder, device=dev, **kw)
+            else:
+                placement = population.genetic_population(
+                    graph, noc, generations=gens, seed=seed, backend=bk,
+                    objective=ob, recorder=recorder, device=dev, **kw)
+        elif method == "multilevel":
+            # coarsen -> coarse search -> refine; passes the *original*
+            # backend/objective (possibly None) through so its
+            # coarsen_to >= n delegation replays the flat call bit-for-bit
+            placement = multilevel.multilevel_placement(
+                graph, noc, seed=seed, budget=budget, backend=backend,
+                objective=objective, recorder=recorder, device=dev, **kw)
+        elif method == "greedy":
+            placement = baselines.greedy(graph, noc)
         else:
             cfg = kw.pop("cfg", None)
             if cfg is None:

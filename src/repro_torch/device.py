@@ -17,3 +17,12 @@ def resolve_device(device=None) -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the host")
     return dev
+
+
+def resolve_backend(backend: str | None, device=None) -> str:
+    """The scoring backend of a search: an explicit ``backend`` as given;
+    ``None`` -> ``"cuda"`` when ``device`` resolves to a CUDA device (so
+    ``None``, the card) and ``"batch"`` (numpy float64) on the CPU."""
+    if backend is not None:
+        return backend
+    return "cuda" if resolve_device(device).type == "cuda" else "batch"

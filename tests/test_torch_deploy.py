@@ -101,10 +101,9 @@ def test_unported_methods_and_kwargs_raise():
     topo = p_topology.parse_topology("mesh:3x3")
     from repro_torch.core import random_dag
     g = random_dag(6, seed=0)
-    for method in ("sa", "genetic", "policy", "multilevel", "greedy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            optimize_placement(g, topo, method=method, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        optimize_placement(g, topo, method="policy", device="cpu")
+    with pytest.raises(ValueError, match="backend='device' implements"):
         optimize_placement(g, topo, method="ppo", backend="device",
                            device="cpu")
     with pytest.raises(ValueError, match="unknown method"):

@@ -1,0 +1,373 @@
+"""Port parity: the incident tables, the swap-delta kernel's plain version and
+the device-resident SA/GA of ``repro_torch.core.placement.device_search``,
+against the JAX package on the CPU.
+
+Grades: the incident tables and ``delta_comm_cost`` are exact; the plain
+``delta_cost`` and ``_swap_delta`` are exact on integer volumes (every
+partial sum below 2^24); ``_sa_chains`` fed the reference's own draws gives
+the reference's best slots, best costs and trajectory exactly on an
+integer-volume graph; ``_ox_device``/``_mutate_device`` fed the reference's
+draws are exact. A port run on its own torch RNG is held to invariants, and
+its GA to a quality band around the reference's GA.
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import graph as r_graph  # noqa: E402
+from repro.core import noc_batch as r_nb  # noqa: E402
+from repro.core import topology as r_topology  # noqa: E402
+from repro.core.placement import device_search as r_ds  # noqa: E402
+from repro.kernels.delta_cost import delta_cost_pallas  # noqa: E402
+
+from repro_torch.core import graph as p_graph  # noqa: E402
+from repro_torch.core import noc_batch as p_nb  # noqa: E402
+from repro_torch.core import topology as p_topology  # noqa: E402
+from repro_torch.core.placement import device_search as p_ds  # noqa: E402
+from repro_torch.core.placement import optimize_placement  # noqa: E402
+from repro_torch.core.placement.baselines import zigzag  # noqa: E402
+from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
+                                            delta_cost_plain)
+from repro_torch.obs import Recorder  # noqa: E402
+
+CPU = "cpu"
+
+
+def _graphs(n, seed, p=0.3):
+    """(reference graph, port graph) of one integer-volume random DAG."""
+    g = r_graph.random_dag(n, p=p, seed=seed)
+    adj = np.round(g.adj)
+    return (r_graph.LogicalGraph(adj, g.compute, g.memory),
+            p_graph.LogicalGraph(adj, g.compute, g.memory))
+
+
+def _topos(spec="mesh:4x8", links=(), nodes=()):
+    ref = r_topology.parse_topology(spec)
+    port = p_topology.parse_topology(spec)
+    if links or nodes:
+        ref = r_topology.degrade(ref, links=links, nodes=nodes)
+        port = p_topology.degrade(port, links=links, nodes=nodes)
+    return ref, port
+
+
+def _comm(noc, g, placement):
+    return float(p_nb.evaluate_batch(noc, g, np.asarray(placement)[None])
+                 .comm_cost[0])
+
+
+def _t(x, dtype):
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Incident tables + the numpy delta reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,seed,p", [(12, 0, 0.3), (24, 3, 0.3),
+                                      (20, 7, 0.6), (1, 0, 0.3)])
+def test_incident_tables_exact(n, seed, p):
+    rg, pg = _graphs(n, seed, p)
+    if n > 1:                      # a self-edge is dropped on both sides
+        rg.adj[0, 0] = pg.adj[0, 0] = 5.0
+    ref, port = r_nb.build_incident_tables(rg), p_nb.build_incident_tables(pg)
+    for f in ("other", "vol", "is_src", "degree"):
+        np.testing.assert_array_equal(getattr(port, f), getattr(ref, f))
+        assert getattr(port, f).dtype == getattr(ref, f).dtype
+    assert port.max_degree == ref.max_degree
+
+
+@pytest.mark.parametrize("links,nodes", [((), ()), ((5,), (9,))])
+def test_delta_comm_cost_exact_over_swap_stream(links, nodes):
+    """Port delta == reference delta == full(after) - full(before), exact,
+    on the intact mesh and on one with a dropped link and core (detours)."""
+    r_noc, p_noc = _topos("mesh:4x8", links, nodes)
+    rg, pg = _graphs(20, seed=7)
+    r_tbl, p_tbl = r_nb.build_incident_tables(rg), p_nb.build_incident_tables(pg)
+    rng = np.random.default_rng(1)
+    slots = rng.permutation(p_ds._pool_array(p_noc))
+    for _ in range(40):
+        i, j = (int(x) for x in rng.integers(0, slots.size, 2))
+        d = p_nb.delta_comm_cost(p_noc, pg, slots, i, j, p_tbl)
+        assert d == r_nb.delta_comm_cost(r_noc, rg, slots, i, j, r_tbl)
+        before = _comm(p_noc, pg, slots[:pg.n])
+        slots[i], slots[j] = slots[j], slots[i]
+        assert d == _comm(p_noc, pg, slots[:pg.n]) - before
+
+
+# ---------------------------------------------------------------------------
+# The delta_cost kernel's plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R,K,C", [(4, 23, 32), (3, 300, 40), (2, 1, 5)])
+def test_delta_cost_plain_matches_pallas_interpret(R, K, C):
+    """K=300 crosses the reference's 256-entry K tiling; integer volumes."""
+    rng = np.random.default_rng(R * 100 + K)
+    hops = rng.integers(0, 9, (C, C)).astype(np.float32)
+    ids = [rng.integers(0, C, (R, K)).astype(np.int32) for _ in range(4)]
+    vol = rng.integers(0, 40, (R, K)).astype(np.float32)
+    want = np.asarray(delta_cost_pallas(*ids, vol, hops, interpret=True))
+    args = [_t(a, torch.int32) for a in ids] + [_t(vol, torch.float32),
+                                                 _t(hops, torch.float32)]
+    got = delta_cost_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (R,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = delta_cost.launches
+    np.testing.assert_array_equal(delta_cost(*args).numpy(), want)
+    assert delta_cost.launches == before    # CPU tensors: no kernel launch
+
+
+# ---------------------------------------------------------------------------
+# _swap_delta and the SA chains
+# ---------------------------------------------------------------------------
+
+def _sa_inputs(r_noc, rg):
+    bn, inc = r_nb.batched_noc(r_noc), r_nb.build_incident_tables(rg)
+    e_src, e_dst, e_vol, _ = bn.edge_arrays(rg)
+    return bn, inc, e_src, e_dst, e_vol
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_swap_delta_matches_reference(use_pallas):
+    r_noc, p_noc = _topos("mesh:4x8")
+    rg, pg = _graphs(24, seed=2)
+    bn, inc, *_ = _sa_inputs(r_noc, rg)
+    rng = np.random.default_rng(3)
+    R, S = 16, r_noc.n_cores
+    slots = np.stack([rng.permutation(S) for _ in range(R)]).astype(np.int32)
+    i = rng.integers(0, S, R).astype(np.int32)
+    j = rng.integers(0, S, R).astype(np.int32)
+    j[0] = i[0]                                   # degenerate i == j
+    i[1], j[1] = S - 1, S - 2                     # both in the free tail
+    want = np.asarray(r_ds._swap_delta(
+        jnp.asarray(slots), jnp.asarray(i), jnp.asarray(j),
+        jnp.asarray(bn.tables.hops, jnp.float32), jnp.asarray(inc.other),
+        jnp.asarray(inc.vol, jnp.float32), jnp.asarray(inc.is_src), rg.n,
+        use_pallas=False, interpret=True))
+    got = p_ds._swap_delta(
+        _t(slots, torch.int32), _t(i, torch.int64), _t(j, torch.int64),
+        _t(bn.tables.hops, torch.float32), _t(inc.other, torch.int32),
+        _t(inc.vol, torch.float32), _t(inc.is_src, torch.bool), pg.n,
+        use_pallas=use_pallas)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for r in range(R):
+        assert got[r].item() == p_nb.delta_comm_cost(
+            p_noc, pg, slots[r], int(i[r]), int(j[r]))
+
+
+def test_sa_chains_match_reference_under_injected_draws():
+    """The reference's own proposal streams (rebuilt from ``_chain_keys`` as
+    ``_sa_chains`` draws them) give its best slots, best costs and whole
+    trajectory exactly. Every cost here is an integer below 2^24, so float32
+    sums are exact in any order; an acceptance could flip only if XLA's and
+    torch's float32 ``exp`` differed by an ulp right at ``u``, and none does
+    on this stream."""
+    r_noc, _ = _topos("mesh:4x8")
+    rg, pg = _graphs(24, seed=5)
+    bn, inc, e_src, e_dst, e_vol = _sa_inputs(r_noc, rg)
+    R, iters, S, seed = 4, 200, r_noc.n_cores, 3
+    rng = np.random.default_rng(0)
+    slots0 = np.stack([rng.permutation(S) for _ in range(R)]).astype(np.int32)
+    t0 = (0.05 * 4.0 ** (np.arange(R) / (R - 1))).astype(np.float32)
+    cooling = np.float32(1e-3 ** (1.0 / iters))
+    keys0 = r_ds._chain_keys(seed, R)
+    ks = jax.vmap(lambda k: jax.random.split(k, 3))(keys0)
+    i_all = jax.vmap(
+        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 0]).T
+    j_all = jax.vmap(
+        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 1]).T
+    u_all = jax.vmap(lambda k: jax.random.uniform(k, (iters,)))(ks[:, 2]).T
+    best_slots, best_cost, traj = r_ds._sa_chains(
+        jnp.asarray(slots0), keys0, jnp.asarray(t0), jnp.float32(cooling),
+        jnp.asarray(inc.other), jnp.asarray(inc.vol, jnp.float32),
+        jnp.asarray(inc.is_src), jnp.asarray(bn.tables.hops, jnp.float32),
+        jnp.asarray(e_src, jnp.int32), jnp.asarray(e_dst, jnp.int32),
+        jnp.asarray(e_vol, jnp.float32), iters=iters, n=rg.n,
+        refresh_every=64, use_pallas=False, interpret=True)
+    assert float(np.asarray(traj[0]).max()) < 2 ** 24
+    p_best_slots, p_best_cost, p_traj = p_ds._sa_chains(
+        _t(slots0, torch.int32), _t(t0, torch.float32), float(cooling),
+        _t(inc.other, torch.int32), _t(inc.vol, torch.float32),
+        _t(inc.is_src, torch.bool), _t(bn.tables.hops, torch.float32),
+        _t(e_src, torch.int64), _t(e_dst, torch.int64),
+        _t(e_vol, torch.float32), iters=iters, n=pg.n, refresh_every=64,
+        use_pallas=True,
+        draws=(_t(i_all, torch.int64), _t(j_all, torch.int64),
+               _t(u_all, torch.float32)))
+    np.testing.assert_array_equal(p_best_slots.numpy(), np.asarray(best_slots))
+    np.testing.assert_array_equal(p_best_cost.numpy(), np.asarray(best_cost))
+    assert len(p_traj) == len(traj) == 5
+    for got, want in zip(p_traj, traj):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.asarray(traj[3]).sum() > 0            # some swaps accepted
+
+
+# ---------------------------------------------------------------------------
+# GA operators under injected draws
+# ---------------------------------------------------------------------------
+
+def test_ox_and_mutate_match_reference_under_injected_draws():
+    B, S, C, kmax, rate = 24, 20, 20, 8, 0.6
+    rng = np.random.default_rng(4)
+    p1 = np.stack([rng.permutation(S) for _ in range(B)]).astype(np.int32)
+    p2 = np.stack([rng.permutation(S) for _ in range(B)]).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(9), B)
+    want_ox = jax.vmap(lambda k, a, b: r_ds._ox_device(k, a, b, C))(
+        keys, jnp.asarray(p1), jnp.asarray(p2))
+    ij = jax.vmap(lambda k: jax.random.randint(k, (2,), 0, S + 1))(keys)
+    got_ox = p_ds._ox_device(_t(ij, torch.int64), _t(p1, torch.int32),
+                             _t(p2, torch.int32), C)
+    np.testing.assert_array_equal(got_ox.numpy(), np.asarray(want_ox))
+    assert (np.sort(got_ox.numpy(), axis=1) == np.arange(S)).all()
+
+    want_mu = jax.vmap(lambda k, c: r_ds._mutate_device(k, c, rate, kmax))(
+        keys, jnp.asarray(p1))
+    ku, kidx = jax.vmap(jax.random.split, out_axes=1)(keys)
+    u = jax.vmap(lambda k: jax.random.uniform(k, (kmax,)))(ku)
+    idx = jax.vmap(lambda k: jax.random.randint(k, (kmax, 2), 0, S))(kidx)
+    got_mu = p_ds._mutate_device(_t(u, torch.float32), _t(idx, torch.int64),
+                                 _t(p1, torch.int32), np.float32(rate).item())
+    np.testing.assert_array_equal(got_mu.numpy(), np.asarray(want_mu))
+    assert not np.array_equal(got_mu.numpy(), p1)
+
+
+# ---------------------------------------------------------------------------
+# Port SA/GA on their own torch RNG
+# ---------------------------------------------------------------------------
+
+def test_device_sa_valid_and_improves():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(28, seed=5)
+    p = p_ds.simulated_annealing_device(g, noc, iters=800, seed=0,
+                                        device=CPU)
+    assert len(set(p.tolist())) == g.n
+    assert p.min() >= 0 and p.max() < noc.n_cores
+    assert _comm(noc, g, p) < _comm(noc, g, zigzag(g.n, noc))
+
+
+def test_device_sa_deterministic_and_restarts_monotone():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(28, seed=5)
+    kw = dict(iters=400, seed=0, device=CPU)
+    p1 = p_ds.simulated_annealing_device(g, noc, **kw)
+    assert np.array_equal(p1, p_ds.simulated_annealing_device(g, noc, **kw))
+    # chain 0 draws from its own generator whatever restarts is: more
+    # chains can only match or beat the single-chain best
+    p8 = p_ds.simulated_annealing_device(g, noc, restarts=8, **kw)
+    assert _comm(noc, g, p8) <= _comm(noc, g, p1)
+
+
+def test_device_sa_recorder_identity_and_schema():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(24, seed=4)
+    rec = Recorder()
+    kw = dict(iters=300, seed=1, restarts=4, device=CPU)
+    pa = p_ds.simulated_annealing_device(g, noc, recorder=rec, **kw)
+    pb = p_ds.simulated_annealing_device(g, noc, **kw)
+    assert np.array_equal(pa, pb)        # recorder on/off identity
+    ev = [e["attrs"] for e in rec.events if e["name"] == "sa.iter"]
+    assert len(ev) == 300                # host schema: one event per step
+    assert set(ev[0]) == {"iter", "cost", "best_cost", "temperature",
+                          "accepted", "proposed"}
+    assert ev[-1]["best_cost"] <= ev[0]["best_cost"]
+    n_acc = sum(e["accepted"] for e in ev)
+    assert rec.counters.get("sa.accepted", 0) == n_acc
+    summary = [e["attrs"] for e in rec.events if e["name"] == "sa.device"]
+    assert len(summary) == 1 and summary[0]["restarts"] == 4
+    assert summary[0]["best_cost"] == _comm(noc, g, pa)   # integer volumes
+
+
+def test_device_sa_on_degraded_topology():
+    _, noc = _topos("mesh:4x8", nodes=(3,))
+    _, g = _graphs(24, seed=6)
+    p = p_ds.simulated_annealing_device(g, noc, iters=400, seed=0,
+                                        restarts=2, device=CPU)
+    assert 3 not in p.tolist()           # never lands on the dropped core
+    assert len(set(p.tolist())) == g.n
+
+
+def test_device_search_rejects_non_comm_objective():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(16, seed=0)
+    with pytest.raises(ValueError, match="comm_cost"):
+        p_ds.simulated_annealing_device(g, noc, iters=10,
+                                        objective="max_link", device=CPU)
+    with pytest.raises(ValueError, match="comm_cost"):
+        p_ds.genetic_device(g, noc, generations=2, objective="latency",
+                            device=CPU)
+
+
+def test_device_ga_valid_and_improves():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(28, seed=5)
+    p = p_ds.genetic_device(g, noc, generations=20, pop_size=16, seed=0,
+                            device=CPU)
+    assert len(set(p.tolist())) == g.n
+    assert _comm(noc, g, p) <= _comm(noc, g, zigzag(g.n, noc))
+
+
+def test_device_ga_recorder_identity_and_schema():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(20, seed=8)
+    rec = Recorder()
+    kw = dict(generations=10, pop_size=8, seed=2, device=CPU)
+    pa = p_ds.genetic_device(g, noc, recorder=rec, **kw)
+    assert np.array_equal(pa, p_ds.genetic_device(g, noc, **kw))
+    ev = [e["attrs"] for e in rec.events if e["name"] == "ga.gen"]
+    assert [e["gen"] for e in ev] == list(range(-1, 10))  # host schema
+    assert set(ev[0]) == {"gen", "best_cost", "cur_min", "cur_mean",
+                          "diversity"}
+    assert ev[-1]["best_cost"] <= ev[0]["best_cost"]
+    assert ev[-1]["best_cost"] == _comm(noc, g, pa)
+
+
+# On this graph and budget each side's seeds 0-2 spread by 1.9-2.5%
+# (std/mean, printed below), so two means of three seeds differ by a std of
+# about 1.8%; the band is 2.8 of those.
+GA_BAND = 0.05
+
+
+def test_device_ga_quality_band_against_reference():
+    """Over seeds 0-2 the port's GA (torch RNG) and the reference's GA
+    (jax RNG) reach mean best costs within GA_BAND of each other: the same
+    operators on other random streams."""
+    r_noc, p_noc = _topos("mesh:4x8")
+    rg, pg = _graphs(28, seed=5)
+    kw = dict(generations=30, pop_size=16)
+    ref = [_comm(p_noc, pg, r_ds.genetic_device(rg, r_noc, seed=s, **kw))
+           for s in range(3)]
+    port = [_comm(p_noc, pg, p_ds.genetic_device(pg, p_noc, seed=s,
+                                                 device=CPU, **kw))
+            for s in range(3)]
+    ratio = np.mean(port) / np.mean(ref)
+    print(f"GA port/reference mean best cost {ratio!r}; spread (std/mean) "
+          f"reference {np.std(ref) / np.mean(ref)!r}, port "
+          f"{np.std(port) / np.mean(port)!r}")
+    assert abs(ratio - 1.0) <= GA_BAND, (port, ref)
+
+
+# ---------------------------------------------------------------------------
+# optimize_placement wiring
+# ---------------------------------------------------------------------------
+
+def test_optimizer_device_backend_and_aliases():
+    _, noc = _topos("mesh:4x8")
+    _, g = _graphs(24, seed=1)
+    r = optimize_placement(g, noc, method="sa", backend="device", budget=300,
+                           restarts=4, device=CPU)
+    assert r.method == "simulated_annealing"
+    assert r.comm_cost == _comm(noc, g, r.placement)
+    r2 = optimize_placement(g, noc, method="ga", backend="device",
+                            budget=1000, pop_size=8, device=CPU)
+    assert r2.method == "genetic"
+    with pytest.raises(ValueError, match="device"):
+        optimize_placement(g, noc, method="zigzag", backend="device",
+                           device=CPU)
+    with pytest.raises(TypeError, match="unknown method kwarg"):
+        optimize_placement(g, noc, method="sa", backend="batch", restarts=4,
+                           device=CPU)
