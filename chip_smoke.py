@@ -15,7 +15,15 @@ Phases, each of which fails the run loudly:
    on float weights; ``delta_cost`` at the reference kernel-test shape, the
    SA path's shape, all-padding rows, R=K=1, a 16x16 torus and a 32x32 mesh
    — exactly on integer volumes, and on the graph's own volumes within 1e-5
-   of each chain's sum of absolute terms;
+   of each chain's sum of absolute terms; ``lif`` bit for bit at every LIF
+   state shape of the Spike-VGG16 and Spike-ResNet18 training paths (batch
+   8) and the reference test's shapes, float32 and bfloat16, hard and soft
+   reset; ``spike_matmul`` at the im2col shapes of Spike-VGG16's spiking
+   convs and the reference sweep, densities 0, 0.15 and 1, and with 75% of
+   the input channels silent, within rtol=atol=1e-4 (and within 1e-4 +
+   1e-4 x each product's sum of absolute terms), with its count of skipped
+   tiles exact; ``spike_conv``
+   against ``F.conv2d`` (TF32 off) at stride 1 and 2;
 3. hold ``evaluate_batch(backend="cuda")`` against the numpy float64 backend
    on the main path's graph for 256 random placements, and the device SA's
    ``_swap_delta`` (through ``delta_cost``) against the numpy
@@ -30,12 +38,26 @@ Phases, each of which fails the run loudly:
    generations), the multilevel V-cycle on a 1024-node layered DAG over a
    32x32 mesh with a device SA coarse level, and one short run of each host
    search on the card;
-7. time each kernel at its path's shapes beside its bound, its plain version
+7. drive BPTT training at full width: ``snn.bptt.train_step`` of
+   ``spike_vgg16()`` (T=4) at batch 8, 5 steps from one set of seeded
+   weights (52 LIF launches a step), and of ``spike_resnet18()`` (68 a step),
+   3 steps; loss, wall and launches per step and one profiled step each;
+   then each first step again through the LIF kernel and through its plain
+   version with deterministic cuDNN: loss, logits, spikes and gradients
+   bit-identical (a gradient may differ only behind an op that PyTorch
+   reports as nondeterministic on the card, and then within rtol 1e-4,
+   atol 1e-6);
+8. drive the event-driven conv path: the input spikes of every spiking conv
+   of one Spike-VGG16 forward (4 timesteps) through ``kernels.ops.spike_conv``
+   (48 launches), each held against the float32 cuDNN conv;
+9. time each kernel at its path's shapes beside its bound, its plain version
    and one PyTorch library call where one exists: ``ms``, ``plain_ms`` and
    ``library_ms`` are the per-call time of back-to-back eager calls under
    CUDA events, host overhead included (the definition of every slice);
    ``device_ms``, ``plain_device_ms`` and ``library_device_ms`` are device
-   time from CUDA events around replays of a CUDA graph of 100 calls.
+   time from CUDA events around replays of a CUDA graph of 100 calls. The
+   ``lif`` and ``spike_matmul`` rows sum one Spike-VGG16 timestep's calls
+   (13 LIF states; 12 spiking-conv products with the path's own spikes).
 
 Every path starts with all launch counts set to 0 and reads them just after.
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
@@ -43,6 +65,8 @@ Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -422,6 +446,473 @@ def _graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * reps)
 
+# ---- the SNN slice: LIF and spike-matmul kernels, BPTT training ---------------
+
+REFERENCE_LIF_SHAPES = [(128,), (7, 13), (2, 9, 9, 8), (256, 128)]
+REFERENCE_MM_SHAPES = [(32, 64, 16), (70, 200, 90), (128, 384, 256),
+                       (1, 128, 128)]
+
+
+def _lif_state_shapes(cfg, batch: int = 8):
+    """NCHW shapes of every LIF state of ``cfg`` at ``batch``, in the order
+    a timestep visits them."""
+    from repro_torch.snn.models import _shapes
+    return [(b, c, h, w) for (b, h, w, c) in _shapes(cfg, batch).values()]
+
+
+def _vgg_conv_shapes(cfg, batch: int = 8):
+    """(name, M, K, N, stride) of the im2col product of each spiking conv of
+    Spike-VGG16 (every conv but the analog stem)."""
+    from repro_torch.snn.models import ConvBNLif, MaxPool
+    out, h = [], cfg.in_res
+    for b in cfg.blocks:
+        if isinstance(b, MaxPool):
+            h = -(-h // b.stride)
+        elif isinstance(b, ConvBNLif):
+            out.append((b.name, batch * h * h, b.k * b.k * b.cin, b.cout))
+    return out[1:]
+
+
+def _mm_scale(spikes, w):
+    """|spikes| @ |w|, each product's sum of absolute terms: the float32
+    error of any summation order is bounded by a small multiple of it.
+    ``spike_matmul`` is held to rtol=atol=1e-4 of the plain result and,
+    relative to this scale, to |got - want| <= 1e-4 + 1e-4 * scale."""
+    import torch
+    return torch.matmul(spikes.float().abs(), w.float().abs())
+
+
+def _check_lif(dev, rng, vgg, resnet):
+    """Phase 2, ``lif`` part: the kernel against its plain version, bit for
+    bit, at every LIF state shape of the two training paths (batch 8) and
+    the reference kernel test's shapes, hard and soft reset, float32 and
+    bfloat16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lif import lif_step_kernel, lif_step_plain
+    shapes = sorted(set(_lif_state_shapes(vgg) + _lif_state_shapes(resnet))
+                    | set(REFERENCE_LIF_SHAPES), key=lambda s: -math.prod(s))
+    n_cases = 0
+    for shape in shapes:
+        n = math.prod(shape)
+        base = [rng.standard_normal(n) * 1.5, rng.random(n) < 0.3,
+                rng.standard_normal(n)]
+        for dtype in (torch.float32, torch.bfloat16):
+            u, s, c = (torch.as_tensor(a.astype(np.float32), device=dev)
+                       .to(dtype).reshape(shape) for a in base)
+            for reset in ("hard", "soft"):
+                got = lif_step_kernel(u, s, c, reset=reset)
+                torch.cuda.synchronize()
+                want = lif_step_plain(u, s, c, reset=reset)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"lif kernel != plain at {shape} "
+                                         f"{dtype} {reset}")
+                n_cases += 1
+    print(f"[kernel] lif: bit-identical to its plain version in {n_cases} "
+          f"cases ({len(shapes)} shapes from {shapes[0]} to {shapes[-1]}, "
+          "float32 and bfloat16, hard and soft reset) ok")
+    return 0.0
+
+
+def _conv_weights(rng, shape):
+    """float32 N(0, 1/3) draws: the 3x3 conv weights' initial scale."""
+    import numpy as np
+    return (rng.standard_normal(shape) / np.sqrt(3)).astype(np.float32)
+
+
+def _check_spike_matmul(dev, rng, vgg):
+    """Phase 2, ``spike_matmul`` part: the kernel against its plain version
+    (float32 cuBLAS, TF32 off) at the im2col shapes of Spike-VGG16's
+    spiking convs and the reference sweep, densities 0, 0.15 and 1; a
+    structured case with 75% silent input channels; the kernel's own count
+    of skipped tiles against the count the spikes imply; ``spike_conv``
+    against ``F.conv2d`` (TF32 off) at stride 1 and 2."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spike_matmul import (spike_matmul_kernel,
+                                                  spike_matmul_plain,
+                                                  zero_tiles)
+    from repro_torch.snn import layers
+
+    def check(label, sp, w):
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = spike_matmul_kernel(sp, w, skipped=skipped)
+        torch.cuda.synchronize()
+        want = spike_matmul_plain(sp, w)
+        scale = _mm_scale(sp, w)
+        err = (got - want).abs()
+        ratio = (err / (1e-4 + 1e-4 * scale)).max().item()
+        outside = int((err > 1e-4 + 1e-4 * want.abs()).sum().item())
+        n_skip, expect = int(skipped.item()), zero_tiles(sp, w.shape[1])
+        ok = outside == 0 and ratio <= 1 and n_skip == expect
+        print(f"[kernel] spike_matmul {label}: max_abs_err="
+              f"{err.max().item()!r}, {outside} of {err.numel()} outside "
+              f"rtol=atol=1e-4, max err / (1e-4 + 1e-4 sum|terms|) {ratio!r}; "
+              f"skipped tiles {n_skip} (spikes imply {expect}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"spike_matmul disagrees on {label}")
+
+    shapes = [(f"VGG {name}", M, K, N)
+              for name, M, K, N in _vgg_conv_shapes(vgg)]
+    shapes += [(f"reference {m}x{k}x{n}", m, k, n)
+               for m, k, n in REFERENCE_MM_SHAPES]
+    for label, M, K, N in shapes:
+        w = torch.as_tensor(_conv_weights(rng, (K, N)), device=dev)
+        for density in (0.0, 0.15, 1.0):
+            sp = torch.as_tensor((rng.random((M, K)) < density)
+                                 .astype(np.float32), device=dev)
+            check(f"{label} ({M}, {K}, {N}) density {density}", sp, w)
+    sp = (rng.random((512, 256, 9)) < 0.2).astype(np.float32)
+    sp[:, rng.permutation(256)[:192]] = 0.0        # 75% silent channels
+    w = torch.as_tensor(_conv_weights(rng, (2304, 256)), device=dev)
+    check("75% silent channels (512, 2304, 256)",
+          torch.as_tensor(sp.reshape(512, 2304), device=dev), w)
+    for stride in (1, 2):
+        sp = torch.as_tensor((rng.random((8, 16, 16, 128)) < 0.15)
+                             .astype(np.float32), device=dev)
+        w = torch.as_tensor(_conv_weights(rng, (3, 3, 128, 256)), device=dev)
+        got = ops.spike_conv(sp, w, stride)
+        with layers.fp32_convs():
+            want = layers.conv2d({"w": w.permute(3, 2, 0, 1).contiguous()},
+                                 sp.permute(0, 3, 1, 2).contiguous(), stride)
+        want = want.permute(0, 2, 3, 1)
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+        print(f"[kernel] spike_conv [8, 16, 16, 128] * [3, 3, 128, 256] "
+              f"stride {stride} vs F.conv2d (TF32 off): max_abs_err={err!r} "
+              f"(rtol=atol=1e-4) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"spike_conv disagrees at stride {stride}")
+
+
+def _batch(cfg, seed: int, dev, batch: int = 8):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.random((batch, cfg.in_res, cfg.in_res, cfg.in_ch), np.float32)
+    y = rng.integers(0, cfg.n_classes, batch)
+    return torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+
+@contextlib.contextmanager
+def _recording(forward):
+    """Within the scope, ``snn.neurons.lif_step`` runs ``forward`` (the
+    kernel or its plain version) and every spike tensor it returns is
+    recorded, as are the logits of ``snn.bptt.loss_fn``'s rollout."""
+    from repro_torch.snn import bptt, neurons
+    rec = {"spikes": [], "logits": []}
+    real_forward, real_rollout = neurons._lif_forward, bptt.model_rollout
+
+    def lif(*args, **kw):
+        u, s = forward(*args, **kw)
+        rec["spikes"].append(s)
+        return u, s
+
+    def rollout(*args, **kw):
+        logits, rate = real_rollout(*args, **kw)
+        rec["logits"].append(logits.detach())
+        return logits, rate
+
+    neurons._lif_forward, bptt.model_rollout = lif, rollout
+    try:
+        yield rec
+    finally:
+        neurons._lif_forward, bptt.model_rollout = real_forward, real_rollout
+
+
+def _profile_step(step, label: str):
+    """torch.profiler over one call of ``step``: wall, device kernel time,
+    busy share, kernel count and the LIF kernel's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if dev_us == 0.0:
+        print(f"[{label}-profile] one step: wall {wall!r} s; device time not "
+              "measured (the profiler recorded no device events)")
+        return None
+    lif_us = sum(e.self_device_time_total for e in kernels
+                 if "lif_kernel" in e.key)
+    n = sum(e.count for e in kernels)
+    print(f"[{label}-profile] one step under the profiler: wall {wall!r} s; "
+          f"device kernel time {dev_us / 1e6!r} s (busy share "
+          f"{dev_us / 1e6 / wall!r}); {n} kernels; lif kernel "
+          f"{lif_us / 1e6!r} s ({lif_us / dev_us!r} of device time)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[{label}-profile] kernel x{e.count} "
+              f"{e.self_device_time_total / 1e3:.3f} ms {e.key[:90]}")
+    return dev_us / 1e6 / wall
+
+
+def _train_path(cfg, label, steps, dev, kernels, lifs_per_step):
+    """Phase 8: ``train_step`` at full width, batch 8, ``steps`` times from
+    one set of weights; loss, wall and LIF launches per step; one profiled
+    step. Returns the LIF launches of the run."""
+    import torch
+    from repro_torch.snn.bptt import make_optimizer, train_step
+    from repro_torch.snn.models import init_model
+    net = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt = make_optimizer(net)
+    x, y = _batch(cfg, 0, dev)
+    losses, walls = [], []
+    _reset_counts(kernels)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        net, opt, m = train_step(net, opt, x, y, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = _counts(kernels)
+    print(f"[{label}] train_step x{steps} (batch 8, T={cfg.T}, AdamW lr 1e-3, "
+          f"clip 1.0): losses {losses}; spike rate "
+          f"{float(m['spike_rate'])!r}; wall per step {walls} s (after the "
+          f"first: mean {sum(walls[1:]) / (steps - 1)!r} s); launches "
+          f"{launches}")
+    want = lifs_per_step * cfg.T * steps
+    if launches["lif_step_kernel"] != want:
+        raise AssertionError(f"{label}: {launches['lif_step_kernel']} LIF "
+                             f"launches, not {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: loss is not finite: {losses}")
+    print(f"[{label}] lif launches per step "
+          f"{launches['lif_step_kernel'] // steps} = {lifs_per_step} LIFs x "
+          f"T={cfg.T} ok")
+    _profile_step(lambda: train_step(net, opt, x, y, cfg), label)
+    return launches["lif_step_kernel"]
+
+
+def _kernel_vs_plain_step(cfg, label, dev):
+    """The first training step through the LIF kernel and through its plain
+    version on the card, same weights and batch, deterministic cuDNN: loss,
+    logits, every spike tensor and every gradient. Returns the names of the
+    gradients that differ."""
+    import torch
+    from repro_torch.kernels.lif import lif_step_kernel, lif_step_plain
+    from repro_torch.snn.bptt import loss_and_grads
+    from repro_torch.snn.models import init_model
+    net = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    x, y = _batch(cfg, 0, dev)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        runs = []
+        for forward in (lif_step_kernel, lif_step_plain):
+            with _recording(forward) as rec:
+                loss, ce, rate, grads = loss_and_grads(net, cfg, x, y)
+                torch.cuda.synchronize()
+            runs.append((loss, rec["logits"], rec["spikes"], grads))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    (l_k, lg_k, sp_k, g_k), (l_p, lg_p, sp_p, g_p) = runs
+    forward_same = (torch.equal(l_k, l_p) and len(lg_k) == len(lg_p) == 1
+                    and torch.equal(lg_k[0], lg_p[0])
+                    and len(sp_k) == len(sp_p)
+                    and all(torch.equal(a, b) for a, b in zip(sp_k, sp_p)))
+    if not forward_same:
+        raise AssertionError(f"{label}: the kernel path's forward (loss, "
+                             "logits, spikes) differs from the plain path's")
+    names = [n for n, _ in net.named_parameters()]
+    differ = [n for n, a, b in zip(names, g_k, g_p) if not torch.equal(a, b)]
+    print(f"[{label}] kernel path vs plain path, first step, deterministic "
+          f"cuDNN: loss {l_k.item()!r} and logits bit-identical, "
+          f"{len(sp_k)} spike tensors bit-identical; gradients "
+          f"bit-identical for {len(names) - len(differ)} of {len(names)} "
+          f"parameters")
+    return differ, dict(zip(names, zip(g_k, g_p)))
+
+
+def _nondeterministic_ops(cfg, dev):
+    """The ops of one training step that PyTorch reports as having no
+    deterministic implementation on the card."""
+    import warnings
+    import torch
+    from repro_torch.snn.bptt import loss_and_grads
+    from repro_torch.snn.models import init_model
+    net = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    x, y = _batch(cfg, 0, dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss_and_grads(net, cfg, x, y)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def _spike_conv_path(vgg, dev, kernels):
+    """Phase 9: the event-driven conv path. One Spike-VGG16 forward records
+    the input spikes of every spiking conv at each timestep; each goes
+    through ``kernels.ops.spike_conv`` (im2col + the spike-matmul kernel)
+    and is held against the float32 cuDNN conv of the same spikes. Returns
+    (launches, max abs error, the recorded (spikes, HWIO weight) pairs of the
+    first timestep)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.snn import layers
+    from repro_torch.snn.models import (ConvBNLif, MaxPool, init_model,
+                                        init_state, model_step)
+    net = init_model(vgg, torch.Generator().manual_seed(0), device=dev)
+    x, _ = _batch(vgg, 0, dev)
+    inputs = []
+    with torch.no_grad():
+        state = init_state(vgg, 8, device=dev)
+        for t in range(vgg.T):
+            state, _ = model_step(net, vgg, state, x)
+            h = None
+            for b in vgg.blocks:
+                if isinstance(b, MaxPool):
+                    h = layers.max_pool(h, b.k, b.stride)
+                elif isinstance(b, ConvBNLif):
+                    if h is not None:
+                        w = net[b.name]["conv"]["w"].detach()
+                        inputs.append((t, b.name, h.permute(0, 2, 3, 1)
+                                       .contiguous(),
+                                       w.permute(2, 3, 1, 0).contiguous()))
+                    h = state[b.name][1]
+    worst, density = 0.0, []
+    _reset_counts(kernels)
+    outs = [ops.spike_conv(sp, w, 1) for _, _, sp, w in inputs]
+    torch.cuda.synchronize()
+    launches = _counts(kernels)
+    for (t, name, sp, w), got in zip(inputs, outs):
+        with layers.fp32_convs():
+            want = layers.conv2d({"w": w.permute(3, 2, 0, 1).contiguous()},
+                                 sp.permute(0, 3, 1, 2).contiguous())
+        want = want.permute(0, 2, 3, 1)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"spike_conv of {name} at t={t} disagrees "
+                                 f"with F.conv2d: max_abs_err {err!r}")
+        worst = max(worst, err)
+        density.append(sp.mean().item())
+    if launches["spike_matmul_kernel"] != len(inputs):
+        raise AssertionError("the spike-conv path did not launch "
+                             "spike_matmul once per conv")
+    print(f"[spike_conv] Spike-VGG16 spiking convs x T={vgg.T} through "
+          f"ops.spike_conv: {len(inputs)} convs, launches {launches}; input "
+          f"spike density {min(density)!r}..{max(density)!r}; max_abs_err "
+          f"vs F.conv2d (TF32 off) {worst!r} (rtol=atol=1e-4) ok")
+    first = [(name, sp, w) for t, name, sp, w in inputs if t == 0]
+    return launches["spike_matmul_kernel"], worst, first
+
+
+def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
+                      mm_launches, mm_err):
+    """Phase 7, SNN rows: one timestep's worth of each kernel on the
+    Spike-VGG16 path, summed over its calls (13 LIF states; 12 spiking-conv
+    im2col products with the path's own spikes and weights)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lif import lif_step_kernel, lif_step_plain
+    from repro_torch.kernels.ops import im2col
+    from repro_torch.kernels.spike_matmul import (spike_matmul_kernel,
+                                                  spike_matmul_plain)
+    tot = dict(ms=0.0, plain=0.0, dev=0.0, plain_dev=0.0, bytes=0, ops=0)
+    for shape in _lif_state_shapes(vgg):
+        n = math.prod(shape)
+        # enough input sets to exceed the 50 MB L2 cache, used in turn, so
+        # every call reads its inputs from device memory, as the training
+        # step's u and s (written a timestep earlier) are
+        sets = [[torch.as_tensor(a.astype(np.float32), device=dev)
+                 .reshape(shape)
+                 for a in (rng.standard_normal(n), rng.random(n) < 0.2,
+                           rng.standard_normal(n))]
+                for _ in range(max(2, -(-64_000_000 // (12 * n))))]
+        turn = itertools.cycle(sets)
+        fns = (lambda: lif_step_kernel(*next(turn)),
+               lambda: lif_step_plain(*next(turn)))
+        d_k, d_p = (_graph_ms(f) for f in fns)
+        m_k, m_p = (_time_ms(f) for f in fns)
+        tot["ms"] += m_k
+        tot["plain"] += m_p
+        tot["dev"] += d_k
+        tot["plain_dev"] += d_p
+        tot["bytes"] += 5 * 4 * n          # read u, s, I; write u', s'
+        tot["ops"] += 5 * n                # 2 mul, 1 sub, 1 add, 1 compare
+        print(f"[time] lif {shape}: kernel {m_k!r} ms, plain {m_p!r} ms (per "
+              f"call); device {d_k!r}, {d_p!r} ms; bytes bound "
+              f"{20 * n / HBM_BYTES_PER_S * 1e3!r} ms")
+    tb, to = tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S
+    lif_row = {
+        "name": "lif", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lif.cu",
+        "replaces": "src/repro/kernels/lif.py:38",
+        "launches": lif_launches, "max_abs_err": 0.0,
+        "ms": tot["ms"], "plain_ms": tot["plain"],
+        "bound_ms": max(tb, to) * 1e3,
+        "bound_by": "bytes" if tb >= to else "operations",
+        "library_ms": None, "device_ms": tot["dev"],
+        "plain_device_ms": tot["plain_dev"], "library_device_ms": None,
+        "calls": "sum over the 13 LIF states of one Spike-VGG16 timestep",
+    }
+    print(f"[time] lif, one VGG16 timestep (13 calls): kernel {tot['ms']!r} "
+          f"ms, plain {tot['plain']!r} ms; device {tot['dev']!r}, "
+          f"{tot['plain_dev']!r} ms; bound {lif_row['bound_ms']!r} ms "
+          f"({tot['bytes']} bytes, {tot['ops']} flops); no single PyTorch "
+          f"call computes this function (library_ms null); card {card}")
+
+    tot = dict(ms=0.0, plain=0.0, lib=0.0, dev=0.0, plain_dev=0.0,
+               lib_dev=0.0, bytes=0, ops=0, dense_ops=0)
+    for name, sp, w in first_convs:
+        lhs, rhs = im2col(sp, w)
+        (M, K), cout = lhs.shape, rhs.shape[1]
+        fns = (lambda: spike_matmul_kernel(lhs, rhs),
+               lambda: spike_matmul_plain(lhs, rhs),
+               lambda: torch.matmul(lhs, rhs))
+        d = [_graph_ms(f) for f in fns]
+        m = [_time_ms(f, reps=50) for f in fns]
+        nnz = int((lhs != 0).sum().item())
+        for key, val in zip(("ms", "plain", "lib"), m):
+            tot[key] += val
+        for key, val in zip(("dev", "plain_dev", "lib_dev"), d):
+            tot[key] += val
+        tot["bytes"] += 4 * (M * K + K * cout + M * cout)
+        tot["ops"] += 2 * nnz * cout
+        tot["dense_ops"] += 2 * M * K * cout
+        print(f"[time] spike_matmul {name} ({M}, {K}, {cout}), spike density "
+              f"{nnz / (M * K)!r}: kernel {m[0]!r} ms, plain {m[1]!r} ms, "
+              f"torch.matmul {m[2]!r} ms (per call); device {d[0]!r}, "
+              f"{d[1]!r}, {d[2]!r} ms")
+    tb, to = tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S
+    mm_row = {
+        "name": "spike_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spike_matmul.cu",
+        "replaces": "src/repro/kernels/spike_matmul.py:52",
+        "launches": mm_launches, "max_abs_err": mm_err,
+        "ms": tot["ms"], "plain_ms": tot["plain"],
+        "bound_ms": max(tb, to) * 1e3,
+        "bound_by": "bytes" if tb >= to else "operations",
+        "library_ms": tot["lib"], "device_ms": tot["dev"],
+        "plain_device_ms": tot["plain_dev"],
+        "library_device_ms": tot["lib_dev"],
+        "calls": "sum over the 12 spiking convs of one Spike-VGG16 timestep",
+    }
+    print(f"[time] spike_matmul, one VGG16 timestep (12 calls, the path's "
+          f"spikes): kernel {tot['ms']!r} ms, plain {tot['plain']!r} ms, "
+          f"torch.matmul (TF32 off) {tot['lib']!r} ms; device "
+          f"{tot['dev']!r}, {tot['plain_dev']!r}, {tot['lib_dev']!r} ms; "
+          f"bound {mm_row['bound_ms']!r} ms ({tot['bytes']} bytes, "
+          f"{tot['ops']} flops the spikes need; dense would be "
+          f"{tot['dense_ops']} = {tot['dense_ops'] / FP32_OPS_PER_S * 1e3!r} "
+          f"ms); card {card}")
+    return [lif_row, mm_row]
+
 
 def main() -> int:
     import torch
@@ -439,24 +930,29 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_cost as delta_mod
     from repro_torch.kernels.delta_cost import delta_cost, delta_cost_plain
+    from repro_torch.kernels import lif as lif_mod
+    from repro_torch.kernels import spike_matmul as mm_mod
     from repro_torch.kernels.noc_segsum import (KERNEL, link_traffic,
                                                 link_traffic_plain)
     from repro_torch.obs import Recorder
-    from repro_torch.snn import profile_model, spike_vgg16
+    from repro_torch.snn import profile_model, spike_resnet18, spike_vgg16
 
     dev = torch.device("cuda")
+    # float32 matmuls stay float32 (PyTorch's default, stated); cuDNN keeps
+    # its default TF32 setting, so that the training path's own scoped
+    # float32 convolutions (snn.layers.fp32_convs) are what is exercised
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = _card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
-    kernels = (link_traffic, delta_cost)
+    kernels = (link_traffic, delta_cost, lif_mod.lif_step_kernel,
+               mm_mod.spike_matmul_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    names = [KERNEL, delta_mod.KERNEL]
+    names = [KERNEL, delta_mod.KERNEL, lif_mod.KERNEL, mm_mod.KERNEL]
     _build.build(names)
     print(f"[build] {', '.join(names)} (in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -525,6 +1021,9 @@ def main() -> int:
     print(f"[kernel] {KERNEL} main path volumes: max_abs_err={main_err!r} "
           f"(max {want.abs().max().item()!r}, rtol=1e-5) ok")
     delta_err = _check_delta_cost(dev, graph, noc, rng)
+    resnet = spike_resnet18()
+    _check_lif(dev, rng, vgg, resnet)
+    _check_spike_matmul(dev, rng, vgg)
 
     # ---- phase 3: cuda backend vs numpy backend --------------------------------
     P = _random_placements(rng, graph.n, noc.n_cores, 256)
@@ -587,7 +1086,39 @@ def main() -> int:
     # ---- phase 6: device GA, multilevel, host searches ----------------------------
     _other_paths(vgg, noc, graph, kernels)
 
-    # ---- phase 7: timing ---------------------------------------------------------
+    # ---- phase 7: BPTT training at full width ----------------------------------
+    print(f"[train] cudnn.allow_tf32 outside the training path: "
+          f"{torch.backends.cudnn.allow_tf32} (the path scopes it off)")
+    lif_launches = _train_path(vgg, "vgg16", 5, dev, kernels, 13)
+    differ, _ = _kernel_vs_plain_step(vgg, "vgg16", dev)
+    if differ:
+        raise AssertionError(f"vgg16: gradients differ between the kernel "
+                             f"and the plain path: {differ}")
+    print("[vgg16] every gradient bit-identical ok")
+    _train_path(resnet, "resnet18", 3, dev, kernels, 17)
+    differ, grads = _kernel_vs_plain_step(resnet, "resnet18", dev)
+    ops = _nondeterministic_ops(resnet, dev)
+    print(f"[resnet18] ops of the step that PyTorch reports as "
+          f"nondeterministic on the card: {ops}")
+    if differ:
+        print(f"[resnet18] gradients that differ: {differ}")
+        if not ops:
+            raise AssertionError("resnet18: gradients differ with no "
+                                 "nondeterministic op on the path")
+        for name in differ:
+            a, b = grads[name]
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"resnet18: gradient {name} differs "
+                                     f"beyond rtol 1e-4, atol 1e-6")
+        print("[resnet18] the differing gradients agree within rtol 1e-4, "
+              "atol 1e-6 ok")
+    else:
+        print("[resnet18] every gradient bit-identical ok")
+
+    # ---- phase 8: the event-driven conv path ------------------------------------
+    mm_launches, mm_err, first_convs = _spike_conv_path(vgg, dev, kernels)
+
+    # ---- phase 9: timing ---------------------------------------------------------
     # "ms"/"plain_ms"/"library_ms" are per-call times of back-to-back eager
     # calls under CUDA events, host overhead included (one definition across
     # slices); the "*device_ms" keys are device time from CUDA-graph replay
@@ -660,6 +1191,8 @@ def main() -> int:
         "bound_by": d_by, "library_ms": None, "device_ms": d_dev[0],
         "plain_device_ms": d_dev[1], "library_device_ms": None,
     })
+    rows += _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
+                              mm_launches, mm_err)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

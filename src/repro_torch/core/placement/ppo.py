@@ -14,7 +14,8 @@ the host, discretizes them with the float64 host resolver (bit-exact against
 the sequential spiral), copies the placements back to the scorer, and runs
 all ``ppo_epochs`` epochs of the update as a loop on the device. The scorer
 follows ``cfg.backend``: ``"cuda"`` scores link-level objectives through the
-link-traffic kernel.
+link-traffic kernel, and ``None`` (the default) means ``"cuda"`` on a CUDA
+device and ``"batch"`` on the CPU, as for every other search.
 
 Randomness comes from ``torch.Generator``s seeded with ``cfg.seed``: the
 initial weights are drawn on the CPU, the rollout noise on the device.
@@ -28,7 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import resolve_backend, resolve_device
 from ...obs import maybe_span
 from ...train.optim import AdamW, AdamWConfig
 from ..noc_batch import make_scorer
@@ -50,7 +51,9 @@ class PPOConfig:
     freeze_gcn: bool = True     # paper: GCN pre-trained, not updated by PPO
     action_clip: float = 1.0
     seed: int = 0
-    backend: str = "batch"      # rollout scoring: "batch"|"torch"|"cuda"|"reference"
+    # rollout scoring: "batch"|"torch"|"cuda"|"reference"; None resolves by
+    # device: "cuda" on a CUDA device, "batch" (numpy float64) on the CPU
+    backend: str | None = None
     objective: object = "comm_cost"   # repro_torch.deploy.objective spec
     device_discretize: bool = False   # reference's device resolver: not ported
     init_params: tuple | None = None  # (actor, critic) reference param dicts
@@ -147,8 +150,8 @@ def run_ppo(graph, noc, cfg: PPOConfig = PPOConfig(), baseline_cost=None,
             noc.evaluate(graph, zigzag(graph.n, noc)), noc)
     baseline_cost = max(baseline_cost, 1e-12)
 
-    score = make_scorer(noc, graph, cfg.backend, cfg.objective,
-                        recorder=recorder, device=dev)
+    score = make_scorer(noc, graph, resolve_backend(cfg.backend, dev),
+                        cfg.objective, recorder=recorder, device=dev)
     best_cost, best_placement = np.inf, None
     history = []
     for it in range(cfg.iterations):

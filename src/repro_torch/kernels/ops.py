@@ -1,0 +1,63 @@
+"""Public entry points of the SNN kernels, with the reference's call
+contracts (``repro.kernels.ops``), so one test can hand the same arrays to
+both packages.
+
+The reference's wrappers flatten and pad every input to the TPU's tiles; the
+port's kernels take any size, so these wrappers only make inputs contiguous
+and reshape. CUDA tensors go through the kernels, CPU tensors through their
+plain versions. ``flash_attention`` comes with its kernel.
+"""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+from .lif import lif_step_kernel
+from .spike_matmul import spike_matmul_kernel
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial axis, ``(lo, hi)``: the total is
+    ``max((ceil(size / stride) - 1) * stride + k - size, 0)`` and the odd
+    element goes after (``lo = total // 2``). PyTorch's ``padding=`` pads
+    both sides alike, which shifts the window wherever the total is odd."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def lif_step(u, s_prev, current, *, threshold: float = 1.0,
+             decay: float = 0.5, reset: str = "hard"):
+    """Fused LIF update for state tensors of any (one) shape."""
+    return lif_step_kernel(u.contiguous(), s_prev.contiguous(),
+                           current.contiguous(), threshold=threshold,
+                           decay=decay, reset=reset)
+
+
+def spike_matmul(spikes, w):
+    """``spikes [M, K] in {0, 1} @ w [K, N]`` in ``w.dtype``, float32 sums."""
+    return spike_matmul_kernel(spikes.contiguous(), w.contiguous())
+
+
+def im2col(spikes, w, stride: int = 1):
+    """The operands ``spike_conv`` hands the matmul: patches ``[B Ho Wo,
+    Cin kh kw]`` of NHWC ``spikes`` under SAME padding, and the HWIO weight
+    ``w`` as ``[Cin kh kw, Cout]``. ``F.unfold`` on NCHW orders each patch's
+    features ``[Cin, kh, kw]``, as the reference's
+    ``conv_general_dilated_patches`` does."""
+    kh, kw, cin, cout = w.shape
+    b, h, wd, _ = spikes.shape
+    (ph0, ph1), (pw0, pw1) = same_pads(h, kh, stride), same_pads(wd, kw, stride)
+    x = F.pad(spikes.permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1))
+    patches = F.unfold(x, (kh, kw), stride=stride)      # [B, Cin kh kw, L]
+    lhs = patches.transpose(1, 2).reshape(-1, cin * kh * kw)
+    rhs = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    return lhs.contiguous(), rhs.contiguous()
+
+
+def spike_conv(spikes, w, stride: int = 1):
+    """NHWC spiking conv with SAME padding through im2col and the
+    event-driven matmul: spikes ``[B, H, W, Cin]`` in {0, 1}, w
+    ``[kh, kw, Cin, Cout]`` (HWIO) -> ``[B, ceil(H/s), ceil(W/s), Cout]``."""
+    b, h, wd, _ = spikes.shape
+    lhs, rhs = im2col(spikes, w, stride)
+    return spike_matmul(lhs, rhs).reshape(b, -(-h // stride), -(-wd // stride),
+                                          w.shape[3])

@@ -1,0 +1,132 @@
+"""LIF neuron dynamics with surrogate-gradient spikes (BPTT-ready).
+
+Forward (paper Fig 3 data flow)::
+
+    U_t = λ·U_{t-1}·(1 - S_{t-1}) + I_t     (hard reset)
+    U_t = λ·U_{t-1} - θ·S_{t-1} + I_t       (soft reset)
+    S_t = H(U_t - θ)
+
+The Heaviside spike is not differentiable; BPTT uses a surrogate derivative,
+one of three standard choices (rectangular window as in STBP, sigmoid, atan)
+behind :func:`spike`, a ``torch.autograd.Function`` with the reference's
+``custom_vjp`` (``repro.snn.neurons``).
+
+:func:`lif_step` is one ``torch.autograd.Function`` too. Its forward is the
+fused LIF kernel (``repro_torch.kernels.lif``) on CUDA tensors and the
+kernel's plain version on CPU tensors; both compute in float32 and round once
+to the input dtype (the reference's module computes in the input dtype, which
+is the same thing for the float32 training path). Its backward is written in
+torch operations and, like the reference's autodiff, differentiates through
+``s_prev`` as well as ``u``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..kernels import lif as _lif
+
+# the forward of lif_step; a module attribute so that a check can swap in
+# the plain version on the card and compare the two bit for bit
+_lif_forward = _lif.lif_step_kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class LIFConfig:
+    threshold: float = 1.0
+    decay: float = 0.5            # membrane leak λ
+    reset: str = "hard"           # hard | soft
+    surrogate: str = "rect"       # rect | sigmoid | atan
+    surrogate_scale: float = 2.0  # window width / steepness α
+
+
+def _surrogate_grad(u_minus_th, kind: str, alpha: float):
+    if kind == "rect":
+        # STBP rectangular window: 1/alpha inside |u-θ| < alpha/2
+        return (u_minus_th.abs() < (alpha / 2)).to(u_minus_th.dtype) / alpha
+    if kind == "sigmoid":
+        s = torch.sigmoid(alpha * u_minus_th)
+        return alpha * s * (1 - s)
+    if kind == "atan":
+        return alpha / (2 * (1 + (math.pi / 2 * alpha * u_minus_th) ** 2))
+    raise ValueError(f"unknown surrogate {kind}")
+
+
+class _Spike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u_minus_th, kind, alpha):
+        ctx.save_for_backward(u_minus_th)
+        ctx.kind, ctx.alpha = kind, alpha
+        return (u_minus_th > 0).to(u_minus_th.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u_minus_th,) = ctx.saved_tensors
+        return g * _surrogate_grad(u_minus_th, ctx.kind, ctx.alpha), None, None
+
+
+def spike(u_minus_th, kind: str = "rect", alpha: float = 2.0):
+    """Heaviside spike ``(u_minus_th > 0)`` with a surrogate gradient."""
+    return _Spike.apply(u_minus_th, kind, alpha)
+
+
+class _LIFStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, s_prev, current, cfg: LIFConfig):
+        if cfg.reset not in ("hard", "soft"):
+            raise ValueError(cfg.reset)
+        u_new, s_new = _lif_forward(
+            u.contiguous(), s_prev.contiguous(), current.contiguous(),
+            threshold=cfg.threshold, decay=cfg.decay, reset=cfg.reset)
+        ctx.save_for_backward(u, s_prev, u_new)
+        ctx.cfg = cfg
+        ctx.set_materialize_grads(False)
+        return u_new, s_new
+
+    @staticmethod
+    def backward(ctx, g_u, g_s):
+        u, s_prev, u_new = ctx.saved_tensors
+        cfg = ctx.cfg
+        # total cotangent of u': its own plus the spike's through the
+        # surrogate of spike(u' - θ)
+        g = g_u
+        if g_s is not None:
+            g_spike = g_s * _surrogate_grad(u_new - cfg.threshold,
+                                            cfg.surrogate,
+                                            cfg.surrogate_scale)
+            g = g_spike if g is None else g + g_spike
+        if g is None:
+            return None, None, None, None
+        # the reference's autodiff order: u' = ((λ·u)·(1 - s)) + I or
+        # ((λ·u) - θ·s) + I
+        need_u, need_s = ctx.needs_input_grad[:2]
+        d_u = d_s = None
+        if cfg.reset == "hard":
+            if need_u:
+                d_u = cfg.decay * (g * (1.0 - s_prev))
+            if need_s:
+                d_s = -(g * (cfg.decay * u))
+        else:
+            if need_u:
+                d_u = cfg.decay * g
+            if need_s:
+                d_s = -(cfg.threshold * g)
+        return d_u, d_s, g, None
+
+
+def lif_step(u, s_prev, current, cfg: LIFConfig):
+    """One LIF timestep. Returns ``(u_new, s_new)``."""
+    return _LIFStep.apply(u, s_prev, current, cfg)
+
+
+def lif_rollout(currents, cfg: LIFConfig):
+    """Unroll LIF over time: currents ``[T, ...]`` -> spikes ``[T, ...]``."""
+    u = torch.zeros_like(currents[0])
+    s = torch.zeros_like(currents[0])
+    spikes = []
+    for i_t in currents:
+        u, s = lif_step(u, s, i_t, cfg)
+        spikes.append(s)
+    return torch.stack(spikes)

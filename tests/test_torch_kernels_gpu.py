@@ -9,7 +9,15 @@ Integer weights whose partial sums stay below 2^24 must match exactly.
 ``link_traffic``'s float weights agree within rtol=1e-5, atol=1e-3
 (shared-memory atomics add in a run-dependent order); ``delta_cost``'s float
 volumes within 1e-5 of each chain's sum of absolute terms (its warp
-reduction adds in another order than the plain row sum).
+reduction adds in another order than the plain row sum). The LIF kernel is
+bit-identical to its plain version in float32 and bfloat16 (both compute in
+float32 in the same order and round once). ``spike_matmul`` agrees within
+rtol=atol=1e-4 and within 1e-4 + 1e-4 x (|spikes| @ |w|) in float32
+(another summation order than cuBLAS) and rtol=atol=1e-2 in bfloat16 (one
+rounding of the output), and its
+count of skipped tiles is exact. A full-width Spike-VGG16 training step
+through the LIF kernel is bit-identical to the same step through the plain
+version, with deterministic cuDNN.
 """
 import numpy as np
 import pytest
@@ -19,8 +27,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import NoC  # noqa: E402
 from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
                                             delta_cost_plain)
+from repro_torch.kernels.lif import (lif_step_kernel,  # noqa: E402
+                                     lif_step_plain)
 from repro_torch.kernels.noc_segsum import (link_traffic,  # noqa: E402
                                             link_traffic_plain)
+from repro_torch.kernels.spike_matmul import (  # noqa: E402
+    spike_matmul_kernel, spike_matmul_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -181,3 +193,257 @@ def test_device_sa_kernel_path_matches_plain_path(cuda):
     kernel = device_search.simulated_annealing_device(g, noc, **kw)
     assert delta_cost.launches == before + 150
     assert np.array_equal(kernel, plain)
+
+
+# ---- LIF --------------------------------------------------------------------
+
+# the reference kernel test's shapes, every LIF state shape of the Spike-VGG16
+# training step at batch 8 (NCHW), odd sizes and a size above the grid cap
+LIF_SHAPES = [(128,), (7, 13), (2, 9, 9, 8), (256, 128), (8, 64, 32, 32),
+              (8, 128, 16, 16), (8, 256, 8, 8), (8, 512, 4, 4), (8, 512, 2, 2),
+              (1,), (3,), (4099,), (1_000_003,)]
+
+
+def _lif_inputs(shape, dtype, seed, device, offset=0):
+    """u, s, I; ``offset`` > 0 slices the front off, so no pointer is
+    16-byte aligned and the kernel takes its scalar path."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    raw = [rng.standard_normal(n + offset) * 1.5,
+           (rng.random(n + offset) < 0.3),
+           rng.standard_normal(n + offset)]
+    return [torch.as_tensor(a.astype(np.float32), device=device)
+            .to(dtype)[offset:].reshape(shape) for a in raw]
+
+
+@pytest.mark.parametrize("shape", LIF_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+def test_lif_kernel_is_bit_identical_to_plain(cuda, shape, dtype, reset):
+    u, s, c = _lif_inputs(shape, dtype, len(shape) * 13 + shape[-1], cuda)
+    before = lif_step_kernel.launches
+    un, sn = lif_step_kernel(u, s, c, reset=reset)
+    torch.cuda.synchronize()
+    assert lif_step_kernel.launches == before + 1
+    ur, sr = lif_step_plain(u, s, c, reset=reset)
+    assert un.dtype == dtype and un.shape == shape
+    assert torch.equal(un, ur) and torch.equal(sn, sr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lif_kernel_unaligned_and_other_constants(cuda, dtype):
+    u, s, c = _lif_inputs((4097,), dtype, 9, cuda, offset=1)
+    assert u.data_ptr() % 16
+    for reset in ("hard", "soft"):
+        kw = dict(threshold=0.3, decay=0.9, reset=reset)
+        un, sn = lif_step_kernel(u, s, c, **kw)
+        torch.cuda.synchronize()
+        ur, sr = lif_step_plain(u, s, c, **kw)
+        assert torch.equal(un, ur) and torch.equal(sn, sr)
+
+
+def test_lif_kernel_rejects_bad_inputs(cuda):
+    u, s, c = _lif_inputs((4, 8), torch.float32, 0, cuda)
+    before = lif_step_kernel.launches
+    with pytest.raises(TypeError):
+        lif_step_kernel(u.double(), s.double(), c.double())
+    with pytest.raises(TypeError):
+        lif_step_kernel(u, s.bfloat16(), c)
+    with pytest.raises(ValueError):
+        lif_step_kernel(u, s[:, :4], c)
+    with pytest.raises(ValueError):
+        lif_step_kernel(u.t(), s.t(), c.t())
+    with pytest.raises(ValueError):
+        lif_step_kernel(u, s.cpu(), c)
+    with pytest.raises(ValueError):
+        lif_step_kernel(u, s, c, reset="none")
+    assert lif_step_kernel.launches == before
+
+
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("surrogate", ["rect", "sigmoid", "atan"])
+def test_lif_function_gradients_through_the_kernel(cuda, reset, surrogate,
+                                                   monkeypatch):
+    """``snn.neurons.lif_step`` over three timesteps through the kernel, and
+    through the plain version on the card: equal states and equal
+    gradients (the backward is the same torch code; the forwards are
+    bit-identical)."""
+    from repro_torch.snn import neurons
+    cfg = neurons.LIFConfig(reset=reset, surrogate=surrogate)
+    cur = torch.as_tensor(np.random.default_rng(1).random((3, 8, 64, 16, 16),
+                                                          np.float32) * 1.5,
+                          device=cuda)
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (8, 64, 16, 16)).astype(np.float32), device=cuda)
+
+    def run():
+        x = cur.clone().requires_grad_(True)
+        u = torch.zeros_like(x[0])
+        s = torch.zeros_like(x[0])
+        for t in range(3):
+            u, s = neurons.lif_step(u, s, x[t], cfg)
+        (grad,) = torch.autograd.grad((s * g).sum() + u.sum(), x)
+        return u.detach(), s.detach(), grad
+
+    before = lif_step_kernel.launches
+    kernel = run()
+    assert lif_step_kernel.launches == before + 3
+    monkeypatch.setattr(neurons, "_lif_forward", lif_step_plain)
+    plain = run()
+    assert lif_step_kernel.launches == before + 3
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+# ---- spike matmul -------------------------------------------------------------
+
+# the reference sweep, the im2col shapes of Spike-VGG16's twelve spiking
+# convs at batch 8 (M = 8 H W, K = 9 Cin, N = Cout), and ragged edges
+MM_SHAPES = [(32, 64, 16), (70, 200, 90), (128, 384, 256), (1, 128, 128),
+             (8192, 576, 64), (2048, 576, 128), (2048, 1152, 128),
+             (512, 1152, 256), (512, 2304, 256), (128, 2304, 512),
+             (128, 4608, 512), (32, 4608, 512), (65, 17, 63)]
+
+
+def _mm_close(got, want, spikes, w):
+    """Within rtol=atol=1e-4 of the plain result, and within
+    1e-4 + 1e-4 * (|spikes| @ |w|): the float32 error of two summation
+    orders is bounded by a multiple of the sum of absolute terms."""
+    err = (got.float() - want.float()).abs()
+    scale = torch.matmul(spikes.float().abs(), w.float().abs())
+    return bool((err <= 1e-4 + 1e-4 * want.float().abs()).all()
+                and (err <= 1e-4 + 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.15, 1.0])
+def test_spike_matmul_kernel_matches_plain(cuda, m, k, n, density):
+    from repro_torch.kernels.spike_matmul import zero_tiles
+    rng = np.random.default_rng(m + k + n)
+    sp = torch.as_tensor((rng.random((m, k)) < density).astype(np.float32),
+                         device=cuda)
+    w = torch.as_tensor((rng.standard_normal((k, n)) / np.sqrt(3))
+                        .astype(np.float32), device=cuda)
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = spike_matmul_kernel.launches
+    got = spike_matmul_kernel(sp, w, skipped=skipped)
+    torch.cuda.synchronize()
+    assert spike_matmul_kernel.launches == before + 1
+    assert int(skipped.item()) == zero_tiles(sp, n)
+    want = spike_matmul_plain(sp, w)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _mm_close(got, want, sp, w)
+    if density == 0.0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_spike_matmul_kernel_skips_silent_channels(cuda):
+    """75% of the input channels silent, as im2col lays them out
+    ([Cin, kh, kw] per row): whole spike tiles are zero and skipped."""
+    from repro_torch.kernels.spike_matmul import zero_tiles
+    rng = np.random.default_rng(5)
+    sp = (rng.random((512, 256, 9)) < 0.2).astype(np.float32)
+    sp[:, rng.permutation(256)[:192]] = 0.0
+    sp = torch.as_tensor(sp.reshape(512, 2304), device=cuda)
+    w = torch.as_tensor(rng.standard_normal((2304, 256)).astype(np.float32),
+                        device=cuda)
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = spike_matmul_kernel(sp, w, skipped=skipped)
+    torch.cuda.synchronize()
+    assert int(skipped.item()) == zero_tiles(sp, 256) > 0
+    assert _mm_close(got, spike_matmul_plain(sp, w), sp, w)
+
+
+def test_spike_matmul_kernel_bf16(cuda):
+    rng = np.random.default_rng(4)
+    sp = torch.as_tensor((rng.random((64, 128)) < 0.2).astype(np.float32),
+                         device=cuda).bfloat16()
+    w = torch.as_tensor(rng.standard_normal((128, 64)).astype(np.float32),
+                        device=cuda).bfloat16()
+    got = spike_matmul_kernel(sp, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    want = spike_matmul_plain(sp, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_spike_matmul_kernel_rejects_bad_inputs(cuda):
+    sp = torch.zeros(8, 16, device=cuda)
+    w = torch.zeros(16, 4, device=cuda)
+    before = spike_matmul_kernel.launches
+    with pytest.raises(TypeError):
+        spike_matmul_kernel(sp, w.bfloat16())
+    with pytest.raises(TypeError):
+        spike_matmul_kernel(sp.double(), w.double())
+    with pytest.raises(ValueError):
+        spike_matmul_kernel(sp, w[:8])
+    with pytest.raises(ValueError):
+        spike_matmul_kernel(sp.t(), torch.zeros(8, 4, device=cuda))
+    with pytest.raises(ValueError):
+        spike_matmul_kernel(sp, w.cpu())
+    with pytest.raises(ValueError):
+        spike_matmul_kernel(sp, w, skipped=torch.zeros(1, device=cuda))
+    assert spike_matmul_kernel.launches == before
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_spike_conv_matches_fp32_conv_on_the_card(cuda, stride):
+    from repro_torch.kernels import ops
+    from repro_torch.snn import layers
+    rng = np.random.default_rng(stride)
+    sp = torch.as_tensor((rng.random((8, 15, 15, 32)) < 0.2)
+                         .astype(np.float32), device=cuda)
+    w = torch.as_tensor(rng.standard_normal((3, 3, 32, 48))
+                        .astype(np.float32), device=cuda)
+    before = spike_matmul_kernel.launches
+    got = ops.spike_conv(sp, w, stride)
+    torch.cuda.synchronize()
+    assert spike_matmul_kernel.launches == before + 1
+    with layers.fp32_convs():
+        want = layers.conv2d({"w": w.permute(3, 2, 0, 1).contiguous()},
+                             sp.permute(0, 3, 1, 2).contiguous(), stride)
+    torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=1e-4,
+                               atol=1e-4)
+
+
+# ---- the training step and the PPO scorer -----------------------------------
+
+def test_vgg16_train_step_kernel_path_is_bit_identical_to_plain(cuda,
+                                                                monkeypatch):
+    """One full-width Spike-VGG16 training step (batch 8, T=4) through the
+    LIF kernel and through its plain version on the card, deterministic
+    cuDNN: the same loss and the same gradient, bit for bit."""
+    from repro_torch.snn import bptt, models, neurons
+    cfg = models.spike_vgg16()
+    net = models.init_model(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.random((8, 32, 32, 3), np.float32), device=cuda)
+    y = torch.as_tensor(rng.integers(0, 10, 8), device=cuda)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    before = lif_step_kernel.launches
+    kernel = bptt.loss_and_grads(net, cfg, x, y)
+    torch.cuda.synchronize()
+    assert lif_step_kernel.launches == before + 13 * cfg.T
+    monkeypatch.setattr(neurons, "_lif_forward", lif_step_plain)
+    plain = bptt.loss_and_grads(net, cfg, x, y)
+    assert lif_step_kernel.launches == before + 13 * cfg.T
+    for a, b in zip(kernel[:3], plain[:3]):
+        assert torch.equal(a, b)
+    for (name, _), a, b in zip(net.named_parameters(), kernel[3], plain[3]):
+        assert torch.equal(a, b), name
+
+
+def test_ppo_with_a_cfg_scores_on_the_card_by_default(cuda):
+    """``optimize_placement(method="ppo", cfg=PPOConfig(...))`` with no
+    backend scores its rollouts through the link-traffic kernel."""
+    from repro_torch.core.graph import random_dag
+    from repro_torch.core.placement import PPOConfig, optimize_placement
+    before = link_traffic.launches
+    res = optimize_placement(random_dag(16, seed=0), NoC(4, 4),
+                             method="ppo", objective="latency",
+                             cfg=PPOConfig(batch_size=32, iterations=2))
+    assert link_traffic.launches > before
+    assert len(res.history) == 2

@@ -2,6 +2,7 @@
 update of ``repro_torch`` against the JAX package, fed the reference's
 weights and Gaussian draws (``jax.random`` and ``torch.Generator`` give
 different numbers from one seed)."""
+import dataclasses
 import os
 
 import numpy as np
@@ -197,3 +198,35 @@ def test_run_ppo_own_generator_is_seeded():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         p_ppo.run_ppo(g, PNoC(3, 3), p_ppo.PPOConfig(device_discretize=True),
                       device="cpu")
+
+
+def test_ppo_backend_default_resolves_by_device(monkeypatch):
+    """``PPOConfig().backend`` is ``None``: ``run_ppo`` resolves it by device
+    (``"batch"`` on the CPU, ``"cuda"`` on a card), and a ``cfg`` handed to
+    ``optimize_placement`` keeps an explicit backend of its own."""
+    assert p_ppo.PPOConfig().backend is None
+    g = p_graph.random_dag(8, seed=0)
+    cfg = p_ppo.PPOConfig(batch_size=4, ppo_epochs=1, iterations=2,
+                          d_gcn=8, d_fc=8, seed=5)
+    default = p_ppo.run_ppo(g, PNoC(3, 3), cfg, device="cpu")
+    batch = p_ppo.run_ppo(g, PNoC(3, 3),
+                          dataclasses.replace(cfg, backend="batch"),
+                          device="cpu")
+    assert default.history == batch.history
+    np.testing.assert_array_equal(default.best_placement, batch.best_placement)
+
+    from repro_torch.core.placement import optimizer as p_opt
+    asked = []
+    real = p_ppo.make_scorer
+
+    def spy(noc, graph, backend, objective, recorder=None, device=None):
+        asked.append(backend)
+        return real(noc, graph, backend, objective, recorder=recorder,
+                    device=device)
+
+    monkeypatch.setattr(p_ppo, "make_scorer", spy)
+    for backend in (None, "torch"):
+        p_opt.optimize_placement(
+            g, PNoC(3, 3), method="ppo", device="cpu",
+            cfg=dataclasses.replace(cfg, backend=backend))
+    assert asked == ["batch", "torch"]
