@@ -23,7 +23,12 @@ Phases, each of which fails the run loudly:
    the input channels silent, within rtol=atol=1e-4 (and within 1e-4 +
    1e-4 x each product's sum of absolute terms), with its count of skipped
    tiles exact; ``spike_conv``
-   against ``F.conv2d`` (TF32 off) at stride 1 and 2;
+   against ``F.conv2d`` (TF32 off) at stride 1 and 2; ``flash_attention``
+   at the reference sweep's shapes (float32, window None and 37, and the
+   bfloat16 case), the served internlm2-1.8b prefill (B4, H16, Hkv 8,
+   S2048, D128, bf16, causal), h2o-danube's (H32, Hkv 8, D80, S4608,
+   window 4096), S off the 64-row tile, D=256 and non-causal input, within
+   rtol=atol=1e-5 in float32 and 1e-2 in bfloat16;
 3. hold ``evaluate_batch(backend="cuda")`` against the numpy float64 backend
    on the main path's graph for 256 random placements, and the device SA's
    ``_swap_delta`` (through ``delta_cost``) against the numpy
@@ -58,6 +63,17 @@ Phases, each of which fails the run loudly:
    time from CUDA events around replays of a CUDA graph of 100 calls. The
    ``lif`` and ``spike_matmul`` rows sum one Spike-VGG16 timestep's calls
    (13 LIF states; 12 spiking-conv products with the path's own spikes).
+   The ``flash_attention`` row is one layer's attention of the served
+   prefill, against ``F.scaled_dot_product_attention``, measured after
+   phase 10 (10 calls to a graph);
+10. serve LMs at full width through ``launch.serve.generate`` (seeded bf16
+    weights, greedy): ``internlm2-1.8b`` (all 24 layers) at batch 4, prompt
+    2048, 32 tokens (24 flash launches), and ``h2o-danube-1.8b`` cut to 4
+    layers at batch 1, prompt 4608 (past its 4096 window), 8 tokens; time
+    to first token, decode per token, tokens/s, peak device memory, one
+    profiled prefill and decode step; the prefill again through the attention's plain version
+    (last-position logits within relative L2 5e-2) and prefill + decode
+    against ``forward`` on the same tokens (the same tolerance).
 
 Every path starts with all launch counts set to 0 and reads them just after.
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
@@ -66,6 +82,7 @@ Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -622,9 +639,10 @@ def _recording(forward):
         neurons._lif_forward, bptt.model_rollout = real_forward, real_rollout
 
 
-def _profile_step(step, label: str):
+def _profile_step(step, label: str, kernel: str = "lif_kernel"):
     """torch.profiler over one call of ``step``: wall, device kernel time,
-    busy share, kernel count and the LIF kernel's share."""
+    busy share, kernel count and the share of the kernels whose name holds
+    ``kernel``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -642,13 +660,13 @@ def _profile_step(step, label: str):
         print(f"[{label}-profile] one step: wall {wall!r} s; device time not "
               "measured (the profiler recorded no device events)")
         return None
-    lif_us = sum(e.self_device_time_total for e in kernels
-                 if "lif_kernel" in e.key)
+    own_us = sum(e.self_device_time_total for e in kernels
+                 if kernel in e.key)
     n = sum(e.count for e in kernels)
     print(f"[{label}-profile] one step under the profiler: wall {wall!r} s; "
           f"device kernel time {dev_us / 1e6!r} s (busy share "
-          f"{dev_us / 1e6 / wall!r}); {n} kernels; lif kernel "
-          f"{lif_us / 1e6!r} s ({lif_us / dev_us!r} of device time)")
+          f"{dev_us / 1e6 / wall!r}); {n} kernels; {kernel} "
+          f"{own_us / 1e6!r} s ({own_us / dev_us!r} of device time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{label}-profile] kernel x{e.count} "
               f"{e.self_device_time_total / 1e3:.3f} ms {e.key[:90]}")
@@ -914,6 +932,273 @@ def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
     return [lif_row, mm_row]
 
 
+# ---- the LM serving slice: the flash-attention kernel, prefill and decode ----
+
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
+# (s, d, h, hkv) of the reference's kernel sweep (tests/test_kernels.py)
+REFERENCE_FLASH_SHAPES = [(128, 64, 4, 4), (160, 48, 4, 2), (256, 128, 2, 1)]
+SERVED = dict(batch=4, prompt_len=2048, gen_len=32)   # internlm2-1.8b
+DANUBE = dict(batch=1, prompt_len=4608, gen_len=8, layers=4)
+# kernel vs plain: float32 within a reordered float32 sum; bfloat16 within
+# about two roundings of the output at bfloat16's 2^-8 relative step
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the bf16 model's logits through two routes (kernel vs plain attention;
+# decode vs forward): relative L2 error, since 24 layers of bf16 rounding
+# (unit roundoff 2^-9) in other places random-walk to about 1e-2
+LOGITS_REL_TOL = 5e-2
+
+
+def _check_flash(dev):
+    """Phase 2, ``flash_attention`` part: the kernel against its plain
+    version. Returns the max abs error at the served prefill shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def case(name, b, h, hkv, s, d, window, dtype, causal=True):
+        q = (torch.randn(b, h, s, d, generator=gen, device=dev) * 0.5)
+        k = (torch.randn(b, hkv, s, d, generator=gen, device=dev) * 0.5)
+        v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (got.dtype == dtype and bool(torch.isfinite(got).all())
+              and torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        print(f"[kernel] flash_attention {name} B{b} H{h} Hkv{hkv} S{s} D{d} "
+              f"window {window} causal {causal} {dtype}: max_abs_err={err!r} "
+              f"(rtol=atol={tol}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on {name}")
+        return err
+
+    for s, d, h, hkv in REFERENCE_FLASH_SHAPES:
+        for window in (None, 37):
+            case("reference sweep", 2, h, hkv, s, d, window, torch.float32)
+    case("reference bf16", 1, 2, 2, 128, 64, None, torch.bfloat16)
+    case("S off the tile", 2, 4, 2, 200, 80, 50, torch.float32)
+    case("S off the tile", 1, 3, 1, 77, 16, 5, torch.bfloat16)
+    case("D=256", 2, 4, 2, 200, 256, None, torch.float32)
+    case("non-causal", 2, 4, 2, 192, 32, None, torch.float32, causal=False)
+    case("h2o-danube", 1, 32, 8, 4608, 80, 4096, torch.bfloat16)
+    return case("served internlm2 prefill", SERVED["batch"], 16, 8,
+                SERVED["prompt_len"], 128, None, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def _attention_route(fn):
+    """Within the scope, the model's causal self-attention on the card runs
+    ``fn`` (the kernel or its plain version)."""
+    from repro_torch.models import layers
+    real = layers._flash_forward
+    layers._flash_forward = fn
+    try:
+        yield
+    finally:
+        layers._flash_forward = real
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
+    """Phase 10: serve ``cfg`` at full width through ``launch.serve.generate``
+    (seeded bf16 weights, greedy), with the flash kernel's launches; time to
+    first token and decode per token from the pieces ``generate`` runs;
+    one profiled prefill and decode step; prefill through the plain version
+    of the attention against the kernel's; decode against ``forward``.
+    Returns (flash launches of the main run, kernel-vs-plain rel. error)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize, n_params, param_bytes
+    specs = lm.lm_specs(cfg)
+    t0 = time.perf_counter()
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}, kv heads {cfg.n_kv_heads}, "
+          f"d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}; {n_params(specs)} parameters, {param_bytes(specs)} "
+          f"bytes ({cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0!r} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                (batch, prompt_len))
+    n_new = batch * gen_len
+
+    # the main path: one generate call, as a user makes it
+    _reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, prompts, gen_len, device=dev)
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    launches = _counts(kernels)
+    flash = launches["flash_attention_kernel"]
+    print(f"[{label}] generate batch {batch}, prompt {prompt_len}, {gen_len} "
+          f"greedy tokens: wall {wall_first!r} s (first call); peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes; launches "
+          f"{launches}")
+    if flash != cfg.n_layers:
+        raise AssertionError(f"{label}: {flash} flash launches, not one per "
+                             f"layer of the prefill ({cfg.n_layers})")
+    if (tuple(toks.shape) != (batch, prompt_len + gen_len)
+            or not torch.equal(toks[:, :prompt_len].cpu(),
+                               torch.as_tensor(prompts))
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab):
+        raise AssertionError(f"{label}: generate returned bad tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = generate(params, cfg, prompts, gen_len, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[{label}] generate again: wall {wall!r} s, {n_new / wall!r} "
+          f"new tokens/s end to end (prefill included); tokens equal to the "
+          f"first call's: {torch.equal(toks, toks2)}")
+
+    # time to first token and decode per token: the steps generate takes
+    pt = torch.as_tensor(prompts, device=dev)
+    gen_toks = toks[:, prompt_len:]
+    with torch.inference_mode():
+        cache = materialize(lm.cache_specs(cfg, batch, prompt_len + gen_len),
+                            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, pt, cache)
+        first = torch.argmax(logits[:, -1], dim=-1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        seen = [logits[:, -1].clone()]
+        steps = []
+        for i in range(gen_len):
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           gen_toks[:, i:i + 1],
+                                           prompt_len + i)
+            torch.argmax(logits[:, -1], dim=-1)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            seen.append(logits[:, -1].clone())
+        step_s = sum(steps[1:]) / max(len(steps) - 1, 1)
+        print(f"[{label}] time to first token (prefill of {batch} x "
+              f"{prompt_len} and the argmax) {ttft!r} s; decode "
+              f"{step_s * 1e3!r} ms per token step (mean after the first; "
+              f"first {steps[0] * 1e3!r} ms), {batch / step_s!r} tokens/s "
+              f"at batch {batch}; first token equal to generate's: "
+              f"{torch.equal(first, gen_toks[:, 0])}")
+
+        _profile_step(lambda: lm.prefill(params, cfg, pt, cache),
+                      f"{label}-prefill", "flash_fwd_kernel")
+        _profile_step(lambda: lm.decode_step(params, cfg, cache,
+                                             gen_toks[:, -1:],
+                                             prompt_len + gen_len - 1),
+                      f"{label}-decode", "flash_fwd_kernel")
+
+        # the same prefill with the attention's plain version
+        with _attention_route(flash_attention_plain):
+            plain_cache = materialize(
+                lm.cache_specs(cfg, batch, prompt_len + gen_len), device=dev)
+            plain_logits, _ = lm.prefill(params, cfg, pt, plain_cache)
+            torch.cuda.synchronize()
+        kernel_logits = seen[0]
+        rel = _rel_err(kernel_logits, plain_logits[:, -1])
+        mx = (kernel_logits.float() - plain_logits[:, -1].float()).abs().max()
+        same_tok = torch.equal(kernel_logits.argmax(-1),
+                               plain_logits[:, -1].argmax(-1))
+        print(f"[{label}] prefill last-position logits, kernel vs plain "
+              f"attention: relative L2 error {rel!r} (tolerance "
+              f"{LOGITS_REL_TOL}), max abs {mx.item()!r} (logits up to "
+              f"{plain_logits.float().abs().max().item()!r}); greedy first "
+              f"token equal: {same_tok}")
+        if not rel <= LOGITS_REL_TOL:
+            raise AssertionError(f"{label}: kernel and plain prefill logits "
+                                 f"differ by {rel!r}")
+        with _attention_route(flash_attention_plain):
+            plain_toks = generate(params, cfg, prompts, gen_len, device=dev)
+        agree = (plain_toks[:, prompt_len:] == gen_toks).float().mean()
+        print(f"[{label}] greedy tokens through the plain attention equal to "
+              f"the kernel path's: {agree.item()!r} of {n_new} (not gated: "
+              f"random-weight bf16 logits tie)")
+
+        # decode against forward on the same tokens
+        full, _ = lm.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        errs = [_rel_err(got, full[:, prompt_len - 1 + i])
+                for i, got in enumerate(seen)]
+        print(f"[{label}] prefill + decode logits vs forward over the "
+              f"{prompt_len + gen_len} tokens: relative L2 error max "
+              f"{max(errs)!r}, mean {sum(errs) / len(errs)!r} over "
+              f"{len(errs)} positions (tolerance {LOGITS_REL_TOL})")
+        if not max(errs) <= LOGITS_REL_TOL:
+            raise AssertionError(f"{label}: decode disagrees with forward")
+        if not all(bool(torch.isfinite(t.float()).all()) for t in seen):
+            raise AssertionError(f"{label}: logits are not finite")
+    del params, cache, plain_cache, full
+    torch.cuda.empty_cache()
+    return flash, rel
+
+
+def _time_flash(dev, card, launches, err):
+    """Phase 9, ``flash_attention`` row: one layer's attention at the served
+    prefill shape (B4, H16, Hkv8, S2048, D128, bf16, causal) through the
+    kernel, its plain version and ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     visible_pairs)
+    b, h, hkv, s, d = SERVED["batch"], 16, 8, SERVED["prompt_len"], 128
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    fns = (lambda: flash_attention_kernel(q, k, v),
+           lambda: flash_attention_plain(q, k, v),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True))
+    lib_err = (fns[2]().float() - fns[1]().float()).abs().max().item()
+    dev_ms = [_graph_ms(f, reps=10, replays=5) for f in fns]
+    ms = [_time_ms(f, reps=20, warmup=3) for f in fns]
+    pairs = visible_pairs(s) * b * h
+    n_ops = 4 * d * pairs                 # q.k and p.v, 2 flops per MAC
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, out
+    t_ops, t_bytes = n_ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:80",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms[0], "plain_ms": ms[1],
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": ms[2], "device_ms": dev_ms[0],
+        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "calls": "one layer's attention of the internlm2-1.8b prefill "
+                 "(B4, H16, Hkv8, S2048, D128, bf16, causal)",
+    }
+    print(f"[time] flash_attention B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
+          f"kernel {ms[0]!r} ms, plain {ms[1]!r} ms, "
+          f"scaled_dot_product_attention {ms[2]!r} ms (per call); device "
+          f"{dev_ms[0]!r}, {dev_ms[1]!r}, {dev_ms[2]!r} ms; bound "
+          f"{row['bound_ms']!r} ms ({n_ops} flops over {pairs} visible "
+          f"pairs at {BF16_OPS_PER_S:.3g} flop/s; {n_bytes} bytes); kernel "
+          f"{n_ops / dev_ms[0] / 1e9!r} TFLOP/s; SDPA vs plain max_abs "
+          f"{lib_err!r}; card {card}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -929,6 +1214,7 @@ def main() -> int:
     from repro_torch.deploy import as_objective, deploy_model
     from repro_torch.kernels import _build
     from repro_torch.kernels import delta_cost as delta_mod
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.delta_cost import delta_cost, delta_cost_plain
     from repro_torch.kernels import lif as lif_mod
     from repro_torch.kernels import spike_matmul as mm_mod
@@ -948,11 +1234,12 @@ def main() -> int:
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
     kernels = (link_traffic, delta_cost, lif_mod.lif_step_kernel,
-               mm_mod.spike_matmul_kernel)
+               mm_mod.spike_matmul_kernel, fa_mod.flash_attention_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    names = [KERNEL, delta_mod.KERNEL, lif_mod.KERNEL, mm_mod.KERNEL]
+    names = [KERNEL, delta_mod.KERNEL, lif_mod.KERNEL, mm_mod.KERNEL,
+             fa_mod.KERNEL]
     _build.build(names)
     print(f"[build] {', '.join(names)} (in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1024,6 +1311,7 @@ def main() -> int:
     resnet = spike_resnet18()
     _check_lif(dev, rng, vgg, resnet)
     _check_spike_matmul(dev, rng, vgg)
+    flash_err = _check_flash(dev)
 
     # ---- phase 3: cuda backend vs numpy backend --------------------------------
     P = _random_placements(rng, graph.n, noc.n_cores, 256)
@@ -1193,6 +1481,19 @@ def main() -> int:
     })
     rows += _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
                               mm_launches, mm_err)
+
+    # ---- phase 10: the LM token server at full width ---------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Segment
+    flash_launches, _ = _serve_path(get_config("internlm2-1.8b"), "serve",
+                                    SERVED["batch"], SERVED["prompt_len"],
+                                    SERVED["gen_len"], dev, kernels)
+    danube = get_config("h2o-danube-1.8b")
+    danube = dataclasses.replace(danube, segments=(
+        Segment("attn", "dense", DANUBE["layers"]),))
+    _serve_path(danube, "serve-danube", DANUBE["batch"],
+                DANUBE["prompt_len"], DANUBE["gen_len"], dev, kernels)
+    rows.append(_time_flash(dev, card, flash_launches, flash_err))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

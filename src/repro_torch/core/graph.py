@@ -234,3 +234,101 @@ def moe_dag(n_blocks: int, n_experts: int, top_k: int = 8, seed: int = 0,
     memory = np.full(n, 1e5)
     memory[np.add.outer(np.arange(0, n, stride), 1 + e).ravel()] = 4e6
     return LogicalGraph(adj, compute, memory)
+
+
+def transformer_graph(config="qwen3-moe-30b-a3b", n_shards: int = 4,
+                      seq_len: int = 4096, dtype_bytes: int = 2,
+                      seed: int = 0) -> LogicalGraph:
+    """Transformer-derived :class:`LogicalGraph` from a ``repro_torch.configs``
+    LM config: per-shard FLOPs and activation/collective byte volumes counted
+    the way the JAX package's ``core.hlo_analysis`` counts them (matmul
+    FLOPs = 2mnk, collective wire bytes from operand bytes and participant
+    count).
+
+    Nodes: an embed node; per layer ``n_shards`` tensor-parallel attention
+    shards, then either ``n_shards`` dense-MLP shards or (MoE layers) a
+    router, one node per expert, and a combine node; a final head node.
+    Edges: activation volume ``seq*d_model*dtype/n_shards`` along the layer
+    chain, a reduce-scatter chain among a layer's attention shards (ring
+    collective minus the wrap edge, keeping the DAG acyclic), and
+    expected-token dispatch/combine volumes ``seq*top_k/n_experts`` to each
+    expert. ``qwen3-moe-30b-a3b`` yields ~6.4k nodes, ``deepseek-v3-671b``
+    ~15k — the 10^4-node regime of the ROADMAP's LLM-serving workloads.
+    """
+    if isinstance(config, str):
+        from ..configs.registry import get_config   # lazy: configs pull torch
+        cfg = get_config(config)
+    else:
+        cfg = config
+    d = cfg.d_model
+    act = seq_len * d * dtype_bytes / n_shards       # per-shard activations
+    ring = act * (n_shards - 1) / max(n_shards, 1)   # reduce-scatter volume
+    layers = []                                      # (mlp_kind,) per layer
+    for seg in cfg.segments:
+        layers.extend([seg.mlp] * seg.count)
+
+    # ---- first pass: node ids -------------------------------------------
+    names, compute, memory = [], [], []
+
+    def add(name, flops, bytes_):
+        names.append(name)
+        compute.append(flops)
+        memory.append(bytes_)
+        return len(names) - 1
+
+    embed = add("embed", 2.0 * seq_len * d, cfg.vocab * d * dtype_bytes)
+    attn_of, out_of = [], []       # per layer: attn shard ids, output ids
+    mo = cfg.moe
+    for li, mlp in enumerate(layers):
+        # per-shard attention FLOPs: qkvo projections + score/value matmuls
+        qkvo = 4.0 * d * getattr(cfg, "n_heads", 1) * getattr(cfg, "d_head", d)
+        attn_flops = (2.0 * seq_len * qkvo
+                      + 4.0 * seq_len * seq_len * d) / n_shards
+        attn_w = 4.0 * d * d * dtype_bytes / n_shards
+        shards = [add(f"l{li}.attn{s}", attn_flops, attn_w)
+                  for s in range(n_shards)]
+        attn_of.append(shards)
+        if mlp == "moe" and mo is not None:
+            router = add(f"l{li}.router", 2.0 * seq_len * d * mo.n_experts,
+                         d * mo.n_experts * dtype_bytes)
+            toks = seq_len * mo.top_k / mo.n_experts   # expected routed tokens
+            experts = [add(f"l{li}.e{x}", 6.0 * toks * d * mo.d_ff,
+                           3.0 * d * mo.d_ff * dtype_bytes)
+                       for x in range(mo.n_experts)]
+            combine = add(f"l{li}.combine", 2.0 * seq_len * d,
+                          d * dtype_bytes)
+            out_of.append(("moe", router, experts, combine))
+        else:
+            mlp_flops = 6.0 * seq_len * d * cfg.d_ff / n_shards
+            mlp_w = 3.0 * d * cfg.d_ff * dtype_bytes / n_shards
+            mids = [add(f"l{li}.mlp{s}", mlp_flops, mlp_w)
+                    for s in range(n_shards)]
+            out_of.append(("dense", mids))
+    head = add("head", 2.0 * seq_len * d * cfg.vocab,
+               cfg.vocab * d * dtype_bytes)
+
+    # ---- second pass: edges (vectorized per layer) ----------------------
+    n = len(names)
+    adj = np.zeros((n, n))
+    prev = [embed]                  # previous layer's output nodes
+    for li, mlp in enumerate(layers):
+        shards = np.asarray(attn_of[li])
+        src = np.asarray(prev)
+        adj[src[:, None], shards[None, :]] = act / max(src.size, 1)
+        adj[shards[:-1], shards[1:]] = ring          # reduce-scatter chain
+        spec = out_of[li]
+        if spec[0] == "moe":
+            _, router, experts, combine = spec
+            experts = np.asarray(experts)
+            adj[shards, router] = act
+            toks_bytes = (seq_len * mo.top_k / mo.n_experts) * d * dtype_bytes
+            adj[router, experts] = toks_bytes
+            adj[experts, combine] = toks_bytes
+            prev = [combine]
+        else:
+            mids = np.asarray(spec[1])
+            adj[shards, mids] = act                  # shard-local residual
+            prev = list(mids)
+    adj[np.asarray(prev), head] = act
+    return LogicalGraph(adj, np.asarray(compute), np.asarray(memory),
+                        names=names)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...device import resolve_device
 from .gcn import GCN, fan_in_param, normal_param
 
 LOG_STD_MIN, LOG_STD_MAX = -4.0, 1.0
@@ -109,10 +110,12 @@ def _load(module: nn.Module, params: dict, device):
     return module.to(device)
 
 
-def from_reference_params(actor: dict, critic: dict, device="cpu"):
+def from_reference_params(actor: dict, critic: dict, device=None):
     """The reference's actor/critic parameter pytrees (nested dicts of numpy
     arrays: ``{"gcn": {"w0","b0","w1","b1"}, "fc1_w", "fc1_b", "fc2_w",
-    "fc2_b"}``) as the port's (Actor, Critic) on ``device``."""
+    "fc2_b"}``) as the port's (Actor, Critic) on ``device`` (``None``: the
+    card)."""
+    device = resolve_device(device)
     d_feat, d_gcn = np.shape(actor["gcn"]["w0"])
     d_fc = np.shape(actor["fc1_w"])[1]
     return (_load(Actor(d_feat, d_gcn, d_fc), actor, device),

@@ -1,16 +1,17 @@
-"""Public entry points of the SNN kernels, with the reference's call
+"""Public entry points of the kernels, with the reference's call
 contracts (``repro.kernels.ops``), so one test can hand the same arrays to
 both packages.
 
 The reference's wrappers flatten and pad every input to the TPU's tiles; the
 port's kernels take any size, so these wrappers only make inputs contiguous
 and reshape. CUDA tensors go through the kernels, CPU tensors through their
-plain versions. ``flash_attention`` comes with its kernel.
+plain versions.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
+from .flash_attention import flash_attention_kernel
 from .lif import lif_step_kernel
 from .spike_matmul import spike_matmul_kernel
 
@@ -61,3 +62,15 @@ def spike_conv(spikes, w, stride: int = 1):
     lhs, rhs = im2col(spikes, w, stride)
     return spike_matmul(lhs, rhs).reshape(b, -(-h // stride), -(-wd // stride),
                                           w.shape[3])
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    block_q: int = 128, block_k: int = 128):
+    """``q [B, H, S, D]``, ``k``/``v [B, Hkv, S, D]`` -> ``[B, H, S, D]`` in
+    ``q.dtype``, scaled by ``1/sqrt(D)`` of the true head dim. The kernel
+    takes any ``S`` and ``D``, so nothing is padded; ``block_q`` and
+    ``block_k`` keep the reference's contract, under which non-causal input
+    whose ``S`` is not a multiple of ``max(block_q, block_k)`` raises."""
+    if not causal and q.shape[2] % max(block_q, block_k):
+        raise ValueError("non-causal attention requires S % block == 0")
+    return flash_attention_kernel(q, k, v, causal=causal, window=window)

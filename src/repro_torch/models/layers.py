@@ -1,0 +1,279 @@
+"""Shared transformer building blocks (``repro.models.layers``), forward only.
+
+Activation layout is BSHD (``[batch, seq, heads, head_dim]``), as in the
+reference; parameters are nested dicts of tensors under the reference's
+names (``wq [d, H, Dh]``, ``wo [H, Dh, d]``, ...).
+
+Attention has two routes and no switch between them. On a CUDA tensor,
+causal self-attention (``pos_offset == 0``, ``Skv == S``, with or without a
+window) goes through the flash kernel (``kernels/flash_attention.py``), which
+computes the same function as the reference's blockwise online softmax; the
+kernel has no backward yet, so a gradient through it raises. Everything else
+(CPU tensors, cross-attention, decode) runs the reference's algorithm in
+plain torch: ``blockwise_attention``'s q chunks over static kv ranges, and
+``_flash_fwd_impl``'s online softmax over kv sub-chunks.
+
+The reference's sharding constraints are identities on one card:
+``seq_shard_attn`` keeps only its effect of a single q chunk.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import flash_attention as _fa
+from .specs import param
+
+NEG_INF = -1e30
+
+# the attention of the kernel route; a module attribute so that a check can
+# swap in the plain version on the card and compare the two
+_flash_forward = _fa.flash_attention_kernel
+
+
+# ---- norms -------------------------------------------------------------------
+
+def rmsnorm_specs(d: int):
+    return {"scale": param((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# ---- rope ----------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float = 1e4, device=None):
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / d_head))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x [..., S, H, D] (D even), positions [..., S] int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # [D/2]
+    angles = positions[..., None].float() * freqs          # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---- linear / embedding ---------------------------------------------------------
+
+def linear_specs(d_in: int, d_out: int, axes=("embed", "mlp"),
+                 dtype=torch.bfloat16):
+    return {"w": param((d_in, d_out), axes, dtype=dtype)}
+
+
+def embed_specs(vocab: int, d: int, dtype=torch.bfloat16):
+    return {"table": param((vocab, d), ("vocab", "embed"), dtype=dtype,
+                           scale=0.02)}
+
+
+def embed(p, ids):
+    return F.embedding(ids, p["table"])
+
+
+# ---- SwiGLU MLP ------------------------------------------------------------------
+
+def mlp_specs(d: int, f: int, dtype=torch.bfloat16):
+    return {
+        "w_gate": param((d, f), ("embed", "mlp"), dtype=dtype),
+        "w_up": param((d, f), ("embed", "mlp"), dtype=dtype),
+        "w_down": param((f, d), ("mlp", "embed"), dtype=dtype),
+    }
+
+
+def mlp(p, x):
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    return (F.silu(g) * u) @ p["w_down"]
+
+
+# ---- attention -------------------------------------------------------------------
+
+def attn_specs(d: int, n_heads: int, n_kv: int, d_head: int,
+               dtype=torch.bfloat16):
+    return {
+        "wq": param((d, n_heads, d_head), ("embed", "heads", "head_dim"),
+                    dtype=dtype),
+        "wk": param((d, n_kv, d_head), ("embed", "kv_heads", "head_dim"),
+                    dtype=dtype),
+        "wv": param((d, n_kv, d_head), ("embed", "kv_heads", "head_dim"),
+                    dtype=dtype),
+        "wo": param((n_heads, d_head, d), ("heads", "head_dim", "embed"),
+                    dtype=dtype),
+    }
+
+
+def _mask_scores(s, qpos, kpos, window, causal):
+    mask = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                      device=s.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return s.masked_fill(~mask, NEG_INF)
+
+
+def _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal, k_chunk):
+    """Online softmax of one q chunk ``[B, cq, H, D]`` over ``k``/``v``
+    ``[B, Skv, Hkv, D]`` in kv sub-chunks, grouped by kv head. Returns
+    ``(out [B, cq, H, D] in q.dtype, lse [B, Hkv, rep, cq])``."""
+    b, cq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / (d ** 0.5)
+    ck = min(k_chunk, skv)
+    if skv % ck:
+        ck = skv
+    qg = q.reshape(b, cq, hkv, rep, d).float()
+    qpos = qpos0 + torch.arange(cq, device=q.device)
+    m_run = torch.full((b, hkv, rep, cq), NEG_INF, device=q.device)
+    l_run = torch.zeros(b, hkv, rep, cq, device=q.device)
+    acc = torch.zeros(b, hkv, rep, cq, d, device=q.device)
+    for idx in range(skv // ck):
+        k_blk = k[:, idx * ck:(idx + 1) * ck].float()
+        v_blk = v[:, idx * ck:(idx + 1) * ck].float()
+        kpos = kpos0 + idx * ck + torch.arange(ck, device=q.device)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_blk)
+        s = _mask_scores(s * scale, qpos, kpos, window, causal)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p,
+                                                    v_blk)
+        m_run = m_new
+    l_safe = l_run.clamp_min(1e-30)
+    out = acc / l_safe[..., None]
+    lse = m_run + torch.log(l_safe)
+    out_b = out.permute(0, 3, 1, 2, 4).reshape(b, cq, h, d).to(q.dtype)
+    return out_b, lse
+
+
+def _kernel_route(q, skv: int, pos_offset: int, causal: bool) -> bool:
+    """Causal self-attention on a CUDA tensor: the flash kernel's case."""
+    return (q.device.type == "cuda" and causal and pos_offset == 0
+            and skv == q.shape[1])
+
+
+def blockwise_attention(q, k, v, *, window: int | None = None,
+                        q_chunk: int = 1024, k_chunk: int = 1024,
+                        pos_offset: int = 0, causal: bool = True):
+    """Causal (optionally sliding-window) or bidirectional attention, BSHD.
+
+    q [B,S,H,D], k/v [B,Skv,HKV,D] with Skv == S + pos_offset (self-attention:
+    pos_offset=0; cross-attention: causal=False, any Skv). On a CUDA tensor,
+    causal self-attention is one flash-kernel launch; otherwise a Python loop
+    over q chunks with static kv ranges (never-visible blocks skipped) and
+    an online softmax over kv sub-chunks, as in the reference.
+    """
+    b, s, h, d = q.shape
+    skv = k.shape[1]
+    if _kernel_route(q, skv, pos_offset, causal):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "the flash kernel has no backward yet: gradients of LM "
+                "attention on the card come with LM training (ROADMAP "
+                "queue 1 item 10)")
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _flash_forward(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=True, window=window,
+                       out=out.transpose(1, 2))
+        return out
+    cq = min(q_chunk, s)
+    if s % cq:
+        cq = s                       # small/odd seq: single chunk
+    outs = []
+    for qi in range(s // cq):
+        q_blk = q[:, qi * cq:(qi + 1) * cq]
+        hi = pos_offset + (qi + 1) * cq if causal else skv
+        lo = 0
+        if window is not None:
+            lo = max(0, pos_offset + qi * cq - window + 1)
+        ck = min(k_chunk, hi - lo)
+        if hi % ck and (hi - lo) % ck:
+            ck = hi - lo             # non-aligned range: single sub-chunk
+        # align the static slice to sub-chunk multiples
+        n_sub = -(-(hi - lo) // ck)
+        lo_al = max(0, hi - n_sub * ck)
+        out, _ = _flash_fwd_impl(q_blk, k[:, lo_al:hi], v[:, lo_al:hi],
+                                 pos_offset + qi * cq, lo_al, window, causal,
+                                 ck)
+        outs.append(out)
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *,
+                     window: int | None = None):
+    """Single-step decode: q [B,1,H,D], caches [B,Smax,HKV,D], pos int.
+
+    Attends to cache entries ``pos - window < j <= pos`` (the caller has
+    already written the current token at ``pos``). The reference masks the
+    rest of the cache with -1e30, whose softmax weights are exactly 0; the
+    port reads only the visible slice, which gives the same sums.
+    """
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    rep = h // hkv
+    scale = 1.0 / (d ** 0.5)
+    lo = 0 if window is None else max(0, pos - window + 1)
+    k_vis = k_cache[:, lo:pos + 1].float()
+    v_vis = v_cache[:, lo:pos + 1].float()
+    qg = q.reshape(b, hkv, rep, d).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_vis) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", p, v_vis)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def attention_block(p, x, positions, cfg, cache=None, pos=None):
+    """Full GQA/SWA attention sublayer (no norm/residual: the caller owns
+    those).
+
+    Train/prefill: blockwise attention over x itself; a ``cache`` dict is
+    filled at [0, S). Decode: cache given and x has S == 1 -> write the
+    cache at ``pos`` and attend to it. The port writes caches in place (the
+    reference donates them) and returns the same dict. Returns
+    ``(out [B, S, d_model], cache or None)``.
+
+    With ``repeat_kv`` the reference materialises K/V at the full head
+    count; the kernel's GQA map reads kv head ``h // rep`` instead, which is
+    the same, so only the plain route repeats.
+    """
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None and s == 1:
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        out = decode_attention(q, cache["k"], cache["v"], pos,
+                               window=cfg.window)
+    else:
+        if cache is not None:
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+        kk, vv = k, v
+        # sequence-parallel attention: one q chunk (its K/V all-gather is
+        # an identity on one card)
+        q_chunk = s if getattr(cfg, "seq_shard_attn", False) else cfg.q_chunk
+        if (getattr(cfg, "repeat_kv", False)
+                and not _kernel_route(q, s, 0, True)):
+            rep = q.shape[2] // k.shape[2]
+            kk = kk.repeat_interleave(rep, dim=2)
+            vv = vv.repeat_interleave(rep, dim=2)
+        out = blockwise_attention(q, kk, vv, window=cfg.window,
+                                  q_chunk=q_chunk, k_chunk=cfg.k_chunk)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, cache

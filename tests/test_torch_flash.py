@@ -1,0 +1,127 @@
+"""The port's flash attention against the JAX package, on the CPU.
+
+``repro_torch.kernels.ops.flash_attention`` runs its kernel's plain version
+for CPU tensors; it is held here against the reference's
+``ops.flash_attention`` (the Pallas kernel in interpret mode) at the
+reference sweep's shapes (``tests/test_kernels.py``), on the same inputs
+made with numpy. Tolerances: float32 within atol=rtol=2e-5 (both compute a
+float32 softmax; the sums run in another order); bfloat16 within
+atol=rtol=1e-2 of the reference's bfloat16 output (about two roundings of a
+value near 1 at bfloat16's 2^-8 relative step). The CUDA kernel itself is
+held against the plain version on the card (``test_torch_kernels_gpu.py``).
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as r_ops  # noqa: E402
+from repro.kernels import ref as r_ref  # noqa: E402
+from repro_torch.kernels import flash_attention as p_fa  # noqa: E402
+from repro_torch.kernels import ops as p_ops  # noqa: E402
+from repro_torch.kernels import ref as p_ref  # noqa: E402
+
+
+def _qkv(seed, b, h, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, h, s, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, s, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("s,d,h,hkv", [(128, 64, 4, 4), (160, 48, 4, 2),
+                                       (256, 128, 2, 1)])
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_attention_matches_reference_kernel(s, d, h, hkv, window):
+    q, k, v = _qkv(s + d, 2, h, hkv, s, d)
+    want = r_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True, window=window,
+                                 block_q=64, block_k=64)
+    got = p_ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                torch.as_tensor(v), causal=True,
+                                window=window, block_q=64, block_k=64)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_reference_kernel():
+    q, k, v = _qkv(3, 1, 2, 2, 128, 64)
+    to_j = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    to_t = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    want = r_ops.flash_attention(to_j(q), to_j(k), to_j(v), block_q=64,
+                                 block_k=64)
+    got = p_ops.flash_attention(to_t(q), to_t(k), to_t(v), block_q=64,
+                                block_k=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("s,window,causal", [(77, None, True), (77, 5, True),
+                                             (128, None, False),
+                                             (128, 40, False)])
+def test_plain_version_matches_reference_oracle(s, window, causal):
+    """``ref.attention_ref`` under the reference's name, any S, causal or
+    not, with a window: the reference's dense oracle within float32
+    tolerance."""
+    q, k, v = _qkv(s, 2, 4, 2, s, 16)
+    want = r_ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, window=window)
+    got = p_ref.attention_ref(torch.as_tensor(q), torch.as_tensor(k),
+                              torch.as_tensor(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_gqa_map_equals_repeated_heads():
+    """Head h reads kv head h // (H / Hkv): the same as repeating K/V along
+    heads (``jnp.repeat``), which the model's ``repeat_kv`` does."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(5, 2, 8, 2, 50, 16))
+    grouped = p_fa.flash_attention_plain(q, k, v, window=9)
+    repeated = p_fa.flash_attention_plain(q, k.repeat_interleave(4, dim=1),
+                                          v.repeat_interleave(4, dim=1),
+                                          window=9)
+    assert torch.equal(grouped, repeated)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, k, v = (torch.as_tensor(a) for a in _qkv(7, 1, 2, 1, 33, 8))
+    before = p_fa.flash_attention_kernel.launches
+    out = torch.empty(1, 33, 2, 8).transpose(1, 2)        # strided out
+    got = p_fa.flash_attention_kernel(q, k, v, window=4, out=out)
+    assert got is out
+    assert p_fa.flash_attention_kernel.launches == before
+    assert torch.equal(out, p_fa.flash_attention_plain(q, k, v, window=4))
+
+
+def test_contract_errors():
+    q, k, v = (torch.as_tensor(a) for a in _qkv(8, 1, 4, 2, 96, 8))
+    with pytest.raises(ValueError, match="non-causal"):
+        p_ops.flash_attention(q, k, v, causal=False)      # 96 % 128 != 0
+    p_ops.flash_attention(q, k, v, causal=False, block_q=32, block_k=32)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        p_ops.flash_attention(q, k[:, :1].expand(1, 3, 96, 8), v)
+    with pytest.raises(ValueError, match="window"):
+        p_ops.flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("s,causal,window", [(1, True, None), (37, True, None),
+                                             (37, True, 5), (64, False, 10),
+                                             (64, False, None)])
+def test_visible_pairs_counts_the_mask(s, causal, window):
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    assert p_fa.visible_pairs(s, causal, window) == int(mask.sum())

@@ -17,7 +17,9 @@ rtol=atol=1e-4 and within 1e-4 + 1e-4 x (|spikes| @ |w|) in float32
 rounding of the output), and its
 count of skipped tiles is exact. A full-width Spike-VGG16 training step
 through the LIF kernel is bit-identical to the same step through the plain
-version, with deterministic cuDNN.
+version, with deterministic cuDNN. The flash-attention kernel agrees with
+its plain version within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, and
+a smoke-size model served on the card goes through it.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import NoC  # noqa: E402
 from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
                                             delta_cost_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.lif import (lif_step_kernel,  # noqa: E402
                                      lif_step_plain)
 from repro_torch.kernels.noc_segsum import (link_traffic,  # noqa: E402
@@ -447,3 +451,135 @@ def test_ppo_with_a_cfg_scores_on_the_card_by_default(cuda):
                              cfg=PPOConfig(batch_size=32, iterations=2))
     assert link_traffic.launches > before
     assert len(res.history) == 2
+
+
+# ---- flash attention and the token server --------------------------------------
+
+# (B, H, Hkv, S, D, window, dtype, causal): the reference sweep's shapes
+# (tests/test_kernels.py) with and without a window, its bf16 case, S off
+# the 64-row tile, D = 256, non-causal input, and the served shapes
+FLASH_CASES = [(2, h, hkv, s, d, w, torch.float32, True)
+               for s, d, h, hkv in [(128, 64, 4, 4), (160, 48, 4, 2),
+                                    (256, 128, 2, 1)]
+               for w in (None, 37)] + [
+    (1, 2, 2, 128, 64, None, torch.bfloat16, True),
+    (2, 4, 2, 200, 80, 50, torch.float32, True),
+    (1, 3, 1, 77, 16, 5, torch.bfloat16, True),
+    (3, 2, 2, 1, 8, None, torch.float32, True),
+    (2, 4, 2, 200, 256, None, torch.float32, True),
+    (2, 4, 2, 192, 32, None, torch.float32, False),
+    (2, 4, 2, 130, 64, 20, torch.float32, False),
+    (4, 16, 8, 2048, 128, None, torch.bfloat16, True),
+    (1, 32, 8, 4608, 80, 4096, torch.bfloat16, True),
+]
+
+
+def _flash_inputs(dev, b, h, hkv, s, d, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev) * 0.5
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev) * 0.5
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window,dtype,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, s, d, window,
+                                              dtype, causal):
+    """float32 within rtol=atol=1e-5 (the same float32 softmax, sums in
+    another order); bfloat16 within 1e-2 (about two roundings of the
+    output)."""
+    q, k, v = _flash_inputs(cuda, b, h, hkv, s, d, dtype)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_and_writes_strided_views(cuda):
+    """BSHD tensors go in as ``transpose(1, 2)`` views and the result lands
+    in a strided ``out``, as the model's attention hands them over."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(cuda, 2, 8, 2, 100, 64, torch.float32))
+    assert not q.is_contiguous()
+    out = torch.empty(2, 100, 8, 64, device=cuda).transpose(1, 2)
+    got = flash_attention_kernel(q, k, v, window=30, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), window=30)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 4, 2, 64, 32, torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention_kernel(q.bfloat16(), k, v)
+    with pytest.raises(TypeError):
+        flash_attention_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 4, 64, 288, device=cuda)
+        flash_attention_kernel(big, big[:, :2], big[:, :2])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(q.transpose(2, 3), k.transpose(2, 3),
+                               v.transpose(2, 3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_kernel(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_kernel(q, k[:, :1].expand(1, 3, 64, 32).contiguous(),
+                               v[:, :1].expand(1, 3, 64, 32).contiguous())
+
+
+def test_attention_gradient_on_the_card_raises(cuda):
+    from repro_torch.models import layers
+    q, k, v = _flash_inputs(cuda, 1, 8, 4, 2, 16, torch.float32)
+    q = q.transpose(1, 2).contiguous().requires_grad_()
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        layers.blockwise_attention(q, k.transpose(1, 2), v.transpose(1, 2))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b"])
+def test_smoke_generate_on_the_card_goes_through_the_kernel(cuda, arch,
+                                                            monkeypatch):
+    """A smoke-size model served on the card: one flash launch per layer of
+    the prefill; its prefill logits within atol 1e-4 of the plain attention
+    route's and of the same model on the CPU (float32); decode equals
+    ``forward`` within 2e-4 (``tests/test_models.py``'s bound)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers, lm
+    from repro_torch.models.specs import materialize, tree_map
+    cfg = get_smoke_config(arch)
+    cpu = materialize(lm.lm_specs(cfg), torch.Generator().manual_seed(0),
+                      device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    before = flash_attention_kernel.launches
+    toks = generate(params, cfg, prompts, 4, device=cuda)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + cfg.n_layers
+    assert toks.shape == (2, 44) and toks.device.type == "cuda"
+
+    def prefill(p, dev):
+        cache = materialize(lm.cache_specs(cfg, 2, 44), device=dev)
+        return lm.prefill(p, cfg, torch.as_tensor(prompts, device=dev),
+                          cache)[0]
+
+    kernel = prefill(params, cuda)
+    torch.testing.assert_close(kernel.cpu(), prefill(cpu, "cpu"), rtol=1e-4,
+                               atol=1e-4)
+    monkeypatch.setattr(layers, "_flash_forward", flash_attention_plain)
+    torch.testing.assert_close(kernel, prefill(params, cuda), rtol=1e-4,
+                               atol=1e-4)
+    monkeypatch.undo()
+    full, _ = lm.forward(params, cfg, toks)
+    cache = materialize(lm.cache_specs(cfg, 2, 44), device=cuda)
+    pre, cache = lm.prefill(params, cfg, toks[:, :41], cache)
+    errs = [(pre[:, 0] - full[:, 40]).abs().max().item()]
+    for i in range(41, 44):
+        lg, cache = lm.decode_step(params, cfg, cache, toks[:, i:i + 1], i)
+        errs.append((lg[:, 0] - full[:, i]).abs().max().item())
+    assert max(errs) < 2e-4, errs

@@ -54,7 +54,8 @@ def _setup(n=10, seed=0):
 
 def test_actor_critic_forward_and_logp_match():
     _, lap, feats, actor, critic = _setup()
-    pa, pc = p_ac.from_reference_params(_np_tree(actor), _np_tree(critic))
+    pa, pc = p_ac.from_reference_params(_np_tree(actor), _np_tree(critic),
+                                        device="cpu")
     mu_r, ls_r = r_ac.actor_apply(actor, jnp.asarray(lap), jnp.asarray(feats))
     tl, tf = torch.as_tensor(lap), torch.as_tensor(feats)
     with torch.no_grad():
@@ -133,7 +134,8 @@ def test_teacher_forced_update_matches_reference(freeze_gcn):
     rewards = jnp.asarray(np.random.default_rng(1).uniform(-3, 3, 16),
                           jnp.float32)
     adam = r_optim.AdamWConfig(lr=5e-3)
-    pa, pc = p_ac.from_reference_params(_np_tree(actor), _np_tree(critic))
+    pa, pc = p_ac.from_reference_params(_np_tree(actor), _np_tree(critic),
+                                        device="cpu")
     opt_a, opt_c = p_ppo.make_optimizers(
         pa, pc, p_ppo.PPOConfig(lr=5e-3, freeze_gcn=freeze_gcn))
     ra, rc, _, _, la_r, lc_r = r_ppo._ppo_update_scan(
