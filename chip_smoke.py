@@ -7,7 +7,9 @@ Phases, each of which fails the run loudly:
 
 1. print the card's name and power limit and the torch/CUDA versions; build
    every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, started together) and print ptxas' register/shared-memory report;
+   source, started together) and print ptxas' report of each kernel
+   (registers, static shared memory, spill stores and loads) and every
+   spill;
 2. hold each kernel against its plain PyTorch version on the card:
    ``link_traffic`` at the reference kernel-test shapes, the PPO rollout
    shape of the main path, a 16x16 torus and a hierarchical mesh — exactly
@@ -22,13 +24,17 @@ Phases, each of which fails the run loudly:
    convs and the reference sweep, densities 0, 0.15 and 1, and with 75% of
    the input channels silent, within rtol=atol=1e-4 (and within 1e-4 +
    1e-4 x each product's sum of absolute terms), with its count of skipped
-   tiles exact; ``spike_conv``
+   tiles exact, and on float32 weights log-uniform over 1e-3 ... 1e3 and
+   on spikes of {0, 0.5, 1, 2}; ``spike_conv``
    against ``F.conv2d`` (TF32 off) at stride 1 and 2; ``flash_attention``
    at the reference sweep's shapes (float32, window None and 37, and the
    bfloat16 case), the served internlm2-1.8b prefill (B4, H16, Hkv 8,
    S2048, D128, bf16, causal), h2o-danube's (H32, Hkv 8, D80, S4608,
-   window 4096), S off the 64-row tile, D=256 and non-causal input, within
-   rtol=atol=1e-5 in float32 and 1e-2 in bfloat16;
+   window 4096), S off the 64-row tile, D=256 and non-causal input, and
+   the bf16 tensor-core kernel at D = 16, 20, 48, 96, 256, S = 1, 77 and
+   4608, windows of 37 and 4096 past S, non-causal, GQA rep 1, 2 and 4,
+   within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, each bf16 call
+   counted as a tensor-core launch and no float32 one;
 3. hold ``evaluate_batch(backend="cuda")`` against the numpy float64 backend
    on the main path's graph for 256 random placements, and the device SA's
    ``_swap_delta`` (through ``delta_cost``) against the numpy
@@ -65,17 +71,23 @@ Phases, each of which fails the run loudly:
    (13 LIF states; 12 spiking-conv products with the path's own spikes).
    The ``flash_attention`` row is one layer's attention of the served
    prefill, against ``F.scaled_dot_product_attention``, measured after
-   phase 10 (10 calls to a graph);
+   phase 10 (10 calls to a graph). Both rows add the achieved rate
+   (``achieved_tflops``; ``achieved_tb_per_s`` for the bytes-bound
+   ``spike_matmul``) and ``vs_library``, device time over the library
+   call's; h2o-danube's attention shape is timed on a line of its own;
 10. serve LMs at full width through ``launch.serve.generate`` (seeded bf16
     weights, greedy): ``internlm2-1.8b`` (all 24 layers) at batch 4, prompt
-    2048, 32 tokens (24 flash launches), and ``h2o-danube-1.8b`` cut to 4
-    layers at batch 1, prompt 4608 (past its 4096 window), 8 tokens; time
-    to first token, decode per token, tokens/s, peak device memory, one
-    profiled prefill and decode step; the prefill again through the attention's plain version
+    2048, 32 tokens (24 flash launches, all on the tensor-core kernel), and
+    ``h2o-danube-1.8b`` cut to 4 layers at batch 1, prompt 4608 (past its
+    4096 window), 8 tokens; time to first token, decode per token,
+    tokens/s, peak device memory, one profiled prefill (the tensor-core
+    kernel's share of its device time) and decode step; the prefill again
+    through the attention's plain version
     (last-position logits within relative L2 5e-2) and prefill + decode
     against ``forward`` on the same tokens (the same tolerance).
 
-Every path starts with all launch counts set to 0 and reads them just after.
+Every path starts with all launch counts set to 0 (the flash kernel's
+tensor-core count too) and reads them just after.
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when CUDA is absent.
 """
@@ -266,10 +278,55 @@ def _check_delta_stream(dev, graph, noc, rng, n_swaps: int = 200):
 def _reset_counts(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "tensor_core_launches"):
+            fn.tensor_core_launches = 0
 
 
 def _counts(kernels) -> dict:
-    return {fn.__name__: fn.launches for fn in kernels}
+    out = {fn.__name__: fn.launches for fn in kernels}
+    out.update({f"{fn.__name__}.tensor_core": fn.tensor_core_launches
+                for fn in kernels if hasattr(fn, "tensor_core_launches")})
+    return out
+
+
+def _ptxas_report(name: str, log: str) -> list:
+    """One line per kernel of ptxas' report in ``log``: registers, static
+    shared memory, spill stores and loads (dynamic shared memory is set at
+    launch). Returns the kernels that spill."""
+    import re
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"fn": m.group(1)}
+            entries.append(cur)
+        elif cur is not None:
+            if "spill stores" in line:
+                st = re.search(r"(\d+) bytes spill stores", line)
+                ld = re.search(r"(\d+) bytes spill loads", line)
+                cur["spill"] = (int(st.group(1)), int(ld.group(1)))
+            if "registers" in line:
+                r = re.search(r"Used (\d+) registers", line)
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["regs"] = int(r.group(1))
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e["fn"] for e in entries), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [e["fn"] for e in entries]
+    spills = []
+    for e, fn in zip(entries, names):
+        st, ld = e.get("spill", (0, 0))
+        short = re.sub(r"\(.*\)$", "", fn.replace("(anonymous namespace)::",
+                                                  ""))
+        print(f"[build] {name}: {short}: {e.get('regs')} registers, "
+              f"{e.get('smem', 0)} bytes static smem, spill stores {st} "
+              f"bytes, spill loads {ld} bytes")
+        if st or ld:
+            spills.append(f"{short} ({st}/{ld} bytes)")
+    return spills
 
 
 def _sa_path(vgg, noc, kernels):
@@ -540,7 +597,8 @@ def _conv_weights(rng, shape):
 def _check_spike_matmul(dev, rng, vgg):
     """Phase 2, ``spike_matmul`` part: the kernel against its plain version
     (float32 cuBLAS, TF32 off) at the im2col shapes of Spike-VGG16's
-    spiking convs and the reference sweep, densities 0, 0.15 and 1; a
+    spiking convs and the reference sweep, densities 0, 0.15 and 1;
+    float32 weights over six decades and spikes of {0, 0.5, 1, 2}; a
     structured case with 75% silent input channels; the kernel's own count
     of skipped tiles against the count the spikes imply; ``spike_conv``
     against ``F.conv2d`` (TF32 off) at stride 1 and 2."""
@@ -581,6 +639,20 @@ def _check_spike_matmul(dev, rng, vgg):
             sp = torch.as_tensor((rng.random((M, K)) < density)
                                  .astype(np.float32), device=dev)
             check(f"{label} ({M}, {K}, {N}) density {density}", sp, w)
+    # float32 weights over six decades, which a single bf16 pass of the
+    # weights would miss by up to 2^-9 of each term; spikes of other values
+    # that bf16 represents exactly
+    for M, K, N in [(128, 4608, 512), (8192, 576, 64)]:
+        w = torch.as_tensor((10.0 ** rng.uniform(-3, 3, (K, N)))
+                            .astype(np.float32), device=dev)
+        sp = torch.as_tensor((rng.random((M, K)) < 0.15)
+                             .astype(np.float32), device=dev)
+        check(f"weights log-uniform over 1e-3..1e3 ({M}, {K}, {N})", sp, w)
+    sp = ((rng.random((512, 2304)) < 0.3)
+          * rng.choice([0.5, 1.0, 2.0], (512, 2304))).astype(np.float32)
+    check("spikes of {0, 0.5, 1, 2} (512, 2304, 256)",
+          torch.as_tensor(sp, device=dev),
+          torch.as_tensor(_conv_weights(rng, (2304, 256)), device=dev))
     sp = (rng.random((512, 256, 9)) < 0.2).astype(np.float32)
     sp[:, rng.permutation(256)[:192]] = 0.0        # 75% silent channels
     w = torch.as_tensor(_conv_weights(rng, (2304, 256)), device=dev)
@@ -920,6 +992,8 @@ def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
         "plain_device_ms": tot["plain_dev"],
         "library_device_ms": tot["lib_dev"],
         "calls": "sum over the 12 spiking convs of one Spike-VGG16 timestep",
+        "achieved_tb_per_s": tot["bytes"] / tot["dev"] / 1e9,
+        "vs_library": tot["dev"] / tot["lib_dev"],
     }
     print(f"[time] spike_matmul, one VGG16 timestep (12 calls, the path's "
           f"spikes): kernel {tot['ms']!r} ms, plain {tot['plain']!r} ms, "
@@ -928,7 +1002,9 @@ def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
           f"bound {mm_row['bound_ms']!r} ms ({tot['bytes']} bytes, "
           f"{tot['ops']} flops the spikes need; dense would be "
           f"{tot['dense_ops']} = {tot['dense_ops'] / FP32_OPS_PER_S * 1e3!r} "
-          f"ms); card {card}")
+          f"ms); kernel {mm_row['achieved_tb_per_s']!r} TB/s, "
+          f"{mm_row['vs_library']!r}x torch.matmul's device time; card "
+          f"{card}")
     return [lif_row, mm_row]
 
 
@@ -961,17 +1037,21 @@ def _check_flash(dev):
         k = (torch.randn(b, hkv, s, d, generator=gen, device=dev) * 0.5)
         v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
         q, k, v = (t.to(dtype) for t in (q, k, v))
+        tc_before = flash_attention_kernel.tensor_core_launches
         got = flash_attention_kernel(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        tc = flash_attention_kernel.tensor_core_launches - tc_before
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = FLASH_TOL[str(dtype).split(".")[1]]
         err = (got.float() - want.float()).abs().max().item()
         ok = (got.dtype == dtype and bool(torch.isfinite(got).all())
               and torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol))
+                                 atol=tol)
+              and tc == (dtype == torch.bfloat16))
         print(f"[kernel] flash_attention {name} B{b} H{h} Hkv{hkv} S{s} D{d} "
               f"window {window} causal {causal} {dtype}: max_abs_err={err!r} "
-              f"(rtol=atol={tol}) {'ok' if ok else 'MISMATCH'}")
+              f"(rtol=atol={tol}); tensor-core launches {tc} "
+              f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version on {name}")
@@ -986,6 +1066,22 @@ def _check_flash(dev):
     case("D=256", 2, 4, 2, 200, 256, None, torch.float32)
     case("non-causal", 2, 4, 2, 192, 32, None, torch.float32, causal=False)
     case("h2o-danube", 1, 32, 8, 4608, 80, 4096, torch.bfloat16)
+    # the bf16 tensor-core kernel over its head-dim buckets, sequence
+    # lengths, windows, masks and GQA ratios
+    bf16 = torch.bfloat16
+    case("tensor cores D=16 rep 1", 2, 4, 4, 200, 16, None, bf16)
+    case("tensor cores D=48 rep 2", 2, 4, 2, 77, 48, 37, bf16)
+    case("tensor cores D=96 rep 4 non-causal", 1, 8, 2, 200, 96, None, bf16,
+         causal=False)
+    case("tensor cores S=1 rep 4", 2, 4, 1, 1, 128, None, bf16)
+    case("tensor cores D=256 window 37", 1, 4, 2, 200, 256, 37, bf16)
+    case("tensor cores D=256 non-causal", 1, 2, 2, 77, 256, None, bf16,
+         causal=False)
+    case("tensor cores window 4096 past S", 2, 4, 2, 200, 80, 4096, bf16)
+    case("tensor cores S=4608 D=128 window 4096", 1, 4, 1, 4608, 128, 4096,
+         bf16)
+    case("tensor cores D=20 (element-wise loads)", 1, 2, 1, 77, 20, None,
+         bf16)
     return case("served internlm2 prefill", SERVED["batch"], 16, 8,
                 SERVED["prompt_len"], 128, None, torch.bfloat16)
 
@@ -1047,13 +1143,15 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
     wall_first = time.perf_counter() - t0
     launches = _counts(kernels)
     flash = launches["flash_attention_kernel"]
+    tensor_core = launches["flash_attention_kernel.tensor_core"]
     print(f"[{label}] generate batch {batch}, prompt {prompt_len}, {gen_len} "
           f"greedy tokens: wall {wall_first!r} s (first call); peak device "
           f"memory {torch.cuda.max_memory_allocated()} bytes; launches "
           f"{launches}")
-    if flash != cfg.n_layers:
-        raise AssertionError(f"{label}: {flash} flash launches, not one per "
-                             f"layer of the prefill ({cfg.n_layers})")
+    if flash != cfg.n_layers or tensor_core != cfg.n_layers:
+        raise AssertionError(f"{label}: {flash} flash launches, "
+                             f"{tensor_core} on the tensor cores, not one "
+                             f"per layer of the prefill ({cfg.n_layers})")
     if (tuple(toks.shape) != (batch, prompt_len + gen_len)
             or not torch.equal(toks[:, :prompt_len].cpu(),
                                torch.as_tensor(prompts))
@@ -1100,11 +1198,11 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
               f"{torch.equal(first, gen_toks[:, 0])}")
 
         _profile_step(lambda: lm.prefill(params, cfg, pt, cache),
-                      f"{label}-prefill", "flash_fwd_kernel")
+                      f"{label}-prefill", "flash_fwd_mma_kernel")
         _profile_step(lambda: lm.decode_step(params, cfg, cache,
                                              gen_toks[:, -1:],
                                              prompt_len + gen_len - 1),
-                      f"{label}-decode", "flash_fwd_kernel")
+                      f"{label}-decode", "flash_fwd_mma_kernel")
 
         # the same prefill with the attention's plain version
         with _attention_route(flash_attention_plain):
@@ -1188,15 +1286,52 @@ def _time_flash(dev, card, launches, err):
         "calls": "one layer's attention of the internlm2-1.8b prefill "
                  "(B4, H16, Hkv8, S2048, D128, bf16, causal)",
     }
+    row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
+    row["vs_library"] = dev_ms[0] / dev_ms[2]
     print(f"[time] flash_attention B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal: "
           f"kernel {ms[0]!r} ms, plain {ms[1]!r} ms, "
           f"scaled_dot_product_attention {ms[2]!r} ms (per call); device "
           f"{dev_ms[0]!r}, {dev_ms[1]!r}, {dev_ms[2]!r} ms; bound "
           f"{row['bound_ms']!r} ms ({n_ops} flops over {pairs} visible "
           f"pairs at {BF16_OPS_PER_S:.3g} flop/s; {n_bytes} bytes); kernel "
-          f"{n_ops / dev_ms[0] / 1e9!r} TFLOP/s; SDPA vs plain max_abs "
-          f"{lib_err!r}; card {card}")
+          f"{row['achieved_tflops']!r} TFLOP/s, {row['vs_library']!r}x "
+          f"SDPA's device time; SDPA vs plain max_abs {lib_err!r}; card "
+          f"{card}")
+    _time_flash_danube(dev, card)
     return row
+
+
+def _time_flash_danube(dev, card):
+    """One layer's attention of the h2o-danube prefill (B1, H32, Hkv 8,
+    S4608, D80, bf16, causal, window 4096) through the kernel, its plain
+    version and ``F.scaled_dot_product_attention`` with the same mask as a
+    boolean ``attn_mask``; printed on a line of its own."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     visible_pairs)
+    b, h, hkv, s, d, win = 1, 32, 8, DANUBE["prompt_len"], 80, 4096
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    i = torch.arange(s, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - win)
+    fns = (lambda: flash_attention_kernel(q, k, v, window=win),
+           lambda: flash_attention_plain(q, k, v, window=win),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True))
+    dev_ms = [_graph_ms(f, reps=4, replays=3) for f in fns]
+    n_ops = 4 * d * visible_pairs(s, True, win) * b * h
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(n_ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+    print(f"[time] flash_attention h2o-danube B{b} H{h} Hkv{hkv} S{s} D{d} "
+          f"bf16 causal window {win}: device kernel {dev_ms[0]!r} ms, plain "
+          f"{dev_ms[1]!r} ms, scaled_dot_product_attention(attn_mask) "
+          f"{dev_ms[2]!r} ms; bound {bound!r} ms ({n_ops} flops); kernel "
+          f"{n_ops / dev_ms[0] / 1e9!r} TFLOP/s, {dev_ms[0] / dev_ms[2]!r}x "
+          f"the library call; card {card}")
 
 
 def main() -> int:
@@ -1243,11 +1378,10 @@ def main() -> int:
     _build.build(names)
     print(f"[build] {', '.join(names)} (in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
+    spills = []
     for name in names:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "Compiling entry" in line \
-                    or "bytes stack" in line:
-                print(f"[build] {name}: {line.strip()}")
+        spills += _ptxas_report(name, _build.build_log(name))
+    print(f"[build] kernels that spill: {spills if spills else 'none'}")
 
     # ---- phase 2: kernel vs plain version -------------------------------------
     rng = np.random.default_rng(0)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root,
-where ``<hash>`` covers the source and the flags, so an edited source rebuilds
+where ``<hash>`` covers the source, every shared header ``csrc/*.cuh`` (found
+through ``-I csrc``) and the flags, so an edited source or header rebuilds
 and an unchanged one loads at once. ``build(names)`` starts one ``nvcc`` per
 missing library, all together, and waits for them. The ``ptxas`` register and
 shared-memory report of each build is kept beside its library
@@ -41,9 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, Path]:
@@ -59,7 +62,8 @@ def build(names) -> dict[str, Path]:
     procs = {}
     for name, target in todo.items():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))

@@ -11,13 +11,22 @@ optional sliding window (key ``j`` visible to query ``i`` iff
 ``i - window < j``) and masked scores set to ``-1e30``, as in the
 reference. The output is in ``q.dtype``.
 
-The kernel (``csrc/flash_attention.cu``) replaces the reference's Pallas
+The kernels (``csrc/flash_attention.cu``) replace the reference's Pallas
 kernel ``repro/kernels/flash_attention.py::flash_attention_pallas``; its
-source note gives the design and the bound. It takes any ``S`` and any
-``D`` up to 256 without padding, and reads strided views whose head dim is
+source note gives the design and the bound. They take any ``S`` and any
+``D`` up to 256 without padding, and read strided views whose head dim is
 contiguous (so a BSHD tensor's ``transpose(1, 2)`` goes in without a copy).
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+A CUDA tensor launches a kernel (or raises); a CPU tensor takes
 :func:`flash_attention_plain`.
+
+The dtype picks the kernel, and each dtype has exactly one: bfloat16 runs
+on the tensor cores (bf16 ``mma.sync`` products with float32 sums, P
+rounded to bf16 for P.V as FA-2 does; within 1e-2 of the plain version),
+float32 on CUDA cores in float32 (within 1e-5 of the plain version, which
+bf16 or TF32 tensor cores cannot give; no served model runs float32
+attention). ``flash_attention_kernel.launches`` counts every launch,
+``flash_attention_kernel.tensor_core_launches`` those of the tensor-core
+kernel.
 """
 from __future__ import annotations
 
@@ -103,7 +112,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of ``q [B, H, S, D]`` over ``k``, ``v [B, Hkv, S, D]``, all
     float32 or all bfloat16 with a contiguous last dim (other strides are
     free); the result goes into ``out`` (``[B, H, S, D]`` in ``q.dtype``,
-    any such strides) or a new contiguous tensor. CPU tensors take the
+    any such strides) or a new contiguous tensor. bfloat16 launches the
+    tensor-core kernel, float32 the CUDA-core one. CPU tensors take the
     plain version."""
     tensors = (q, k, v) if out is None else (q, k, v, out)
     if all(t.device.type == "cpu" for t in tensors):
@@ -144,10 +154,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{rc}")
     flash_attention_kernel.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_kernel.tensor_core_launches += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.tensor_core_launches = 0
 
 
 def visible_pairs(s: int, causal: bool = True,

@@ -13,9 +13,10 @@ reduction adds in another order than the plain row sum). The LIF kernel is
 bit-identical to its plain version in float32 and bfloat16 (both compute in
 float32 in the same order and round once). ``spike_matmul`` agrees within
 rtol=atol=1e-4 and within 1e-4 + 1e-4 x (|spikes| @ |w|) in float32
-(another summation order than cuBLAS) and rtol=atol=1e-2 in bfloat16 (one
-rounding of the output), and its
-count of skipped tiles is exact. A full-width Spike-VGG16 training step
+(bf16 tensor cores on three bf16 slices that sum to each weight, in
+another summation order than cuBLAS) and rtol=atol=1e-2 in bfloat16 (one
+rounding of the output), its count of skipped tiles is exact, and split-K
+results repeat bit for bit. A full-width Spike-VGG16 training step
 through the LIF kernel is bit-identical to the same step through the plain
 version, with deterministic cuDNN. The flash-attention kernel agrees with
 its plain version within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, and
@@ -319,15 +320,37 @@ def _mm_close(got, want, spikes, w):
                 and (err <= 1e-4 + 1e-4 * scale).all())
 
 
-@pytest.mark.parametrize("m,k,n", MM_SHAPES)
-@pytest.mark.parametrize("density", [0.0, 0.15, 1.0])
-def test_spike_matmul_kernel_matches_plain(cuda, m, k, n, density):
+# weights "normal" as the convs' initial scale, "wide" log-uniform over
+# 1e-3 ... 1e3 (positive, so |want| is the sum of absolute terms and both
+# bounds of _mm_close read the same: a single bf16 pass, off by up to 2^-9
+# of each weight, fails it; the kernel's hi + lo split, 2^-17, must pass);
+# spikes "binary" or "multi", values from {0, 0.5, 1, 2}, which bf16
+# represents exactly
+MM_CASES = [(m, k, n, d, "normal", "binary") for m, k, n in MM_SHAPES
+            for d in (0.0, 0.15, 1.0)] + [
+    (m, k, n, d, "wide", "binary") for m, k, n in
+    [(128, 4608, 512), (32, 4608, 512), (70, 200, 90), (8192, 576, 64)]
+    for d in (0.15, 1.0)] + [
+    (m, k, n, 0.3, "normal", "multi") for m, k, n in
+    [(128, 2304, 512), (65, 17, 63), (2048, 576, 128)]]
+
+
+def _mm_weights(rng, k, n, kind):
+    if kind == "wide":
+        return (10.0 ** rng.uniform(-3, 3, (k, n))).astype(np.float32)
+    return (rng.standard_normal((k, n)) / np.sqrt(3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,k,n,density,weights,values", MM_CASES)
+def test_spike_matmul_kernel_matches_plain(cuda, m, k, n, density, weights,
+                                           values):
     from repro_torch.kernels.spike_matmul import zero_tiles
     rng = np.random.default_rng(m + k + n)
-    sp = torch.as_tensor((rng.random((m, k)) < density).astype(np.float32),
-                         device=cuda)
-    w = torch.as_tensor((rng.standard_normal((k, n)) / np.sqrt(3))
-                        .astype(np.float32), device=cuda)
+    sp = (rng.random((m, k)) < density).astype(np.float32)
+    if values == "multi":
+        sp *= rng.choice([0.5, 1.0, 2.0], (m, k)).astype(np.float32)
+    sp = torch.as_tensor(sp, device=cuda)
+    w = torch.as_tensor(_mm_weights(rng, k, n, weights), device=cuda)
     skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
     before = spike_matmul_kernel.launches
     got = spike_matmul_kernel(sp, w, skipped=skipped)
@@ -339,6 +362,22 @@ def test_spike_matmul_kernel_matches_plain(cuda, m, k, n, density):
     assert _mm_close(got, want, sp, w)
     if density == 0.0:
         assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 4608, 512), (128, 4608, 512)])
+def test_spike_matmul_kernel_split_k_is_deterministic(cuda, m, k, n):
+    """K split across blocks (the deep VGG16 layers): the partial tiles are
+    summed in a fixed order, so repeated calls agree bit for bit."""
+    from repro_torch.kernels.spike_matmul import splits
+    assert splits(m, k, n)[0] > 1
+    rng = np.random.default_rng(7)
+    sp = torch.as_tensor((rng.random((m, k)) < 0.2).astype(np.float32),
+                         device=cuda)
+    w = torch.as_tensor(_mm_weights(rng, k, n, "normal"), device=cuda)
+    first = spike_matmul_kernel(sp, w)
+    for _ in range(5):
+        assert torch.equal(spike_matmul_kernel(sp, w), first)
+    assert _mm_close(first, spike_matmul_plain(sp, w), sp, w)
 
 
 def test_spike_matmul_kernel_skips_silent_channels(cuda):
@@ -457,7 +496,11 @@ def test_ppo_with_a_cfg_scores_on_the_card_by_default(cuda):
 
 # (B, H, Hkv, S, D, window, dtype, causal): the reference sweep's shapes
 # (tests/test_kernels.py) with and without a window, its bf16 case, S off
-# the 64-row tile, D = 256, non-causal input, and the served shapes
+# the 64-row tile, D = 256, non-causal input, and the served shapes; then
+# the bf16 tensor-core kernel over its D buckets (16 ... 256, and D = 20,
+# not a multiple of 8, through its element-wise loads), S = 1, 77, 200 and
+# 4608, windows of 37 and of 4096 past S, non-causal input and GQA with 1,
+# 2 and 4 q heads per kv head
 FLASH_CASES = [(2, h, hkv, s, d, w, torch.float32, True)
                for s, d, h, hkv in [(128, 64, 4, 4), (160, 48, 4, 2),
                                     (256, 128, 2, 1)]
@@ -471,6 +514,17 @@ FLASH_CASES = [(2, h, hkv, s, d, w, torch.float32, True)
     (2, 4, 2, 130, 64, 20, torch.float32, False),
     (4, 16, 8, 2048, 128, None, torch.bfloat16, True),
     (1, 32, 8, 4608, 80, 4096, torch.bfloat16, True),
+    (2, 4, 4, 200, 16, None, torch.bfloat16, True),
+    (2, 4, 2, 77, 48, 37, torch.bfloat16, True),
+    (1, 8, 2, 200, 96, None, torch.bfloat16, False),
+    (2, 4, 1, 1, 128, None, torch.bfloat16, True),
+    (1, 4, 1, 1, 16, 37, torch.bfloat16, True),
+    (2, 4, 2, 200, 80, 4096, torch.bfloat16, True),
+    (1, 4, 2, 200, 256, 37, torch.bfloat16, True),
+    (1, 2, 2, 77, 256, None, torch.bfloat16, False),
+    (1, 4, 1, 4608, 128, 4096, torch.bfloat16, True),
+    (1, 2, 1, 77, 20, None, torch.bfloat16, True),
+    (2, 4, 2, 130, 64, 20, torch.bfloat16, False),
 ]
 
 
@@ -487,31 +541,48 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, hkv, s, d, window,
                                               dtype, causal):
     """float32 within rtol=atol=1e-5 (the same float32 softmax, sums in
     another order); bfloat16 within 1e-2 (about two roundings of the
-    output)."""
+    output). bfloat16 goes through the tensor-core kernel, float32 does
+    not."""
     q, k, v = _flash_inputs(cuda, b, h, hkv, s, d, dtype)
     before = flash_attention_kernel.launches
+    tc_before = flash_attention_kernel.tensor_core_launches
     got = flash_attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
+    assert (flash_attention_kernel.tensor_core_launches
+            == tc_before + (dtype == torch.bfloat16))
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_attention_kernel_reads_and_writes_strided_views(cuda):
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0),
+                                          (torch.bfloat16, 0),
+                                          (torch.bfloat16, 1)])
+def test_flash_attention_kernel_reads_and_writes_strided_views(cuda, dtype,
+                                                               offset):
     """BSHD tensors go in as ``transpose(1, 2)`` views and the result lands
-    in a strided ``out``, as the model's attention hands them over."""
-    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
-               for t in _flash_inputs(cuda, 2, 8, 2, 100, 64, torch.float32))
+    in a strided ``out``, as the model's attention hands them over; with
+    ``offset`` 1 every view starts one element off 16 bytes, so the
+    bf16 kernel takes its element-wise loads and stores."""
+    def view(t):
+        b, h, s, d = t.shape
+        base = torch.empty(b * s * h * d + offset, dtype=dtype, device=cuda)
+        bshd = base[offset:].view(b, s, h, d)
+        bshd.copy_(t.transpose(1, 2))
+        return bshd.transpose(1, 2)
+
+    q, k, v = (view(t) for t in _flash_inputs(cuda, 2, 8, 2, 100, 64, dtype))
     assert not q.is_contiguous()
-    out = torch.empty(2, 100, 8, 64, device=cuda).transpose(1, 2)
+    out = view(torch.zeros(2, 8, 100, 64, dtype=dtype, device=cuda))
     got = flash_attention_kernel(q, k, v, window=30, out=out)
     torch.cuda.synchronize()
     assert got is out
     want = flash_attention_plain(q.contiguous(), k.contiguous(),
                                  v.contiguous(), window=30)
-    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):
