@@ -17,7 +17,11 @@ Phases, each of which fails the run loudly:
    on float weights; ``delta_cost`` at the reference kernel-test shape, the
    SA path's shape, all-padding rows, R=K=1, a 16x16 torus and a 32x32 mesh
    — exactly on integer volumes, and on the graph's own volumes within 1e-5
-   of each chain's sum of absolute terms; ``lif`` bit for bit at every LIF
+   of each chain's sum of absolute terms; ``sa_chains`` (the whole device SA
+   in one launch) bit for bit against its plain version, the Python loop,
+   on integer-volume graphs whose costs stay below 2^24 (64 chains on the
+   8x8 mesh, 16 on the 16x16 mesh whose hop table stays in L2); ``lif`` bit
+   for bit at every LIF
    state shape of the Spike-VGG16 and Spike-ResNet18 training paths (batch
    8) and the reference test's shapes, float32 and bfloat16, hard and soft
    reset; ``spike_matmul`` at the im2col shapes of Spike-VGG16's spiking
@@ -36,19 +40,27 @@ Phases, each of which fails the run loudly:
    within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, each bf16 call
    counted as a tensor-core launch and no float32 one;
 3. hold ``evaluate_batch(backend="cuda")`` against the numpy float64 backend
-   on the main path's graph for 256 random placements, and the device SA's
-   ``_swap_delta`` (through ``delta_cost``) against the numpy
-   ``delta_comm_cost`` along a 200-swap stream on the same graph;
+   on the main path's graph for 256 random placements, and ``delta_cost``
+   over ``swap_tables`` against the numpy ``delta_comm_cost`` along a
+   200-swap stream on the same graph;
 4. drive the PPO path: ``deploy_model(spike_vgg16(), NoC(8, 8, ...),
    method="ppo", objective="latency")`` with its defaults (``device="cuda"``,
    ``backend="cuda"``, 40 PPO iterations at batch 256); check the plan;
 5. drive the device SA path: the same ``deploy_model`` with ``method="sa",
-   backend="device", restarts=64`` (5000 steps); check the plan against the
-   host evaluate and against ``restarts=1``; profile 500 steps of the loop;
+   backend="device", restarts=64`` (5000 steps): one ``sa_chains`` launch
+   and no ``delta_cost`` launch; check the plan against the host evaluate
+   and against ``restarts=1``; on the same draws at that shape, hold
+   ``sa_chains`` against the loop that launches ``delta_cost`` once a step
+   (best slots, best costs and the five trajectories bit-identical; the
+   number of identical chains printed) and time both and the plain loop;
+   profile one search (the kernel's device time and its share of the
+   place stage);
 6. drive the device GA (``method="ga", backend="device"``, pop 64, 99
    generations), the multilevel V-cycle on a 1024-node layered DAG over a
-   32x32 mesh with a device SA coarse level, and one short run of each host
-   search on the card;
+   32x32 mesh with a device SA coarse level (its device SA calls counted
+   from the recorder's ``sa.device`` events; exactly one ``sa_chains``
+   launch per call, no ``delta_cost`` launch), and one short run of each
+   host search on the card;
 7. drive BPTT training at full width: ``snn.bptt.train_step`` of
    ``spike_vgg16()`` (T=4) at batch 8, 5 steps from one set of seeded
    weights (52 LIF launches a step), and of ``spike_resnet18()`` (68 a step),
@@ -69,9 +81,16 @@ Phases, each of which fails the run loudly:
    time from CUDA events around replays of a CUDA graph of 100 calls. The
    ``lif`` and ``spike_matmul`` rows sum one Spike-VGG16 timestep's calls
    (13 LIF states; 12 spiking-conv products with the path's own spikes).
+   The ``sa_chains`` row is one whole search at phase 5's shape: ``ms``
+   eager, ``device_ms`` CUDA events around one call, the kernel's own
+   device time from the profiler and per step, and ptxas' registers,
+   shared memory and spills (``delta_cost`` stays in the line with phase
+   5's count of its launches, 0: no path runs it now).
    The ``flash_attention`` row is one layer's attention of the served
    prefill, against ``F.scaled_dot_product_attention``, measured after
-   phase 10 (10 calls to a graph). Both rows add the achieved rate
+   phase 10 (10 calls to a graph), with the float32 route (the CUDA-core
+   kernel) against float32 SDPA at the smoke configs' prefill shape and at
+   the served shape. Both rows add the achieved rate
    (``achieved_tflops``; ``achieved_tb_per_s`` for the bytes-bound
    ``spike_matmul``) and ``vs_library``, device time over the library
    call's; h2o-danube's attention shape is timed on a line of its own;
@@ -233,15 +252,49 @@ def _check_delta_cost(dev, graph, noc, rng):
     return main_err
 
 
+def _check_sa_chains(dev):
+    """Phase 2, ``sa_chains`` part: one launch against its plain version
+    (the loop with ``delta_cost_plain``) on integer-volume graphs whose
+    costs and deltas stay below 2^24, so every float32 sum is exact in any
+    order and the two agree bit for bit: 64 chains on the 8x8 mesh (hop
+    table in shared memory) and 16 on the 16x16 mesh (C=256, hop table
+    read from L2)."""
+    import numpy as np
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import topology
+    from repro_torch.kernels.delta_cost import (sa_chains, sa_chains_plain,
+                                                sa_layout)
+    for spec, n, p, R, iters in [("mesh:8x8", 64, 0.1, 64, 1000),
+                                 ("mesh:16x16", 120, 0.05, 16, 500)]:
+        g = graph_mod.random_dag(n, p=p, seed=n)
+        g = graph_mod.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+        noc = topology.parse_topology(spec)
+        args, kw = _sa_args(g, noc, dev, iters, restarts=R, seed=1)
+        got = sa_chains(*args, **kw)
+        want = sa_chains_plain(*args, **kw)
+        same = _same_chains(got, want)
+        top = float(want[2][0].max())
+        layout = sa_layout(args[0].shape[1], n, args[3].shape[1],
+                           args[6].shape[0])
+        print(f"[kernel] sa_chains {spec} (R={R}, {iters} steps, n={n}; "
+              f"shared memory {layout[0]} bytes, hops in shared memory "
+              f"{layout[1]}, incident tables {layout[2]}): {sum(same)} of {R} "
+              f"chains bit-identical to the plain loop (costs up to {top!r} "
+              f"< 2^24) {'ok' if all(same) and top < 2 ** 24 else 'MISMATCH'}")
+        if not all(same) or top >= 2 ** 24:
+            raise AssertionError(f"sa_chains disagrees with its plain version "
+                                 f"on {spec}")
+
+
 def _check_delta_stream(dev, graph, noc, rng, n_swaps: int = 200):
-    """Phase 3, second half: the device SA's ``_swap_delta`` through the
-    kernel along a swap stream, against the numpy ``delta_comm_cost``."""
+    """Phase 3, second half: ``delta_cost`` over the swap tables of
+    ``swap_tables`` along a swap stream, against the numpy
+    ``delta_comm_cost``."""
     import torch
     from repro_torch.core.noc_batch import (batched_noc,
                                             build_incident_tables,
                                             delta_comm_cost)
-    from repro_torch.core.placement.device_search import _swap_delta
-    from repro_torch.kernels.delta_cost import delta_cost
+    from repro_torch.kernels.delta_cost import delta_cost, swap_tables
 
     inc = build_incident_tables(graph)
     hops = batched_noc(noc).tables.hops
@@ -254,22 +307,22 @@ def _check_delta_stream(dev, graph, noc, rng, n_swaps: int = 200):
     worst = 0.0
     for _ in range(n_swaps):
         i, j = (int(x) for x in rng.integers(0, slots.size, 2))
-        got = _swap_delta(
+        got = delta_cost(*swap_tables(
             torch.as_tensor(slots[None], dtype=torch.int32, device=dev),
             torch.tensor([i], device=dev), torch.tensor([j], device=dev),
-            hops_d, *tabs, graph.n, use_pallas=True).item()
+            *tabs, graph.n), hops_d).item()
         want = delta_comm_cost(noc, graph, slots, i, j, inc)
         a, b = min(i, graph.n), min(j, graph.n)
         scale = float((inc.vol[a].sum() + inc.vol[b].sum()) * hops.max())
         worst = max(worst, abs(got - want) / max(scale, 1.0))
         if abs(got - want) > 1e-5 * scale + 1e-6:
-            raise AssertionError(f"_swap_delta {got!r} != delta_comm_cost "
+            raise AssertionError(f"delta_cost {got!r} != delta_comm_cost "
                                  f"{want!r} on swap ({i}, {j})")
         slots[i], slots[j] = slots[j], slots[i]
     if delta_cost.launches - before != n_swaps:
         raise AssertionError("the swap stream did not launch delta_cost "
                              "once per swap")
-    print(f"[delta] _swap_delta (cuda, delta_cost) vs delta_comm_cost "
+    print(f"[delta] delta_cost over swap_tables (cuda) vs delta_comm_cost "
           f"(numpy float64) over {n_swaps} swaps on the main path's graph: "
           f"max |err| / (incident volume x max hops) {worst!r} "
           f"(tolerance 1e-5) ok")
@@ -292,7 +345,8 @@ def _counts(kernels) -> dict:
 def _ptxas_report(name: str, log: str) -> list:
     """One line per kernel of ptxas' report in ``log``: registers, static
     shared memory, spill stores and loads (dynamic shared memory is set at
-    launch). Returns the kernels that spill."""
+    launch). Returns one dict per kernel: its short name, registers, static
+    shared memory and spills."""
     import re
     entries, cur = [], None
     for line in log.splitlines():
@@ -316,7 +370,7 @@ def _ptxas_report(name: str, log: str) -> list:
             check=True).stdout.splitlines()
     except (OSError, subprocess.CalledProcessError):
         names = [e["fn"] for e in entries]
-    spills = []
+    report = []
     for e, fn in zip(entries, names):
         st, ld = e.get("spill", (0, 0))
         short = re.sub(r"\(.*\)$", "", fn.replace("(anonymous namespace)::",
@@ -324,14 +378,17 @@ def _ptxas_report(name: str, log: str) -> list:
         print(f"[build] {name}: {short}: {e.get('regs')} registers, "
               f"{e.get('smem', 0)} bytes static smem, spill stores {st} "
               f"bytes, spill loads {ld} bytes")
-        if st or ld:
-            spills.append(f"{short} ({st}/{ld} bytes)")
-    return spills
+        report.append({"kernel": short, "registers": e.get("regs"),
+                       "static_smem": e.get("smem", 0), "spill_stores": st,
+                       "spill_loads": ld})
+    return report
 
 
 def _sa_path(vgg, noc, kernels):
-    """Phase 5: ``deploy_model`` through the device SA at restarts=64 and 1,
-    and a profile of the SA loop. Returns (launches, wall, plan)."""
+    """Phase 5: ``deploy_model`` through the device SA at restarts=64 (one
+    ``sa_chains`` launch, no ``delta_cost`` launch) and 1, the kernel against
+    the loop that launches ``delta_cost`` once a step on the same draws, and
+    a profile of one search. Returns (launches, plan, check)."""
     import torch
     from repro_torch.core.noc_batch import validate_placements
     from repro_torch.deploy import deploy_model
@@ -353,9 +410,10 @@ def _sa_path(vgg, noc, kernels):
           f"= {plan.stage_times_s['place'] / iters * 1e3!r} ms per step "
           f"over {iters} steps; stage times "
           f"{json.dumps(plan.stage_times_s)}; launches {launches}")
-    if launches["delta_cost"] != iters:
-        raise AssertionError(f"SA path launched delta_cost "
-                             f"{launches['delta_cost']} times, not {iters}")
+    if launches["sa_chains"] != 1 or launches["delta_cost"] != 0:
+        raise AssertionError(f"SA path launched sa_chains "
+                             f"{launches['sa_chains']} times and delta_cost "
+                             f"{launches['delta_cost']} times, not 1 and 0")
     validate_placements(noc, res.placement, plan.graph.n)
     summary = [e["attrs"] for e in rec.events if e["name"] == "sa.device"]
     steps = [e for e in rec.events if e["name"] == "sa.iter"]
@@ -380,14 +438,82 @@ def _sa_path(vgg, noc, kernels):
     print(f"[sa] restarts=1: comm cost {c1!r} (wall {wall1!r} s, place "
           f"{one.stage_times_s['place']!r} s) >= restarts=64 "
           f"{float(res.comm_cost)!r} ok")
-    _profile_sa_loop(plan.graph, noc, steps=500)
-    return launches["delta_cost"], wall, plan
+    check = _check_sa_chains_vs_loop(plan.graph, noc, iters)
+    _profile_sa_search(plan.graph, noc, iters, plan.stage_times_s["place"])
+    return launches, plan, check
 
 
-def _profile_sa_loop(graph, noc, steps: int):
-    """torch.profiler over ``steps`` SA steps at restarts=64: device kernel
-    time against the host-clock wall, kernel launches per step, and the
-    kernels and host operators that dominate."""
+def _sa_args(graph, noc, dev, iters, restarts=64, refresh_every=256, seed=0):
+    """The device SA's ``_sa_chains`` arguments for one search, with
+    ``simulated_annealing_device``'s defaults."""
+    from repro_torch.core.placement import device_search
+    return device_search._sa_setup(
+        graph, noc, iters=iters, t0=0.05, t_end_frac=1e-3, seed=seed,
+        init=None, restarts=restarts, t0_spread=1.0,
+        refresh_every=refresh_every, device=dev)
+
+
+def _same_chains(got, want) -> list:
+    """Per chain: best slots, best cost and all five trajectory columns
+    bit-identical between two ``sa_chains`` results."""
+    same = (got[0] == want[0]).all(dim=1) & (got[1] == want[1])
+    for a, b in zip(got[2], want[2]):
+        same &= (a == b).all(dim=0)
+    return same.tolist()
+
+
+def _check_sa_chains_vs_loop(graph, noc, iters):
+    """Phase 5: ``sa_chains`` (one launch) against the plain loop launching
+    the standalone ``delta_cost`` kernel once a step, on the same draws at
+    the SA path's shape (64 chains, ``iters`` steps): bit-identical best
+    slots, best costs and trajectories. Times both, and the plain loop with
+    ``delta_cost_plain`` (the kernel's plain version)."""
+    import torch
+    from repro_torch.kernels.delta_cost import (delta_cost, delta_cost_plain,
+                                                sa_chains, sa_chains_plain)
+    dev = torch.device("cuda")
+    args, kw = _sa_args(graph, noc, dev, iters)
+    runs = {}
+    for label, fn in [
+            ("kernel", lambda: sa_chains(*args, **kw)),
+            ("loop+delta_cost", lambda: sa_chains_plain(
+                *args, delta_fn=delta_cost, **kw)),
+            ("plain", lambda: sa_chains_plain(*args, delta_fn=delta_cost_plain,
+                                              **kw))]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs[label] = (out, start.elapsed_time(end))
+    got, want = runs["kernel"][0], runs["loop+delta_cost"][0]
+    same = _same_chains(got, want)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip((got[1], *got[2]), (want[1], *want[2])))
+    plain_same = sum(_same_chains(got, runs["plain"][0]))
+    print(f"[sa-check] sa_chains vs the loop launching delta_cost once a step "
+          f"(64 chains, {iters} steps, the same draws): {sum(same)} of "
+          f"{len(same)} chains bit-identical (best slots, best cost and the "
+          f"five trajectories); max abs difference {err!r}; sa_chains "
+          f"{runs['kernel'][1]!r} ms, loop+delta_cost "
+          f"{runs['loop+delta_cost'][1]!r} ms, plain loop (delta_cost_plain) "
+          f"{runs['plain'][1]!r} ms (CUDA events, one call each); against the "
+          f"plain loop {plain_same} of {len(same)} chains bit-identical "
+          f"(its row sums add in another order)")
+    if not all(same):
+        raise AssertionError(f"sa_chains differs from the delta_cost loop in "
+                             f"{len(same) - sum(same)} chains")
+    return dict(args=args, kw=kw, max_abs_err=err,
+                ms=runs["kernel"][1], loop_kernel_ms=runs["loop+delta_cost"][1],
+                plain_ms=runs["plain"][1], chains_identical=sum(same))
+
+
+def _profile_sa_search(graph, noc, iters, place_s):
+    """torch.profiler over one device SA search at restarts=64: the
+    ``sa_chains`` kernel's device time, its share of phase 5's place stage,
+    and the host-clock wall and device work around it."""
     import torch
     from repro_torch.core.placement import device_search
     from torch.autograd import DeviceType
@@ -399,7 +525,7 @@ def _profile_sa_loop(graph, noc, steps: int):
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        device_search.simulated_annealing_device(graph, noc, iters=steps,
+        device_search.simulated_annealing_device(graph, noc, iters=iters,
                                                  restarts=64)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -407,28 +533,26 @@ def _profile_sa_loop(graph, noc, steps: int):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us == 0.0:
-        print(f"[sa-profile] {steps} steps: wall {wall!r} s; device time "
+        print(f"[sa-profile] {iters} steps: wall {wall!r} s; device time "
               "not measured (the profiler recorded no device events)")
         return
     n_kernels = sum(e.count for e in kernels)
-    delta_us = sum(e.self_device_time_total for e in kernels
-                   if "delta_cost" in e.key)
-    print(f"[sa-profile] {steps} steps at restarts=64 (whole call, set-up "
-          f"included): wall {wall!r} s = {wall / steps * 1e6!r} us per "
-          f"step; device kernel time {dev_us / 1e6!r} s (busy share "
-          f"{dev_us / 1e6 / wall!r}); {n_kernels} kernels = "
-          f"{n_kernels / steps!r} per step; delta_cost "
-          f"{delta_us / steps!r} us per step")
-    for e in sorted(kernels, key=lambda e: -e.count)[:10]:
-        print(f"[sa-profile] kernel {e.count / steps:.2f}/step "
-              f"{e.self_device_time_total / steps:.3f} us/step "
-              f"{e.key[:90]}")
+    sa_us = sum(e.self_device_time_total for e in kernels
+                if "sa_chains" in e.key)
+    print(f"[sa-profile] one search, {iters} steps at restarts=64 (whole "
+          f"call, set-up included): wall {wall!r} s; device kernel time "
+          f"{dev_us / 1e6!r} s (busy share {dev_us / 1e6 / wall!r}); "
+          f"{n_kernels} kernels; sa_chains {sa_us / 1e3!r} ms = "
+          f"{sa_us / iters!r} us per step, {sa_us / 1e6 / place_s!r} of "
+          f"phase 5's place stage ({place_s!r} s)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[sa-profile] kernel x{e.count} "
+              f"{e.self_device_time_total / 1e3:.4f} ms {e.key[:90]}")
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.key.startswith("aten::")]
-    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]:
-        print(f"[sa-profile] host op {e.count / steps:.2f}/step "
-              f"{e.self_cpu_time_total / steps:.2f} us/step self CPU "
-              f"{e.key}")
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"[sa-profile] host op x{e.count} "
+              f"{e.self_cpu_time_total / 1e3:.3f} ms self CPU {e.key}")
 
 
 def _other_paths(vgg, noc, graph, kernels):
@@ -440,6 +564,7 @@ def _other_paths(vgg, noc, graph, kernels):
     from repro_torch.core.noc_batch import validate_placements
     from repro_torch.core.placement import optimize_placement, zigzag
     from repro_torch.deploy import deploy_model
+    from repro_torch.obs import Recorder
 
     _reset_counts(kernels)
     t0 = time.perf_counter()
@@ -462,20 +587,28 @@ def _other_paths(vgg, noc, graph, kernels):
     big = LogicalGraph(g.adj[np.ix_(perm, perm)], g.compute[perm],
                        g.memory[perm])
     mesh = NoC(32, 32)
+    rec = Recorder()
     _reset_counts(kernels)
     t0 = time.perf_counter()
     ml = optimize_placement(big, mesh, method="multilevel", backend="device",
-                            coarsen_to=64, refine_iters=3, iters=2000)
+                            coarsen_to=64, refine_iters=3, iters=2000,
+                            recorder=rec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts(kernels)
     validate_placements(mesh, ml.placement, big.n)
-    if launches["delta_cost"] != 2000:
-        raise AssertionError(f"multilevel launched delta_cost "
-                             f"{launches['delta_cost']} times, not 2000")
-    print(f"[ml] multilevel (device SA coarse level) on {big.n} nodes over "
-          f"32x32: comm cost {float(ml.comm_cost)!r}; wall {wall!r} s; launches "
-          f"{launches} ok")
+    # each device SA call replays one sa.device summary event
+    sa_calls = sum(e["name"] == "sa.device" for e in rec.events)
+    if sa_calls < 1 or launches["sa_chains"] != sa_calls or \
+            launches["delta_cost"] != 0:
+        raise AssertionError(f"multilevel made {sa_calls} device SA calls "
+                             f"and launched sa_chains "
+                             f"{launches['sa_chains']} and delta_cost "
+                             f"{launches['delta_cost']} times")
+    print(f"[ml] multilevel (device SA coarse level, 2000 steps) on {big.n} "
+          f"nodes over 32x32: comm cost {float(ml.comm_cost)!r}; wall {wall!r} "
+          f"s; {sa_calls} coarse SA calls, sa_chains launches "
+          f"{launches['sa_chains']} (one per call); launches {launches} ok")
 
     for method, kw in [("random_search", dict(budget=200)),
                        ("simulated_annealing", dict(budget=300)),
@@ -492,6 +625,96 @@ def _other_paths(vgg, noc, graph, kernels):
             raise AssertionError(f"{method}: comm cost is not finite")
         print(f"[host] {method} {kw} (backend cuda): valid, comm cost "
               f"{float(r.comm_cost)!r}, {time.perf_counter() - t0!r} s ok")
+
+
+def _kernel_device_ms(fn, name: str, reps: int = 3) -> float | None:
+    """Device time of the kernels whose name holds ``name``, per call of
+    ``fn``, from torch.profiler over ``reps`` calls (None when it records
+    no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def _time_sa_chains(check, launches, ptxas, card):
+    """Phase 9, ``sa_chains`` row, at the SA path's shape (64 chains, 5000
+    steps, the Spike-VGG16 graph on the 8x8 mesh): eager per-call time,
+    CUDA events around one whole search, the kernel's own device time from
+    the profiler and per step, the bound, and ptxas' registers, shared
+    memory and spills."""
+    import torch
+    from repro_torch.kernels.delta_cost import (CHAINS_PER_BLOCK, sa_chains,
+                                                sa_layout)
+    args, kw = check["args"], check["kw"]
+    slots0, hops, inc_other, e_src = args[0], args[6], args[3], args[7]
+    (R, S), C, D, E = slots0.shape, hops.shape[0], inc_other.shape[1], \
+        e_src.shape[0]
+    iters, n, refresh = kw["iters"], kw["n"], kw["refresh_every"]
+
+    def call():
+        return sa_chains(*args, **kw)
+    ms = _time_ms(call, reps=5, warmup=1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    call()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end)
+    kernel_ms = _kernel_device_ms(call, "sa_chains")
+    n_bytes = (R * iters * (4 + 4 + 4)          # draws i, j, u read once
+               + R * iters * (3 * 4 + 2)        # trajectories written once
+               + 2 * R * S * 4 + 2 * R * 4      # slots0, best_slots; t0, best
+               + C * C * 4 + (n + 1) * D * 9 + E * 12)
+    n_ops = R * iters * 3 * 2 * D + R * (iters // refresh + 1) * 2 * E
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    us_step = None if kernel_ms is None else kernel_ms * 1e3 / iters
+    cycles = None if us_step is None else us_step * float(clock)  # us x MHz
+    regs = [e for e in ptxas if "sa_chains" in e["kernel"]]
+    row = {
+        "name": "sa_chains", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/delta_cost.cu",
+        "replaces": "src/repro/kernels/delta_cost.py:67",
+        "replaces_loop": "src/repro/core/placement/device_search.py:145",
+        "launches": launches, "max_abs_err": check["max_abs_err"],
+        "ms": ms, "plain_ms": check["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "device_ms": device_ms,
+        "kernel_device_ms": kernel_ms, "us_per_step": us_step,
+        "cycles_per_step_at_max_clock": cycles,
+        "loop_with_delta_cost_ms": check["loop_kernel_ms"],
+        "chains_identical_to_loop": check["chains_identical"],
+        "chains_per_block": CHAINS_PER_BLOCK,
+        "dynamic_smem": sa_layout(S, n, D, C)[0], "ptxas": regs,
+        "calls": f"one search: {R} chains x {iters} steps, Spike-VGG16 "
+                 f"({n} slices) on the 8x8 mesh",
+    }
+    print(f"[time] sa_chains ({R} chains, {iters} steps, n={n}, D={D}, "
+          f"C={C}, E={E}): per call {ms!r} ms, one search under CUDA events "
+          f"{device_ms!r} ms, kernel device {kernel_ms!r} ms = {us_step!r} us "
+          f"per step ({cycles!r} cycles at the max SM clock {clock} MHz); "
+          f"{CHAINS_PER_BLOCK} chains a block; plain loop "
+          f"{check['plain_ms']!r} ms, "
+          f"loop with delta_cost {check['loop_kernel_ms']!r} ms; bound "
+          f"{row['bound_ms']!r} ms ({n_bytes} bytes, {n_ops} flops); "
+          f"ptxas {regs}; no single PyTorch call computes this function "
+          f"(library_ms null); card {card}")
+    return row
 
 
 def _graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
@@ -1298,7 +1521,46 @@ def _time_flash(dev, card, launches, err):
           f"SDPA's device time; SDPA vs plain max_abs {lib_err!r}; card "
           f"{card}")
     _time_flash_danube(dev, card)
+    row["float32"] = [_time_flash_f32(dev, card, *shape) for shape in
+                      [(2, 4, 2, 40, 16), (b, h, hkv, s, d)]]
     return row
+
+
+def _time_flash_f32(dev, card, b, h, hkv, s, d):
+    """The float32 route (the CUDA-core kernel) at one causal shape against
+    its plain version and float32 ``F.scaled_dot_product_attention``:
+    device times from CUDA-graph replay and per-call times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     visible_pairs)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    fns = (lambda: flash_attention_kernel(q, k, v),
+           lambda: flash_attention_plain(q, k, v),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True))
+    lib_err = (fns[2]() - fns[1]()).abs().max().item()
+    reps = 10 if s > 1024 else 100
+    dev_ms = [_graph_ms(f, reps=reps, replays=5) for f in fns]
+    ms = [_time_ms(f, reps=reps, warmup=3) for f in fns]
+    n_ops = 4 * d * visible_pairs(s) * b * h
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(n_ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+    shape = f"B{b} H{h} Hkv{hkv} S{s} D{d} float32 causal"
+    print(f"[time] flash_attention {shape}: kernel {ms[0]!r} ms, plain "
+          f"{ms[1]!r} ms, scaled_dot_product_attention {ms[2]!r} ms (per "
+          f"call); device {dev_ms[0]!r}, {dev_ms[1]!r}, {dev_ms[2]!r} ms; "
+          f"bound {bound!r} ms ({n_ops} flops at {FP32_OPS_PER_S:.3g} "
+          f"flop/s, {n_bytes} bytes); {dev_ms[0] / dev_ms[2]!r}x SDPA's "
+          f"device time; SDPA vs plain max_abs {lib_err!r}; card {card}")
+    return {"shape": shape, "ms": ms[0], "plain_ms": ms[1],
+            "library_ms": ms[2], "device_ms": dev_ms[0],
+            "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+            "bound_ms": bound}
 
 
 def _time_flash_danube(dev, card):
@@ -1368,8 +1630,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
-    kernels = (link_traffic, delta_cost, lif_mod.lif_step_kernel,
-               mm_mod.spike_matmul_kernel, fa_mod.flash_attention_kernel)
+    kernels = (link_traffic, delta_cost, delta_mod.sa_chains,
+               lif_mod.lif_step_kernel, mm_mod.spike_matmul_kernel,
+               fa_mod.flash_attention_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1378,9 +1641,11 @@ def main() -> int:
     _build.build(names)
     print(f"[build] {', '.join(names)} (in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
-    spills = []
-    for name in names:
-        spills += _ptxas_report(name, _build.build_log(name))
+    ptxas = {name: _ptxas_report(name, _build.build_log(name))
+             for name in names}
+    spills = [f"{e['kernel']} ({e['spill_stores']}/{e['spill_loads']} bytes)"
+              for report in ptxas.values() for e in report
+              if e["spill_stores"] or e["spill_loads"]]
     print(f"[build] kernels that spill: {spills if spills else 'none'}")
 
     # ---- phase 2: kernel vs plain version -------------------------------------
@@ -1442,6 +1707,7 @@ def main() -> int:
     print(f"[kernel] {KERNEL} main path volumes: max_abs_err={main_err!r} "
           f"(max {want.abs().max().item()!r}, rtol=1e-5) ok")
     delta_err = _check_delta_cost(dev, graph, noc, rng)
+    _check_sa_chains(dev)
     resnet = spike_resnet18()
     _check_lif(dev, rng, vgg, resnet)
     _check_spike_matmul(dev, rng, vgg)
@@ -1503,7 +1769,7 @@ def main() -> int:
     ppo_launches = launches["link_traffic"]
 
     # ---- phase 5: the device SA path ---------------------------------------------
-    sa_launches, _, sa_plan = _sa_path(vgg, noc, kernels)
+    sa_launches, sa_plan, sa_check = _sa_path(vgg, noc, kernels)
 
     # ---- phase 6: device GA, multilevel, host searches ----------------------------
     _other_paths(vgg, noc, graph, kernels)
@@ -1589,16 +1855,13 @@ def main() -> int:
         d_fns = (lambda: delta_cost(*args), lambda: delta_cost_plain(*args))
         d_dev = [_graph_ms(f) for f in d_fns]
         d_ms, d_plain = (_time_ms(f) for f in d_fns)
-        # the device SA's own call: the same launch without the checks
-        d_unchecked = _time_ms(lambda: delta_mod._delta_cost_unchecked(*args))
         d_bytes = 5 * R * K * 4 + C * C * 4 + R * 4
         d_ops = 3 * R * K          # subtract, multiply, add per entry
         tb, to = d_bytes / HBM_BYTES_PER_S, d_ops / FP32_OPS_PER_S
         delta_times[label] = (d_ms, d_plain, max(tb, to) * 1e3,
                               "bytes" if tb >= to else "operations", d_dev)
         print(f"[time] delta_cost {label} ({R}, {K}, {C}): kernel {d_ms!r} "
-              f"ms, plain {d_plain!r} ms, unchecked launcher "
-              f"{d_unchecked!r} ms (per call); device {d_dev[0]!r}, "
+              f"ms, plain {d_plain!r} ms (per call); device {d_dev[0]!r}, "
               f"{d_dev[1]!r} ms; bound "
               f"{delta_times[label][2]!r} ms ({d_bytes} bytes, {d_ops} "
               f"flops); no single PyTorch call computes this function "
@@ -1608,11 +1871,16 @@ def main() -> int:
         "name": "delta_cost", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/delta_cost.cu",
         "replaces": "src/repro/kernels/delta_cost.py:67",
-        "launches": sa_launches, "max_abs_err": delta_err,
+        "launches": sa_launches["delta_cost"], "max_abs_err": delta_err,
         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
         "bound_by": d_by, "library_ms": None, "device_ms": d_dev[0],
         "plain_device_ms": d_dev[1], "library_device_ms": None,
+        "path": "none: the device SA runs sa_chains; held against its plain "
+                "version in phase 2 and launched once a step by the loop "
+                "sa_chains is checked against in phase 5",
     })
+    rows.append(_time_sa_chains(sa_check, sa_launches["sa_chains"],
+                                ptxas[delta_mod.KERNEL], card))
     rows += _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
                               mm_launches, mm_err)
 

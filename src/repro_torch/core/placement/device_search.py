@@ -3,8 +3,7 @@ device until the search ends.
 
 The host searches (:mod:`.baselines`, :mod:`.population`) pay one Python
 round-trip and one host scoring call per iteration. Here the whole search
-runs as a Python loop of tensor operations on ``device`` (``None``: the
-card), with no host sync inside the loop:
+stays on ``device`` (``None``: the card), with no host sync inside it:
 
 * :func:`simulated_annealing_device` — pairwise-swap SA whose state is
   ``(slots, cost, best, temperature)``, advanced ``iters`` steps with
@@ -16,11 +15,12 @@ card), with no host sync inside the loop:
   along the leading axis and returns the best chain. Chain ``c`` draws its
   proposals from its own ``torch.Generator`` seeded from ``(seed, c)``, so
   chain 0 is the same whatever ``restarts`` is (more restarts can only
-  improve the returned best). The per-swap delta is evaluated by the CUDA
-  kernel :func:`repro_torch.kernels.delta_cost.delta_cost` (one launch per
-  step; the default on a CUDA device) or by its plain gather version. Float32
-  drift of the accumulated cost is bounded by an exact full re-evaluation
-  every ``refresh_every`` steps.
+  improve the returned best). On a CUDA device all chains run their whole
+  search in one launch of the annealing kernel
+  :func:`repro_torch.kernels.delta_cost.sa_chains`; elsewhere (and with
+  ``use_pallas=False``) its plain version, a Python loop of tensor
+  operations, runs instead. Float32 drift of the accumulated cost is bounded
+  by an exact full re-evaluation every ``refresh_every`` steps.
 * :func:`genetic_device` — the OX1-crossover evolutionary search as a loop
   of generations over a device-resident population: stable-argsort elitism,
   tournament selection, batched order crossover (membership scatter +
@@ -29,8 +29,8 @@ card), with no host sync inside the loop:
 
 Both emit the same recorder trajectory semantics as their host counterparts
 (``sa.iter`` / ``ga.gen``, one event per step/generation) by replaying the
-loop's stacked per-step outputs host-side *after* the search — no per-step
-host sync. The trajectory tensors are always kept; attaching a recorder only
+search's per-step outputs host-side *after* the search — no per-step host
+sync. The trajectory tensors are always kept; attaching a recorder only
 fetches them, so results are identical with the recorder on or off.
 
 The device path anneals in float32 and draws its own (torch) RNG streams, so
@@ -49,7 +49,7 @@ import torch
 
 from ...deploy.objective import as_objective
 from ...device import resolve_device
-from ...kernels.delta_cost import _delta_cost_unchecked, delta_cost_plain
+from ...kernels.delta_cost import full_cost, sa_chains, sa_chains_plain
 from ..noc_batch import (batched_noc, build_incident_tables,
                          validate_placements)
 from .baselines import core_pool, sigmate, zigzag
@@ -77,62 +77,6 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
 
 
 # ---------------------------------------------------------------------------
-# Shared device pieces
-# ---------------------------------------------------------------------------
-
-def _full_cost(slots, hops_f, e_src, e_dst, e_vol, n: int):
-    """Comm cost of each row's placement: float32 [R].
-
-    Summed in float64 and rounded once, so a row's cost does not depend on
-    how many rows the reduction sees (chain 0 is then the same whatever
-    ``restarts`` is); on integer volumes with sums below 2^24 it equals the
-    reference's float32 sum exactly."""
-    p = slots[:, :n].long()
-    h = hops_f[p[:, e_src], p[:, e_dst]].double()
-    return (e_vol.double() * h).sum(dim=1).float()
-
-
-def _swap_delta(slots, i, j, hops_f, inc_other, inc_vol, inc_src, n: int,
-                use_pallas: bool):
-    """O(degree) comm-cost delta of swapping ``slots[r, i[r]]``/``slots[r, j[r]]``.
-
-    Device transcription of :func:`repro_torch.core.noc_batch.delta_comm_cost`,
-    batched over the chain axis. Free-slot indices resolve to the all-padding
-    sentinel row ``n`` of the incident tables, so no branching is needed.
-    ``use_pallas`` (the reference's name) sends the remapped endpoint tables
-    to the ``delta_cost`` kernel, past the public wrapper's per-call checks
-    (the tables are int32/float32 and contiguous by construction); otherwise
-    its plain gather version runs. On CPU tensors both run the plain version.
-    """
-    R = slots.shape[0]
-    rows = torch.arange(R, device=slots.device)
-    ci, cj = slots[rows, i], slots[rows, j]
-    a = torch.where(i < n, i, n)                    # node id or sentinel n
-    b = torch.where(j < n, j, n)
-    p_pad = torch.cat([slots[:, :n], slots.new_zeros(R, 1)], dim=1)
-    nodes = torch.stack([a, b], dim=1)              # [R, 2]
-    a3, b3 = a[:, None, None], b[:, None, None]
-    ci3, cj3 = ci[:, None, None], cj[:, None, None]
-    oth = inc_other[nodes]                          # [R, 2, D]
-    # zero a–b edges in node b's half so they are not counted twice; in node
-    # a's own half ``oth == a`` only hits padding (already volume 0)
-    vol = torch.where(oth == a3, 0.0, inc_vol[nodes])
-    is_s = inc_src[nodes]
-    oc_b = p_pad.reshape(-1)[rows[:, None, None] * (n + 1) + oth]
-    # the other endpoint moves too when it is the swap's partner node
-    oc_a = torch.where(oth == a3, cj3, torch.where(oth == b3, ci3, oc_b))
-    cu_before = torch.stack([ci, cj], dim=1)[..., None]   # [R, 2, 1]
-    cu_after = torch.stack([cj, ci], dim=1)[..., None]
-    D2 = 2 * oth.shape[2]
-    tables = [x.reshape(R, D2) for x in (
-        torch.where(is_s, cu_before, oc_b), torch.where(is_s, oc_b, cu_before),
-        torch.where(is_s, cu_after, oc_a), torch.where(is_s, oc_a, cu_after),
-        vol)]
-    fn = _delta_cost_unchecked if use_pallas else delta_cost_plain
-    return fn(*tables, hops_f)
-
-
-# ---------------------------------------------------------------------------
 # Simulated annealing: R restart chains on the device
 # ---------------------------------------------------------------------------
 
@@ -155,47 +99,57 @@ def _sa_chains(slots0, t0_vec, cooling: float, inc_other, inc_vol, inc_src,
     """Advance R chains ``iters`` steps; ``draws = (i, j, u)``, each
     ``[iters, R]``. Returns ``(best_slots, best_cost, trajectory)`` with the
     trajectory ``(cost, best_cost, t, accepted, proposed)``, each
-    ``[iters, R]``, still on the device."""
-    i_all, j_all, u_all = draws
-    R, S = slots0.shape
-    cost0 = _full_cost(slots0, hops_f, e_src, e_dst, e_vol, n)
-    t = torch.clamp(t0_vec * torch.clamp(cost0, min=1.0), min=1e-9)
-    rows = torch.arange(R, device=slots0.device)
-    pos = torch.arange(S, device=slots0.device)[None, :]
-    slots, cost, best_slots, best_cost = slots0, cost0, slots0, cost0
-    traj = ([], [], [], [], [])
-    for it in range(iters):
-        i, j, u = i_all[it], j_all[it], u_all[it]
-        proposed = ~((i == j) | ((i >= n) & (j >= n)))
-        delta = _swap_delta(slots, i, j, hops_f, inc_other, inc_vol, inc_src,
-                            n, use_pallas)
-        accept = proposed & (
-            (delta <= 0)
-            | (u < torch.exp(torch.clamp(-delta / torch.clamp(t, min=1e-9),
-                                         max=0.0))))
-        # arithmetic swap instead of a scatter: compares and selects over
-        # [R, S], no per-row branching
-        si, sj = slots[rows, i], slots[rows, j]
-        swapped = torch.where(pos == i[:, None], sj[:, None],
-                              torch.where(pos == j[:, None], si[:, None],
-                                          slots))
-        slots = torch.where(accept[:, None], swapped, slots)
-        cost = cost + torch.where(accept, delta, 0.0)
-        # bound float32 drift of the accumulated cost with a periodic exact
-        # re-evaluation; the step counter lives on the host
-        if (it + 1) % refresh_every == 0:
-            cost = _full_cost(slots, hops_f, e_src, e_dst, e_vol, n)
-        improved = cost < best_cost
-        best_cost = torch.where(improved, cost, best_cost)
-        best_slots = torch.where(improved[:, None], slots, best_slots)
-        t = t * cooling          # unconditional decay (fixed SA schedule)
-        for acc, y in zip(traj, (cost, best_cost, t, accept, proposed)):
-            acc.append(y)
-    if iters:
-        traj = tuple(torch.stack(y) for y in traj)
-    else:
-        traj = tuple(torch.empty(0, R, device=slots0.device) for _ in traj)
-    return best_slots, best_cost, traj
+    ``[iters, R]``, still on the device.
+
+    ``use_pallas`` (the reference's name) runs the chains through
+    :func:`repro_torch.kernels.delta_cost.sa_chains`: on CUDA tensors one
+    launch of the annealing kernel, whatever ``iters`` and R are; on CPU
+    tensors its plain version. Otherwise the plain version runs on any
+    device, with the plain delta."""
+    kw = dict(draws=draws, iters=iters, n=n, refresh_every=refresh_every)
+    args = (slots0, t0_vec, cooling, inc_other, inc_vol, inc_src, hops_f,
+            e_src, e_dst, e_vol)
+    if use_pallas:
+        return sa_chains(*args, **kw)
+    return sa_chains_plain(*args, **kw)
+
+
+def _sa_setup(graph, noc, *, iters: int, t0: float, t_end_frac: float,
+              seed: int, init, restarts: int, t0_spread: float,
+              refresh_every: int, device):
+    """The arguments of :func:`_sa_chains` for one search, on ``device``:
+    ``(args, kw)``, with the chains' start placements, temperatures, tables
+    and proposal draws."""
+    rng = np.random.default_rng(seed)
+    pool_arr = _pool_array(noc)
+    n = graph.n
+    base = np.asarray(init if init is not None else zigzag(n, noc), dtype=int)
+    validate_placements(noc, base, n)
+    free = np.setdiff1d(pool_arr, base)
+    slots0 = np.empty((restarts, pool_arr.size), dtype=np.int32)
+    slots0[0] = np.concatenate([base, free])
+    pool = core_pool(noc)
+    for r in range(1, restarts):
+        slots0[r] = rng.permutation(pool)
+
+    bn = batched_noc(noc)
+    inc = build_incident_tables(graph)
+    e_src, e_dst, e_vol, _ = bn.edge_arrays(graph)
+    spread = (t0_spread ** (np.arange(restarts) / max(restarts - 1, 1))
+              if restarts > 1 else np.ones(1))
+
+    def on_dev(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    args = (on_dev(slots0, torch.int32), on_dev(t0 * spread, torch.float32),
+            float(np.float32(t_end_frac ** (1.0 / max(iters, 1)))),
+            on_dev(inc.other, torch.int32), on_dev(inc.vol, torch.float32),
+            on_dev(inc.is_src, torch.bool),
+            on_dev(bn.tables.hops, torch.float32),
+            on_dev(e_src, torch.int64), on_dev(e_dst, torch.int64),
+            on_dev(e_vol, torch.float32))
+    kw = dict(iters=iters, n=n, refresh_every=refresh_every,
+              draws=_sa_draws(seed, restarts, iters, pool_arr.size, device))
+    return args, kw
 
 
 def simulated_annealing_device(graph, noc, iters: int = 5000,
@@ -216,49 +170,24 @@ def simulated_annealing_device(graph, noc, iters: int = 5000,
     from ``t0`` to ``t0 * t0_spread`` (1.0 = all equal).
     ``use_pallas`` is kept for call compatibility with the reference's
     signature, not as a path to choose: ``None`` (and ``True``) runs the
-    ``delta_cost`` CUDA kernel on a CUDA device, ``False`` its plain version;
-    on the CPU both run the plain version. ``recorder`` replays one
-    ``sa.iter`` event per step of the winning chain after the search
-    (identical schema to the host SA) plus one ``sa.device`` summary —
-    results are identical with or without it.
+    search as one launch of the ``sa_chains`` CUDA kernel on a CUDA device,
+    ``False`` its plain version; on the CPU both run the plain version.
+    ``recorder`` replays one ``sa.iter`` event per step of the winning
+    chain after the search (identical schema to the host SA) plus one
+    ``sa.device`` summary — results are identical with or without it.
     """
     if restarts < 1:
         raise ValueError(f"restarts must be >= 1, got {restarts}")
     _check_objective(objective)
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    pool_arr = _pool_array(noc)
-    n = graph.n
-    base = np.asarray(init if init is not None else zigzag(n, noc), dtype=int)
-    validate_placements(noc, base, n)
-    free = np.setdiff1d(pool_arr, base)
-    slots0 = np.empty((restarts, pool_arr.size), dtype=np.int32)
-    slots0[0] = np.concatenate([base, free])
-    pool = core_pool(noc)
-    for r in range(1, restarts):
-        slots0[r] = rng.permutation(pool)
-
-    bn = batched_noc(noc)
-    inc = build_incident_tables(graph)
-    e_src, e_dst, e_vol, _ = bn.edge_arrays(graph)
     if use_pallas is None:
         use_pallas = dev.type == "cuda"
-    spread = (t0_spread ** (np.arange(restarts) / max(restarts - 1, 1))
-              if restarts > 1 else np.ones(1))
-
-    def on_dev(x, dtype):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-    S = pool_arr.size
+    args, kw = _sa_setup(graph, noc, iters=iters, t0=t0,
+                         t_end_frac=t_end_frac, seed=seed, init=init,
+                         restarts=restarts, t0_spread=t0_spread,
+                         refresh_every=refresh_every, device=dev)
     best_slots, best_cost, traj = _sa_chains(
-        on_dev(slots0, torch.int32), on_dev(t0 * spread, torch.float32),
-        float(np.float32(t_end_frac ** (1.0 / max(iters, 1)))),
-        on_dev(inc.other, torch.int32), on_dev(inc.vol, torch.float32),
-        on_dev(inc.is_src, torch.bool), on_dev(bn.tables.hops, torch.float32),
-        on_dev(e_src, torch.int64), on_dev(e_dst, torch.int64),
-        on_dev(e_vol, torch.float32),
-        iters=iters, n=n, refresh_every=refresh_every,
-        use_pallas=bool(use_pallas),
-        draws=_sa_draws(seed, restarts, iters, S, dev))
+        *args, use_pallas=bool(use_pallas), **kw)
     best_cost = best_cost.cpu().numpy()
     win = int(np.argmin(best_cost))
     if recorder is not None:
@@ -278,7 +207,7 @@ def simulated_annealing_device(graph, noc, iters: int = 5000,
                        chain_best_mean=float(best_cost.mean()),
                        use_pallas=bool(use_pallas),
                        refresh_every=refresh_every)
-    return best_slots[win, :n].cpu().numpy().astype(np.int64)
+    return best_slots[win, :graph.n].cpu().numpy().astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +282,7 @@ def _ga_generations(slots0, hops_f, e_src, e_dst, e_vol,
                 (slots[:, :n] != slots[i1, :n]).float().mean())
 
     slots = slots0
-    cost = _full_cost(slots, hops_f, e_src, e_dst, e_vol, n)
+    cost = full_cost(slots, hops_f, e_src, e_dst, e_vol, n)
     i0 = torch.argmin(cost)
     best_slots, best_cost = slots[i0], cost[i0]
     init_stats = stats(slots, cost, i0)
@@ -371,7 +300,7 @@ def _ga_generations(slots0, hops_f, e_src, e_dst, e_vol,
         children = _mutate_device(mu_all[gen], mi_all[gen], children,
                                   mutation_rate)
         slots = torch.cat([elite, children])
-        cost = _full_cost(slots, hops_f, e_src, e_dst, e_vol, n)
+        cost = full_cost(slots, hops_f, e_src, e_dst, e_vol, n)
         i1 = torch.argmin(cost)
         improved = cost[i1] < best_cost
         best_cost = torch.where(improved, cost[i1], best_cost)

@@ -24,7 +24,9 @@ on the tensor cores (bf16 ``mma.sync`` products with float32 sums, P
 rounded to bf16 for P.V as FA-2 does; within 1e-2 of the plain version),
 float32 on CUDA cores in float32 (within 1e-5 of the plain version, which
 bf16 or TF32 tensor cores cannot give; no served model runs float32
-attention). ``flash_attention_kernel.launches`` counts every launch,
+attention). float16 and mixed inputs run the float32 kernel on float32
+copies, as the reference casts every input to float32 and returns
+``q.dtype``. ``flash_attention_kernel.launches`` counts every launch,
 ``flash_attention_kernel.tensor_core_launches`` those of the tensor-core
 kernel.
 """
@@ -35,7 +37,7 @@ import math
 
 import torch
 
-from . import _build
+from . import FLOATS, _build, working_dtype
 
 KERNEL = "flash_attention"
 NEG_INF = -1e30
@@ -109,12 +111,14 @@ def _strides(t: torch.Tensor):
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True, window: int | None = None,
                            out: torch.Tensor | None = None) -> torch.Tensor:
-    """Attention of ``q [B, H, S, D]`` over ``k``, ``v [B, Hkv, S, D]``, all
-    float32 or all bfloat16 with a contiguous last dim (other strides are
-    free); the result goes into ``out`` (``[B, H, S, D]`` in ``q.dtype``,
-    any such strides) or a new contiguous tensor. bfloat16 launches the
-    tensor-core kernel, float32 the CUDA-core one. CPU tensors take the
-    plain version."""
+    """Attention of ``q [B, H, S, D]`` over ``k``, ``v [B, Hkv, S, D]``, each
+    float32, bfloat16 or float16, with a contiguous last dim (other strides
+    are free); the result goes into ``out`` (``[B, H, S, D]`` in
+    ``q.dtype``, any such strides) or a new contiguous tensor, in
+    ``q.dtype`` as the reference returns it. All bfloat16 launches the
+    tensor-core kernel; any other mix runs the float32 CUDA-core one on
+    float32 copies (exact) and rounds its result once to ``q.dtype``. CPU
+    tensors take the plain version."""
     tensors = (q, k, v) if out is None else (q, k, v, out)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -125,9 +129,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "on one CUDA device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
     _check(q, k, v, window, out)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention_kernel: q, k and v must share one "
-                        "dtype, float32 or bfloat16, got "
+    if any(t.dtype not in FLOATS for t in (q, k, v)):
+        raise TypeError("flash_attention_kernel: q, k and v must be "
+                        "float32, bfloat16 or float16, got "
                         f"{[q.dtype, k.dtype, v.dtype]}")
     b, h, s, d = q.shape
     if d > MAX_HEAD_DIM:
@@ -139,24 +143,29 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(b, h) > 65535 or s >= 2 ** 31:
         raise ValueError(f"flash_attention_kernel: shape {tuple(q.shape)} "
                          "exceeds the launch grid")
+    work = working_dtype(q, k, v)
     if out is None:
         out = torch.empty(b, h, s, d, dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    # the kernel's own output: ``out`` itself, or a working-dtype copy
+    res = out if work == q.dtype else torch.empty(b, h, s, d, dtype=work,
+                                                  device=dev)
+    q, k, v = (t.to(work) for t in (q, k, v))
     scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _strides(q), _strides(k), _strides(v), _strides(out), b, h,
+    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
+                _strides(q), _strides(k), _strides(v), _strides(res), b, h,
                 k.shape[1], s, d, scale, int(causal),
-                0 if window is None else int(window), _DTYPES[q.dtype],
+                0 if window is None else int(window), _DTYPES[work],
                 dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{rc}")
     flash_attention_kernel.launches += 1
-    if q.dtype == torch.bfloat16:
+    if work == torch.bfloat16:
         flash_attention_kernel.tensor_core_launches += 1
-    return out
+    return out if res is out else out.copy_(res)
 
 
 flash_attention_kernel.launches = 0

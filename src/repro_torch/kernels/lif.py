@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import FLOATS, _build, working_dtype
 
 KERNEL = "lif"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,9 +56,12 @@ def _lib():
 def lif_step_kernel(u: torch.Tensor, s_prev: torch.Tensor,
                     current: torch.Tensor, *, threshold: float = 1.0,
                     decay: float = 0.5, reset: str = "hard"):
-    """One fused LIF update of same-shaped, contiguous float32 or bfloat16
-    tensors of any shape. Returns ``(u', s')`` in their dtype. CPU tensors
-    take the plain version."""
+    """One fused LIF update of same-shaped, contiguous tensors of any shape,
+    each float32, bfloat16 or float16. Returns ``(u', s')`` in ``u.dtype``,
+    as the reference does. The kernel runs in bfloat16 storage when every
+    input is bfloat16 and in float32 otherwise (inputs cast up exactly,
+    results rounded once to ``u.dtype``); its math is float32 either way.
+    CPU tensors take the plain version."""
     tensors = (u, s_prev, current)
     if reset not in ("hard", "soft"):
         raise ValueError(f"unknown reset {reset!r}")
@@ -70,28 +73,30 @@ def lif_step_kernel(u: torch.Tensor, s_prev: torch.Tensor,
         raise ValueError("lif_step_kernel: u, s_prev and current must be on "
                          "one CUDA device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
-    if u.dtype not in _DTYPES or any(t.dtype != u.dtype for t in tensors):
-        raise TypeError("lif_step_kernel: u, s_prev and current must share "
-                        "one dtype, float32 or bfloat16, got "
+    if any(t.dtype not in FLOATS for t in tensors):
+        raise TypeError("lif_step_kernel: u, s_prev and current must be "
+                        "float32, bfloat16 or float16, got "
                         f"{[t.dtype for t in tensors]}")
     if any(t.shape != u.shape for t in tensors):
         raise ValueError("lif_step_kernel: u, s_prev and current must have "
                          f"one shape, got {[tuple(t.shape) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lif_step_kernel: every input must be contiguous")
-    u_new = torch.empty_like(u)
-    s_new = torch.empty_like(u)
+    work = working_dtype(*tensors)
+    uw, sw, cw = (t.to(work) for t in tensors)
+    u_new = torch.empty_like(uw)
+    s_new = torch.empty_like(uw)
     if u.numel() == 0:
-        return u_new, s_new
+        return u_new.to(u.dtype), s_new.to(u.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(u.data_ptr(), s_prev.data_ptr(), current.data_ptr(),
+    rc = _lib()(uw.data_ptr(), sw.data_ptr(), cw.data_ptr(),
                 u_new.data_ptr(), s_new.data_ptr(), u.numel(),
                 float(threshold), float(decay), int(reset == "hard"),
-                _DTYPES[u.dtype], dev.index or 0, stream)
+                _DTYPES[work], dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"lif kernel launch failed: CUDA error {rc}")
     lif_step_kernel.launches += 1
-    return u_new, s_new
+    return u_new.to(u.dtype), s_new.to(u.dtype)
 
 
 lif_step_kernel.launches = 0

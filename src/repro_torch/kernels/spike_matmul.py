@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import FLOATS, _build, working_dtype
 
 KERNEL = "spike_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -100,10 +100,13 @@ def _lib():
 
 def spike_matmul_kernel(spikes: torch.Tensor, w: torch.Tensor, *,
                         skipped: torch.Tensor | None = None) -> torch.Tensor:
-    """``spikes [M, K] @ w [K, N]`` in ``w.dtype``; both float32 or both
-    bfloat16, contiguous. ``skipped``, a one-element int64 tensor on the
-    same card, receives the number of (64 x 64 output tile, 64-deep k-step)
-    pairs whose spike tile was all zero (:func:`zero_tiles`). When
+    """``spikes [M, K] @ w [K, N]`` in ``w.dtype``, as the reference
+    returns it; each float32, bfloat16 or float16, contiguous. Both
+    bfloat16 run the kernel in bfloat16; any other pair runs it on float32
+    copies (exact) and rounds the float32 result once to ``w.dtype``.
+    ``skipped``, a one-element int64 tensor on the same card, receives
+    the number of (64 x 64 output tile, 64-deep k-step) pairs whose spike
+    tile was all zero (:func:`zero_tiles`). When
     :func:`splits` cuts K, the float32 partial products go to a scratch
     tensor and a second kernel sums them in a fixed order, so repeated calls
     give identical results. CPU tensors take the plain version (and leave
@@ -115,9 +118,9 @@ def spike_matmul_kernel(spikes: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"spikes on {spikes.device} and w on {w.device}: "
                          "both must be on one CUDA device (or both on the "
                          "CPU)")
-    if spikes.dtype not in _DTYPES or w.dtype != spikes.dtype:
-        raise TypeError("spike_matmul_kernel: spikes and w must both be "
-                        f"float32 or both bfloat16, got {spikes.dtype} and "
+    if spikes.dtype not in FLOATS or w.dtype not in FLOATS:
+        raise TypeError("spike_matmul_kernel: spikes and w must be float32, "
+                        f"bfloat16 or float16, got {spikes.dtype} and "
                         f"{w.dtype}")
     if spikes.dim() != 2 or w.dim() != 2 or spikes.shape[1] != w.shape[0]:
         raise ValueError(f"spike_matmul_kernel: need spikes [M, K] and w "
@@ -134,9 +137,11 @@ def spike_matmul_kernel(spikes: torch.Tensor, w: torch.Tensor, *,
     (M, K), N = spikes.shape, w.shape[1]
     if max(M, K, N) >= 2 ** 31:
         raise ValueError(f"spike_matmul_kernel: dims {(M, K, N)} exceed int32")
-    out = torch.empty(M, N, dtype=w.dtype, device=dev)
+    out_dtype, work = w.dtype, working_dtype(spikes, w)
+    spikes, w = spikes.to(work), w.to(work)
+    out = torch.empty(M, N, dtype=work, device=dev)
     if M == 0 or N == 0:
-        return out
+        return out.to(out_dtype)
     n_split, per = splits(M, K, N)
     scratch = (torch.empty(n_split, M, N, dtype=torch.float32, device=dev)
                if n_split > 1 else None)
@@ -150,7 +155,7 @@ def spike_matmul_kernel(spikes: torch.Tensor, w: torch.Tensor, *,
         raise RuntimeError(f"spike_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     spike_matmul_kernel.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 spike_matmul_kernel.launches = 0

@@ -1,17 +1,20 @@
-"""Shared transformer building blocks (``repro.models.layers``), forward only.
+"""Shared transformer building blocks (``repro.models.layers``).
 
 Activation layout is BSHD (``[batch, seq, heads, head_dim]``), as in the
 reference; parameters are nested dicts of tensors under the reference's
 names (``wq [d, H, Dh]``, ``wo [H, Dh, d]``, ...).
 
-Attention has two routes and no switch between them. On a CUDA tensor,
-causal self-attention (``pos_offset == 0``, ``Skv == S``, with or without a
-window) goes through the flash kernel (``kernels/flash_attention.py``), which
-computes the same function as the reference's blockwise online softmax; the
-kernel has no backward yet, so a gradient through it raises. Everything else
-(CPU tensors, cross-attention, decode) runs the reference's algorithm in
-plain torch: ``blockwise_attention``'s q chunks over static kv ranges, and
-``_flash_fwd_impl``'s online softmax over kv sub-chunks.
+Attention has two routes, chosen by the arguments and by no switch. On a
+CUDA tensor, causal self-attention (``pos_offset == 0``, ``Skv == S``, with
+or without a window) that autograd needs no gradient of goes through the
+flash kernel (``kernels/flash_attention.py``), which computes the same
+function as the reference's blockwise online softmax. Everything else (CPU
+tensors, cross-attention, decode, and any q/k/v that requires grad while
+grad is enabled) runs the reference's algorithm in plain torch:
+``blockwise_attention``'s q chunks over static kv ranges, and
+``_flash_fwd_impl``'s online softmax over kv sub-chunks, which autograd
+differentiates, as the reference's training differentiates its plain
+attention (the kernel has no backward, in either package).
 
 The reference's sharding constraints are identities on one card:
 ``seq_shard_attn`` keeps only its effect of a single q chunk.
@@ -158,10 +161,15 @@ def _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal, k_chunk):
     return out_b, lse
 
 
-def _kernel_route(q, skv: int, pos_offset: int, causal: bool) -> bool:
-    """Causal self-attention on a CUDA tensor: the flash kernel's case."""
+def _kernel_route(q, k, v, pos_offset: int, causal: bool) -> bool:
+    """Causal self-attention on CUDA tensors that autograd needs no gradient
+    of: the flash kernel's case. With a gradient to take, the plain loop
+    runs and autograd differentiates it, as the reference's training
+    differentiates its plain attention and never calls its kernel."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
+                                                 for t in (q, k, v))
     return (q.device.type == "cuda" and causal and pos_offset == 0
-            and skv == q.shape[1])
+            and k.shape[1] == q.shape[1] and not needs_grad)
 
 
 def blockwise_attention(q, k, v, *, window: int | None = None,
@@ -170,20 +178,15 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
     """Causal (optionally sliding-window) or bidirectional attention, BSHD.
 
     q [B,S,H,D], k/v [B,Skv,HKV,D] with Skv == S + pos_offset (self-attention:
-    pos_offset=0; cross-attention: causal=False, any Skv). On a CUDA tensor,
-    causal self-attention is one flash-kernel launch; otherwise a Python loop
-    over q chunks with static kv ranges (never-visible blocks skipped) and
-    an online softmax over kv sub-chunks, as in the reference.
+    pos_offset=0; cross-attention: causal=False, any Skv). On CUDA tensors
+    that need no gradient, causal self-attention is one flash-kernel launch;
+    otherwise a Python loop over q chunks with static kv ranges
+    (never-visible blocks skipped) and an online softmax over kv sub-chunks,
+    as in the reference, which autograd differentiates.
     """
     b, s, h, d = q.shape
     skv = k.shape[1]
-    if _kernel_route(q, skv, pos_offset, causal):
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "the flash kernel has no backward yet: gradients of LM "
-                "attention on the card come with LM training (ROADMAP "
-                "queue 1 item 10)")
+    if _kernel_route(q, k, v, pos_offset, causal):
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         _flash_forward(q.transpose(1, 2), k.transpose(1, 2),
                        v.transpose(1, 2), causal=True, window=window,
@@ -269,7 +272,7 @@ def attention_block(p, x, positions, cfg, cache=None, pos=None):
         # an identity on one card)
         q_chunk = s if getattr(cfg, "seq_shard_attn", False) else cfg.q_chunk
         if (getattr(cfg, "repeat_kv", False)
-                and not _kernel_route(q, s, 0, True)):
+                and not _kernel_route(q, k, v, 0, True)):
             rep = q.shape[2] // k.shape[2]
             kk = kk.repeat_interleave(rep, dim=2)
             vv = vv.repeat_interleave(rep, dim=2)

@@ -3,7 +3,7 @@ the device-resident SA/GA of ``repro_torch.core.placement.device_search``,
 against the JAX package on the CPU.
 
 Grades: the incident tables and ``delta_comm_cost`` are exact; the plain
-``delta_cost`` and ``_swap_delta`` are exact on integer volumes (every
+``delta_cost`` over ``swap_tables`` are exact on integer volumes (every
 partial sum below 2^24); ``_sa_chains`` fed the reference's own draws gives
 the reference's best slots, best costs and trajectory exactly on an
 integer-volume graph; ``_ox_device``/``_mutate_device`` fed the reference's
@@ -33,7 +33,7 @@ from repro_torch.core.placement import device_search as p_ds  # noqa: E402
 from repro_torch.core.placement import optimize_placement  # noqa: E402
 from repro_torch.core.placement.baselines import zigzag  # noqa: E402
 from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
-                                            delta_cost_plain)
+                                            delta_cost_plain, swap_tables)
 from repro_torch.obs import Recorder  # noqa: E402
 
 CPU = "cpu"
@@ -123,7 +123,7 @@ def test_delta_cost_plain_matches_pallas_interpret(R, K, C):
 
 
 # ---------------------------------------------------------------------------
-# _swap_delta and the SA chains
+# the swap delta and the SA chains
 # ---------------------------------------------------------------------------
 
 def _sa_inputs(r_noc, rg):
@@ -149,15 +149,27 @@ def test_swap_delta_matches_reference(use_pallas):
         jnp.asarray(bn.tables.hops, jnp.float32), jnp.asarray(inc.other),
         jnp.asarray(inc.vol, jnp.float32), jnp.asarray(inc.is_src), rg.n,
         use_pallas=False, interpret=True))
-    got = p_ds._swap_delta(
+    fn = delta_cost if use_pallas else delta_cost_plain
+    got = fn(*swap_tables(
         _t(slots, torch.int32), _t(i, torch.int64), _t(j, torch.int64),
-        _t(bn.tables.hops, torch.float32), _t(inc.other, torch.int32),
-        _t(inc.vol, torch.float32), _t(inc.is_src, torch.bool), pg.n,
-        use_pallas=use_pallas)
+        _t(inc.other, torch.int32), _t(inc.vol, torch.float32),
+        _t(inc.is_src, torch.bool), pg.n), _t(bn.tables.hops, torch.float32))
     np.testing.assert_array_equal(got.numpy(), want)
     for r in range(R):
         assert got[r].item() == p_nb.delta_comm_cost(
             p_noc, pg, slots[r], int(i[r]), int(j[r]))
+
+
+def _reference_draws(keys0, iters, S):
+    """The proposal streams ``(i, j, u)``, each ``[iters, R]``, that the
+    reference's ``_sa_chains`` draws from ``keys0``."""
+    ks = jax.vmap(lambda k: jax.random.split(k, 3))(keys0)
+    i_all = jax.vmap(
+        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 0]).T
+    j_all = jax.vmap(
+        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 1]).T
+    u_all = jax.vmap(lambda k: jax.random.uniform(k, (iters,)))(ks[:, 2]).T
+    return i_all, j_all, u_all
 
 
 def test_sa_chains_match_reference_under_injected_draws():
@@ -176,12 +188,7 @@ def test_sa_chains_match_reference_under_injected_draws():
     t0 = (0.05 * 4.0 ** (np.arange(R) / (R - 1))).astype(np.float32)
     cooling = np.float32(1e-3 ** (1.0 / iters))
     keys0 = r_ds._chain_keys(seed, R)
-    ks = jax.vmap(lambda k: jax.random.split(k, 3))(keys0)
-    i_all = jax.vmap(
-        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 0]).T
-    j_all = jax.vmap(
-        lambda k: jax.random.randint(k, (iters,), 0, S))(ks[:, 1]).T
-    u_all = jax.vmap(lambda k: jax.random.uniform(k, (iters,)))(ks[:, 2]).T
+    i_all, j_all, u_all = _reference_draws(keys0, iters, S)
     best_slots, best_cost, traj = r_ds._sa_chains(
         jnp.asarray(slots0), keys0, jnp.asarray(t0), jnp.float32(cooling),
         jnp.asarray(inc.other), jnp.asarray(inc.vol, jnp.float32),
@@ -205,6 +212,70 @@ def test_sa_chains_match_reference_under_injected_draws():
     for got, want in zip(p_traj, traj):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert np.asarray(traj[3]).sum() > 0            # some swaps accepted
+
+
+# (name, topology, graph nodes, chains R, steps, refresh_every, faults): no
+# steps; one chain; refresh_every dividing nothing and past the steps; a
+# graph of 10 nodes on 32 slots (most swaps touch a free slot); a degraded
+# mesh (a dropped core is no slot, a dropped link detours)
+SPLIT_CASES = [("iters=0", "mesh:4x8", 24, 4, 0, 64, ()),
+               ("R=1", "mesh:4x8", 24, 1, 150, 64, ()),
+               ("refresh 7", "mesh:4x8", 24, 3, 150, 7, ()),
+               ("refresh past iters", "mesh:4x8", 24, 3, 60, 256, ()),
+               ("free slots", "mesh:4x8", 10, 4, 150, 32, ()),
+               ("degraded", "mesh:4x8", 20, 3, 120, 50, ((5,), (9,)))]
+
+
+@pytest.mark.parametrize("name,spec,n,R,iters,refresh,faults", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_sa_chains_split_matches_reference_under_injected_draws(
+        name, spec, n, R, iters, refresh, faults):
+    """``_sa_chains`` with ``use_pallas=True`` on CPU tensors (which the
+    ``sa_chains`` wrapper hands to its plain version, launching nothing)
+    against the reference's ``_sa_chains`` under its own draws: best slots,
+    best costs and the whole trajectory exact, on integer volumes whose
+    sums stay below 2^24."""
+    from repro_torch.kernels.delta_cost import sa_chains
+    r_noc, p_noc = _topos(spec, *faults)
+    rg, pg = _graphs(n, seed=R + n)
+    bn, inc, e_src, e_dst, e_vol = _sa_inputs(r_noc, rg)
+    pool = p_ds._pool_array(p_noc)
+    rng = np.random.default_rng(iters + refresh)
+    slots0 = np.stack([rng.permutation(pool) for _ in range(R)]
+                      ).astype(np.int32)
+    S = slots0.shape[1]
+    t0 = (0.05 * 4.0 ** (np.arange(R) / max(R - 1, 1))).astype(np.float32)
+    cooling = np.float32(1e-3 ** (1.0 / max(iters, 1)))
+    keys0 = r_ds._chain_keys(7, R)
+    i_all, j_all, u_all = _reference_draws(keys0, iters, S)
+    best_slots, best_cost, traj = r_ds._sa_chains(
+        jnp.asarray(slots0), keys0, jnp.asarray(t0), jnp.float32(cooling),
+        jnp.asarray(inc.other), jnp.asarray(inc.vol, jnp.float32),
+        jnp.asarray(inc.is_src), jnp.asarray(bn.tables.hops, jnp.float32),
+        jnp.asarray(e_src, jnp.int32), jnp.asarray(e_dst, jnp.int32),
+        jnp.asarray(e_vol, jnp.float32), iters=iters, n=rg.n,
+        refresh_every=refresh, use_pallas=False, interpret=True)
+    before = sa_chains.launches
+    p_best_slots, p_best_cost, p_traj = p_ds._sa_chains(
+        _t(slots0, torch.int32), _t(t0, torch.float32), float(cooling),
+        _t(inc.other, torch.int32), _t(inc.vol, torch.float32),
+        _t(inc.is_src, torch.bool), _t(bn.tables.hops, torch.float32),
+        _t(e_src, torch.int64), _t(e_dst, torch.int64),
+        _t(e_vol, torch.float32), iters=iters, n=pg.n,
+        refresh_every=refresh, use_pallas=True,
+        draws=(_t(i_all, torch.int64), _t(j_all, torch.int64),
+               _t(u_all, torch.float32)))
+    assert sa_chains.launches == before
+    np.testing.assert_array_equal(p_best_slots.numpy(), np.asarray(best_slots))
+    np.testing.assert_array_equal(p_best_cost.numpy(), np.asarray(best_cost))
+    assert len(p_traj) == len(traj) == 5
+    for got, want in zip(p_traj, traj):
+        assert got.shape == (iters, R)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert [t.dtype for t in p_traj] == [torch.float32] * 3 + [torch.bool] * 2
+    if iters:
+        assert float(np.asarray(traj[0]).max()) < 2 ** 24
+        assert np.asarray(traj[3]).sum() > 0        # some swaps accepted
 
 
 # ---------------------------------------------------------------------------

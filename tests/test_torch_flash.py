@@ -125,3 +125,32 @@ def test_visible_pairs_counts_the_mask(s, causal, window):
     if window is not None:
         mask &= j > i - window
     assert p_fa.visible_pairs(s, causal, window) == int(mask.sum())
+
+
+@pytest.mark.parametrize("dtypes,kw", [
+    (("float32",) * 3, dict(interpret=True)),
+    (("float16",) * 3, dict(interpret=True, window=37)),
+    (("bfloat16", "float32", "float32"), dict(interpret=None)),
+    (("float32", "bfloat16", "float16"), dict(interpret=True, window=20)),
+])
+def test_flash_attention_takes_reference_keywords_and_dtypes(dtypes, kw):
+    """The reference's ``interpret`` keyword is accepted (and ignored), and
+    float16 or mixed q/k/v run as the reference runs them: every input cast
+    to float32, the result in ``q.dtype``. float32 within this file's 2e-5;
+    a half-width ``q`` within one rounding of its dtype (1e-2)."""
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+          "float16": jnp.float16}
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+    arrays = _qkv(11, 1, 4, 2, 128, 32)
+    want = r_ops.flash_attention(
+        *(jnp.asarray(a).astype(jd[d]) for a, d in zip(arrays, dtypes)),
+        block_q=64, block_k=64, **kw)
+    got = p_ops.flash_attention(
+        *(torch.as_tensor(a).to(td[d]) for a, d in zip(arrays, dtypes)),
+        block_q=64, block_k=64, **kw)
+    assert got.dtype == td[dtypes[0]] and got.shape == arrays[0].shape
+    tol = 2e-5 if dtypes[0] == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)

@@ -20,7 +20,13 @@ results repeat bit for bit. A full-width Spike-VGG16 training step
 through the LIF kernel is bit-identical to the same step through the plain
 version, with deterministic cuDNN. The flash-attention kernel agrees with
 its plain version within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, and
-a smoke-size model served on the card goes through it.
+a smoke-size model served on the card goes through it; attention gradients
+on the card (the plain route) match the CPU's within 1e-4. The annealing
+kernel ``sa_chains`` is bit-identical to the plain loop that launches
+``delta_cost`` once a step: best slots, best costs and the whole
+trajectory. float16 and mixed inputs of the compute kernels run in float32
+and return the reference's dtype, against their plain versions at the
+tolerances above.
 """
 import numpy as np
 import pytest
@@ -29,7 +35,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import NoC  # noqa: E402
 from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
-                                            delta_cost_plain)
+                                            delta_cost_plain, sa_chains,
+                                            sa_chains_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.lif import (lif_step_kernel,  # noqa: E402
@@ -182,22 +189,132 @@ def test_delta_cost_kernel_rejects_bad_inputs(cuda):
 
 
 def test_device_sa_kernel_path_matches_plain_path(cuda):
-    """The device SA through the kernel (one launch per step) and through
-    its plain version: the same placement on an integer-volume graph, whose
-    partial sums stay below 2^24 so both add exactly."""
+    """The device SA through the annealing kernel (one launch a search, no
+    ``delta_cost`` launch) and through its plain version: the same
+    placement on an integer-volume graph, whose partial sums stay below
+    2^24 so both add exactly."""
     from repro_torch.core import graph, topology
     from repro_torch.core.placement import device_search
     g = graph.random_dag(24, p=0.3, seed=2)
     g = graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
     noc = topology.parse_topology("mesh:4x8")
     kw = dict(iters=150, seed=3, restarts=3, device=cuda)
-    before = delta_cost.launches
+    before = (delta_cost.launches, sa_chains.launches)
     plain = device_search.simulated_annealing_device(g, noc, use_pallas=False,
                                                      **kw)
-    assert delta_cost.launches == before
+    assert (delta_cost.launches, sa_chains.launches) == before
     kernel = device_search.simulated_annealing_device(g, noc, **kw)
-    assert delta_cost.launches == before + 150
+    assert (delta_cost.launches, sa_chains.launches) == (before[0],
+                                                         before[1] + 1)
     assert np.array_equal(kernel, plain)
+
+
+# (id, topology, faults, graph nodes, edge probability, chains R, steps,
+# refresh_every): meshes 4x8 and 8x8, a torus, a degraded mesh (a dropped
+# core and link), C=256 past the hop table's room in shared memory, incident
+# tables past theirs (a dense 120-node graph beside a 200-core hop table; and
+# on 32x32 both), and the edges: no steps, one chain (a partial block, as are
+# R=5, 7, 12 and 24), refresh past the steps, a small graph on many free slots
+SA_CASES = [
+    ("mesh4x8", "mesh:4x8", (), 24, 0.3, 16, 400, 64),
+    ("mesh8x8", "mesh:8x8", (), 64, 0.1, 64, 600, 256),
+    ("torus8x8", "torus:8x8", (), 48, 0.15, 32, 500, 100),
+    ("degraded", "mesh:8x8", ((3, 40), (9,)), 40, 0.2, 24, 500, 128),
+    ("mesh16x16-C256", "mesh:16x16", (), 120, 0.05, 16, 400, 256),
+    ("inc-global", "mesh:10x20", (), 120, 0.6, 8, 200, 64),
+    ("mesh32x32", "mesh:32x32", (), 600, 0.05, 4, 150, 50),
+    ("iters0", "mesh:4x8", (), 24, 0.3, 5, 0, 64),
+    ("R1", "mesh:8x8", (), 64, 0.1, 1, 300, 256),
+    ("refresh-past-iters", "mesh:4x8", (), 24, 0.3, 7, 90, 1000),
+    ("free-slots", "mesh:8x8", (), 10, 0.5, 12, 300, 32),
+]
+
+
+def _sa_case(dev, spec, faults, n, p, R, iters, refresh, seed=0):
+    from repro_torch.core import graph, topology
+    from repro_torch.core.placement import device_search
+    g = graph.random_dag(n, p=p, seed=seed + n)
+    g = graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+    noc = topology.parse_topology(spec)
+    if faults:
+        noc = topology.degrade(noc, links=faults[0], nodes=faults[1])
+    args, kw = device_search._sa_setup(
+        g, noc, iters=iters, t0=0.05, t_end_frac=1e-3, seed=seed, init=None,
+        restarts=R, t0_spread=4.0, refresh_every=refresh, device=dev)
+    i_all, j_all, _ = kw["draws"]
+    j_all[::7] = i_all[::7]                  # i == j: never proposed
+    return args, kw
+
+
+@pytest.mark.parametrize("name,spec,faults,n,p,R,iters,refresh", SA_CASES,
+                         ids=[c[0] for c in SA_CASES])
+def test_sa_chains_kernel_is_bit_identical_to_the_delta_cost_loop(
+        cuda, name, spec, faults, n, p, R, iters, refresh):
+    """One launch of the annealing kernel against the plain loop launching
+    ``delta_cost`` once a step, on the same draws: best slots, best costs
+    and all five trajectories bit for bit (integer volumes, so the float64
+    refreshes are exact in any order)."""
+    from repro_torch.kernels.delta_cost import sa_layout
+    args, kw = _sa_case(cuda, spec, faults, n, p, R, iters, refresh)
+    before = (sa_chains.launches, delta_cost.launches)
+    got = sa_chains(*args, **kw)
+    torch.cuda.synchronize()
+    assert (sa_chains.launches, delta_cost.launches) == (before[0] + 1,
+                                                         before[1])
+    want = sa_chains_plain(*args, delta_fn=delta_cost, **kw)
+    assert delta_cost.launches == before[1] + iters
+    S, C = args[0].shape[1], args[6].shape[0]
+    _, hops_shared, inc_shared = sa_layout(S, n, args[3].shape[1], C)
+    if name == "mesh16x16-C256":
+        assert not hops_shared
+    if name == "inc-global":
+        assert hops_shared and not inc_shared
+    if name == "mesh32x32":
+        assert not hops_shared and not inc_shared
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(got[2], want[2]):
+        assert a.shape == b.shape == (iters, R) and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    if iters:
+        assert bool(got[2][3].any())             # some swaps accepted
+
+
+def test_sa_chains_kernel_rejects_bad_inputs(cuda):
+    args, kw = _sa_case(cuda, "mesh:4x8", (), 24, 0.3, 4, 50, 64)
+    (slots0, t0, cooling, other, vol, src, hops, e_src, e_dst,
+     e_vol) = args
+    i_all, j_all, u_all = kw["draws"]
+    S = slots0.shape[1]
+
+    def call(*a, draws=None, **extra):
+        k = dict(kw, **extra)
+        if draws is not None:
+            k["draws"] = draws
+        return sa_chains(*a, **k)
+    before = sa_chains.launches
+    with pytest.raises(TypeError):
+        call(slots0.long(), *args[1:])
+    with pytest.raises(TypeError):
+        call(*args[:6], hops.double(), *args[7:])
+    with pytest.raises(TypeError):
+        call(*args, draws=(i_all.float(), j_all, u_all))
+    with pytest.raises(ValueError):
+        call(slots0, t0[:3], *args[2:])
+    with pytest.raises(ValueError):
+        call(*args, draws=(i_all[:10], j_all, u_all))
+    with pytest.raises(ValueError):
+        call(*args[:6], hops.cpu(), *args[7:])
+    with pytest.raises(ValueError):
+        call(*args[:6], hops.t(), *args[7:])
+    with pytest.raises(ValueError, match="draws"):
+        bad = i_all.clone()
+        bad[3, 1] = S
+        call(*args, draws=(bad, j_all, u_all))
+    with pytest.raises(ValueError):
+        call(*args[:3], other + 1, *args[4:])
+    with pytest.raises(ValueError):
+        call(*args, refresh_every=0)
+    assert sa_chains.launches == before
 
 
 # ---- LIF --------------------------------------------------------------------
@@ -253,7 +370,7 @@ def test_lif_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         lif_step_kernel(u.double(), s.double(), c.double())
     with pytest.raises(TypeError):
-        lif_step_kernel(u, s.bfloat16(), c)
+        lif_step_kernel(u, s.int(), c)
     with pytest.raises(ValueError):
         lif_step_kernel(u, s[:, :4], c)
     with pytest.raises(ValueError):
@@ -416,7 +533,7 @@ def test_spike_matmul_kernel_rejects_bad_inputs(cuda):
     w = torch.zeros(16, 4, device=cuda)
     before = spike_matmul_kernel.launches
     with pytest.raises(TypeError):
-        spike_matmul_kernel(sp, w.bfloat16())
+        spike_matmul_kernel(sp, w.int())
     with pytest.raises(TypeError):
         spike_matmul_kernel(sp.double(), w.double())
     with pytest.raises(ValueError):
@@ -588,9 +705,9 @@ def test_flash_attention_kernel_reads_and_writes_strided_views(cuda, dtype,
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):
     q, k, v = _flash_inputs(cuda, 1, 4, 2, 64, 32, torch.float32)
     with pytest.raises(TypeError):
-        flash_attention_kernel(q.bfloat16(), k, v)
+        flash_attention_kernel(q.double(), k, v)
     with pytest.raises(TypeError):
-        flash_attention_kernel(q.half(), k.half(), v.half())
+        flash_attention_kernel(q, k.int(), v.int())
     with pytest.raises(ValueError, match="head dim"):
         big = torch.zeros(1, 4, 64, 288, device=cuda)
         flash_attention_kernel(big, big[:, :2], big[:, :2])
@@ -604,12 +721,111 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda):
                                v[:, :1].expand(1, 3, 64, 32).contiguous())
 
 
-def test_attention_gradient_on_the_card_raises(cuda):
+@pytest.mark.parametrize("window", [None, 37])
+def test_attention_gradients_on_the_card_match_the_cpu(cuda, window):
+    """q/k/v that require grad take the plain route on the card (no flash
+    launch), and autograd's gradients there match the CPU's within
+    rtol=atol=1e-4 (float32, sums in another order); without grad the same
+    call launches the kernel."""
     from repro_torch.models import layers
-    q, k, v = _flash_inputs(cuda, 1, 8, 4, 2, 16, torch.float32)
-    q = q.transpose(1, 2).contiguous().requires_grad_()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        layers.blockwise_attention(q, k.transpose(1, 2), v.transpose(1, 2))
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in _flash_inputs(cuda, 2, 8, 4, 96, 32, torch.float32))
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(1), device=cuda)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = flash_attention_kernel.launches
+        out = layers.blockwise_attention(*leaves, window=window, q_chunk=32,
+                                         k_chunk=32)
+        (out * g.to(dev)).sum().backward()
+        assert flash_attention_kernel.launches == before
+        grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu()
+                                                  for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        out = layers.blockwise_attention(q.requires_grad_(), k, v,
+                                         window=window)
+    assert flash_attention_kernel.launches == before + 1
+    torch.testing.assert_close(out.cpu(), grads["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+
+
+# float16 and mixed inputs: (u, s, current) dtypes for LIF, (spikes, w) for
+# spike_matmul, (q, k, v) for flash
+F16, BF16, F32 = torch.float16, torch.bfloat16, torch.float32
+MIXED_LIF = [(F16, F16, F16), (BF16, F32, F32), (F32, BF16, F16),
+             (F16, BF16, F32)]
+MIXED_MM = [(F16, F16), (BF16, F32), (F32, BF16), (F32, F16)]
+MIXED_FLASH = [(F16, F16, F16), (BF16, F32, F32), (F32, BF16, BF16),
+               (F16, F32, BF16)]
+
+
+@pytest.mark.parametrize("dtypes", MIXED_LIF)
+def test_lif_kernel_mixed_dtypes_are_bit_identical_to_plain(cuda, dtypes):
+    """Run in float32 (every input cast up exactly), rounded once to
+    ``u.dtype``: bit for bit the plain version, which does the same."""
+    u, s, c = (t.to(d) for t, d in zip(
+        _lif_inputs((8, 64, 33), F32, 3, cuda), dtypes))
+    before = lif_step_kernel.launches
+    un, sn = lif_step_kernel(u, s, c, reset="soft")
+    torch.cuda.synchronize()
+    assert lif_step_kernel.launches == before + 1
+    ur, sr = lif_step_plain(u, s, c, reset="soft")
+    assert un.dtype == sn.dtype == dtypes[0]
+    assert torch.equal(un, ur) and torch.equal(sn, sr)
+
+
+@pytest.mark.parametrize("sd,wd", MIXED_MM)
+def test_spike_matmul_kernel_mixed_dtypes_match_plain(cuda, sd, wd):
+    """float32 kernel on exact float32 copies, the result in ``w.dtype``:
+    within this file's float32 bounds, or one rounding (1e-2) of a
+    half-width ``w``."""
+    rng = np.random.default_rng(8)
+    sp = torch.as_tensor((rng.random((300, 576)) < 0.2).astype(np.float32),
+                         device=cuda).to(sd)
+    w = torch.as_tensor(rng.standard_normal((576, 64)).astype(np.float32),
+                        device=cuda).to(wd)
+    before = spike_matmul_kernel.launches
+    got = spike_matmul_kernel(sp, w)
+    torch.cuda.synchronize()
+    assert spike_matmul_kernel.launches == before + 1
+    want = spike_matmul_plain(sp, w)
+    assert got.dtype == wd and got.shape == (300, 64)
+    if wd == F32:
+        assert _mm_close(got, want, sp.float(), w)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("dtypes", MIXED_FLASH)
+def test_flash_attention_kernel_mixed_dtypes_match_plain(cuda, dtypes):
+    """Not all bfloat16: the float32 CUDA-core kernel on float32 copies
+    (the tensor-core counter stays put), the result in ``q.dtype``; within
+    1e-5 for a float32 ``q`` and one rounding (1e-2) of a half-width one,
+    into a fresh tensor and into a strided ``out``."""
+    q, k, v = (t.to(d) for t, d in zip(
+        _flash_inputs(cuda, 2, 4, 2, 130, 64, F32), dtypes))
+    before = (flash_attention_kernel.launches,
+              flash_attention_kernel.tensor_core_launches)
+    got = flash_attention_kernel(q, k, v, window=50)
+    out = torch.zeros(2, 130, 4, 64, dtype=q.dtype,
+                      device=cuda).transpose(1, 2)
+    into = flash_attention_kernel(q, k, v, window=50, out=out)
+    torch.cuda.synchronize()
+    assert into is out
+    assert (flash_attention_kernel.launches,
+            flash_attention_kernel.tensor_core_launches) == (before[0] + 2,
+                                                             before[1])
+    want = flash_attention_plain(q, k, v, window=50)
+    assert got.dtype == dtypes[0] and got.shape == q.shape
+    tol = 1e-5 if dtypes[0] == F32 else 1e-2
+    for res in (got, out):
+        torch.testing.assert_close(res.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b"])

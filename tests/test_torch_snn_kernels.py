@@ -243,3 +243,90 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     p_ops.lif_step(x, x, x)
     p_ops.spike_matmul(x, x.t())
     assert (lif_step_kernel.launches, spike_matmul_kernel.launches) == before
+
+
+# ---- the reference's keywords and dtypes -------------------------------------
+
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+       "float16": jnp.float16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+         "float16": torch.float16}
+
+
+def _as(x, dtype):
+    return jnp.asarray(x).astype(JNP[dtype]), torch.as_tensor(x).to(
+        TORCH[dtype])
+
+
+@pytest.mark.parametrize("op,kw", [
+    ("lif_step", dict(interpret=True)),
+    ("lif_step", dict(interpret=None, threshold=0.7)),
+    ("spike_matmul", dict(interpret=True, block_m=64, block_k=64,
+                          block_n=64)),
+    ("spike_matmul", dict(block_m=32, block_k=128, block_n=32)),
+    ("spike_conv", dict(interpret=True)),
+])
+def test_ops_take_the_reference_keywords(op, kw):
+    """Every keyword of the reference's ``ops`` is accepted by the port's
+    (``interpret`` and the TPU block sizes are ignored), and the results
+    agree with the reference's run with the same keywords (Pallas in
+    interpret mode) at this file's tolerances."""
+    rng = np.random.default_rng(len(kw))
+    if op == "lif_step":
+        args = [rng.standard_normal((8, 33)).astype(np.float32),
+                (rng.random((8, 33)) < 0.3).astype(np.float32),
+                rng.standard_normal((8, 33)).astype(np.float32)]
+        u, s = r_ops.lif_step(*map(jnp.asarray, args), **kw)
+        un, sn = p_ops.lif_step(*map(torch.as_tensor, args), **kw)
+        np.testing.assert_array_equal(_np(sn), _np(s))
+        np.testing.assert_allclose(_np(un), _np(u), rtol=1e-6)
+        return
+    if op == "spike_matmul":
+        args = [(rng.random((70, 200)) < 0.2).astype(np.float32),
+                rng.standard_normal((200, 90)).astype(np.float32)]
+    else:
+        args = [(rng.random((2, 7, 7, 4)) < 0.25).astype(np.float32),
+                rng.standard_normal((3, 3, 4, 8)).astype(np.float32)]
+    ref = getattr(r_ops, op)(*map(jnp.asarray, args), **kw)
+    out = getattr(p_ops, op)(*map(torch.as_tensor, args), **kw)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtypes", [("float16",) * 3,
+                                    ("bfloat16", "float32", "float32"),
+                                    ("float32", "bfloat16", "float16"),
+                                    ("float16", "bfloat16", "float32")])
+def test_lif_step_mixed_dtypes_match_reference(dtypes):
+    """Mixed and float16 states: the reference casts each to float32 and
+    returns ``u``'s dtype, and so does the port; spikes exact, the
+    membrane within one rounding of ``u``'s dtype."""
+    rng = np.random.default_rng(5)
+    raw = [rng.standard_normal((6, 40)).astype(np.float32),
+           (rng.random((6, 40)) < 0.3).astype(np.float32),
+           rng.standard_normal((6, 40)).astype(np.float32)]
+    pairs = [_as(x, d) for x, d in zip(raw, dtypes)]
+    ur, sr = r_ops.lif_step(*(j for j, _ in pairs), reset="soft")
+    un, sn = p_ops.lif_step(*(t for _, t in pairs), reset="soft")
+    assert un.dtype == sn.dtype == TORCH[dtypes[0]]
+    np.testing.assert_array_equal(_np(sn), _np(sr))
+    tol = 1e-6 if dtypes[0] == "float32" else 1e-2
+    np.testing.assert_allclose(_np(un), _np(ur), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sd,wd", [("float16", "float16"),
+                                   ("bfloat16", "float32"),
+                                   ("float32", "bfloat16"),
+                                   ("float32", "float16")])
+def test_spike_matmul_mixed_dtypes_match_reference(sd, wd):
+    """Spikes and weights of any two dtypes: float32 sums returned in
+    ``w.dtype``, within 1e-4 in float32 and within this file's bfloat16
+    tolerance (5e-2) in the half-width types."""
+    rng = np.random.default_rng(6)
+    (js, ts) = _as((rng.random((48, 96)) < 0.2).astype(np.float32), sd)
+    (jw, tw) = _as(rng.standard_normal((96, 40)).astype(np.float32), wd)
+    ref = r_ops.spike_matmul(js, jw)
+    out = p_ops.spike_matmul(ts, tw)
+    assert out.dtype == TORCH[wd] and out.shape == (48, 40)
+    tol = 1e-4 if wd == "float32" else 5e-2
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
