@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --wrapper-times   # only the LIF wrappers' host cost
 
 Phases, each of which fails the run loudly:
 
@@ -39,13 +40,25 @@ Phases, each of which fails the run loudly:
    4608, windows of 37 and 4096 past S, non-causal, GQA rep 1, 2 and 4,
    within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, each bf16 call
    counted as a tensor-core launch and no float32 one;
+   ``link_traffic_routes`` (the route gather fused into the segment sum)
+   exactly on integer volumes at the PPO shape (int64 and int32 pair
+   indices), on a degraded 8x8 mesh and on a table with n_links > 8192, and
+   on the main path's volumes within rtol=1e-5, atol=1e-3;
+   ``lif_backward`` at every LIF state shape of both training paths, hard
+   and soft reset: float32 rect bit for bit at alpha 2 and 3, with g_u
+   absent, g_s absent and need_s false; sigmoid and atan in float32 within
+   rtol=1e-5, atol=1e-6; bfloat16 within 2^-5 of each result's largest
+   magnitude;
 3. hold ``evaluate_batch(backend="cuda")`` against the numpy float64 backend
    on the main path's graph for 256 random placements, and ``delta_cost``
    over ``swap_tables`` against the numpy ``delta_comm_cost`` along a
    200-swap stream on the same graph;
 4. drive the PPO path: ``deploy_model(spike_vgg16(), NoC(8, 8, ...),
    method="ppo", objective="latency")`` with its defaults (``device="cuda"``,
-   ``backend="cuda"``, 40 PPO iterations at batch 256); check the plan;
+   ``backend="cuda"``, 40 PPO iterations at batch 256); check the plan
+   against the host evaluate, and that the scorer launched
+   ``link_traffic_routes`` once an iteration (40) and ``link_traffic``
+   never;
 5. drive the device SA path: the same ``deploy_model`` with ``method="sa",
    backend="device", restarts=64`` (5000 steps): one ``sa_chains`` launch
    and no ``delta_cost`` launch; check the plan against the host evaluate
@@ -63,10 +76,15 @@ Phases, each of which fails the run loudly:
    host search on the card;
 7. drive BPTT training at full width: ``snn.bptt.train_step`` of
    ``spike_vgg16()`` (T=4) at batch 8, 5 steps from one set of seeded
-   weights (52 LIF launches a step), and of ``spike_resnet18()`` (68 a step),
-   3 steps; loss, wall and launches per step and one profiled step each;
-   then each first step again through the LIF kernel and through its plain
-   version with deterministic cuDNN: loss, logits, spikes and gradients
+   weights (52 LIF launches a step, and as many LIF backward launches), and
+   of ``spike_resnet18()`` (68 a step), 3 steps; loss, wall and launches per
+   step and one profiled step each; the same training in six alternating
+   turns with the fused backward and with its plain version: step wall
+   (median and mean of 12 steps each), kernels per step and busy share of
+   each; then each
+   first step again through the LIF kernels (forward and backward) and
+   through their plain versions with deterministic cuDNN: loss, logits,
+   spikes and gradients
    bit-identical (a gradient may differ only behind an op that PyTorch
    reports as nondeterministic on the card, and then within rtol 1e-4,
    atol 1e-6);
@@ -79,8 +97,14 @@ Phases, each of which fails the run loudly:
    CUDA events, host overhead included (the definition of every slice);
    ``device_ms``, ``plain_device_ms`` and ``library_device_ms`` are device
    time from CUDA events around replays of a CUDA graph of 100 calls. The
-   ``lif`` and ``spike_matmul`` rows sum one Spike-VGG16 timestep's calls
-   (13 LIF states; 12 spiking-conv products with the path's own spikes).
+   ``lif``, ``lif_backward`` and ``spike_matmul`` rows sum one Spike-VGG16
+   timestep's calls (13 LIF states, with each shape's device time against
+   its bound and the wrappers' host microseconds a call; 12 spiking-conv
+   products with the path's own spikes). The ``link_traffic_routes`` row
+   is one PPO scorer call (the main path's inputs) against PyTorch's
+   composite of the gather and ``scatter_add``, with its registers and
+   resident blocks per SM; ``link_traffic`` keeps its row at the unfused
+   shape with phase 4's count of its launches, 0.
    The ``sa_chains`` row is one whole search at phase 5's shape: ``ms``
    eager, ``device_ms`` CUDA events around one call, the kernel's own
    device time from the profiler and per step, and ptxas' registers,
@@ -107,6 +131,13 @@ Phases, each of which fails the run loudly:
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after.
+
+``--wrapper-times`` runs nothing but the host microseconds a call of the LIF
+wrappers at the 13 Spike-VGG16 state shapes (eager ms minus CUDA-graph
+device ms, the same inputs every call), one JSON line per wrapper; it needs
+only ``lif_step_kernel`` (``lif_backward_kernel`` where the package has
+it), so a copy of this script placed in an older checkout measures that
+checkout's wrappers in the same call.
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when CUDA is absent.
 """
@@ -117,6 +148,7 @@ import dataclasses
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -152,6 +184,84 @@ def _route_ids(topo, graph, placements):
                             P.shape[0], -1)
     return (torch.as_tensor(np.ascontiguousarray(ids, np.int32)),
             torch.as_tensor(np.ascontiguousarray(w, np.float32)), t.n_links)
+
+
+def _scorer_inputs(topo, graph, placements, dev):
+    """The fused kernel's inputs as the scorer builds them: ``idx`` [B, E]
+    int64 pair indices, the topology's route table [n*n, max_hops] int32 on
+    the card, float32 volumes [E], n_links."""
+    import numpy as np
+    import torch
+    from repro_torch.core.noc_batch import batched_noc
+    b = batched_noc(topo)
+    src, dst, vol = graph.edge_arrays()
+    P = np.asarray(placements, np.int64)
+    idx = torch.as_tensor(np.ascontiguousarray(
+        P[:, src] * b.tables.n_cores + P[:, dst]), device=dev)
+    return (idx, b.device_tables(dev).routes,
+            torch.as_tensor(vol, dtype=torch.float32, device=dev),
+            b.tables.n_links)
+
+
+def _check_link_traffic_routes(dev, rng, noc, graph):
+    """Phase 2, ``link_traffic_routes`` part: the fused route gather and
+    segment sum against its plain version, exactly on integer volumes
+    (partial sums below 2^24) at the PPO shape (8x8 mesh, B 256, E 310,
+    H 14) with int64 and int32 pair indices, on a degraded 8x8 mesh (two
+    links and a core dropped, detour routes) and on a synthetic table with
+    n_links = 20000 (three tiles of the link axis); and on the main path's
+    own volumes (sums above 2^24) within rtol=1e-5, atol=1e-3. Returns
+    (that max abs error, the main path's inputs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import random_dag
+    from repro_torch.core.topology import degrade
+    from repro_torch.kernels.noc_segsum import (link_traffic_routes,
+                                                link_traffic_routes_plain)
+
+    def check(label, idx, routes, vol, n_links, exact=True):
+        got = link_traffic_routes(idx, routes, vol, n_links)
+        torch.cuda.synchronize()
+        want = link_traffic_routes_plain(idx, routes, vol, n_links)
+        err = (got - want).abs().max().item()
+        ok = (torch.equal(got, want) if exact else
+              torch.allclose(got, want, rtol=1e-5, atol=1e-3))
+        print(f"[kernel] link_traffic_routes {label} idx "
+              f"{str(idx.dtype)[6:]} {tuple(idx.shape)} routes "
+              f"{tuple(routes.shape)} -> {n_links}: max_abs_err={err!r} "
+              f"({'exact' if exact else 'rtol=1e-5, atol=1e-3'}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"link_traffic_routes disagrees with its "
+                                 f"plain version on {label}")
+        return err
+
+    main = _scorer_inputs(noc, graph, _random_placements(
+        rng, graph.n, noc.n_cores, 256), dev)
+    idx, routes, vol, n_links = main
+    ints = torch.as_tensor(rng.integers(0, 16, vol.numel()),
+                           dtype=torch.float32, device=dev)
+    check("PPO shape, integer volumes", idx, routes, ints, n_links)
+    check("PPO shape, integer volumes", idx.int(), routes, ints, n_links)
+    main_err = check("PPO shape, the graph's volumes", idx, routes, vol,
+                     n_links, exact=False)
+    bad = degrade(noc, links=(5, 40), nodes=(27,))
+    g_bad = random_dag(50, p=0.2, seed=3)
+    d_idx, d_routes, _, d_links = _scorer_inputs(
+        bad, g_bad, np.stack([rng.permutation(bad.alive_cores())[:g_bad.n]
+                              for _ in range(256)]), dev)
+    d_ints = torch.as_tensor(rng.integers(0, 16, d_idx.shape[1]),
+                             dtype=torch.float32, device=dev)
+    check("degraded 8x8 (links 5, 40 and core 27 dropped; a 50-node DAG), "
+          "integer volumes", d_idx, d_routes, d_ints, d_links)
+    P, H, wide = 4096, 14, 20000
+    w_routes = rng.integers(0, wide + 1, (P, H))
+    w_routes[:, H // 2:][rng.random((P, H - H // 2)) < 0.5] = wide
+    check("synthetic table, n_links > 8192, integer volumes",
+          torch.as_tensor(rng.integers(0, P, (64, 310)), device=dev),
+          torch.as_tensor(w_routes, dtype=torch.int32, device=dev), ints,
+          wide)
+    return main_err, main
 
 
 def _random_placements(rng, n, n_cores, B):
@@ -717,6 +827,68 @@ def _time_sa_chains(check, launches, ptxas, card):
     return row
 
 
+def _time_link_traffic_routes(main, launches, err, ptxas, card):
+    """Phase 9, ``link_traffic_routes`` row, at the PPO rollout shape with
+    the main path's own inputs (int64 pair indices, as the scorer builds
+    them): the kernel, its plain version and PyTorch's own composite (the
+    route gather, then ``torch.scatter_add`` into n_links + 1 bins, with the
+    per-hop volumes built once outside the timing); the kernel's registers
+    (ptxas) and resident blocks per SM (CUDA's occupancy calculator)."""
+    import torch
+    from repro_torch.kernels.noc_segsum import (link_traffic_routes,
+                                                link_traffic_routes_plain,
+                                                routes_occupancy)
+    idx, routes, vol, n_links = main
+    (B, E), H = idx.shape, routes.shape[1]
+    routes64 = routes.long()
+    w_hops = vol[None, :, None].expand(B, E, H).reshape(B, -1).contiguous()
+    base = torch.zeros(B, n_links + 1, device=idx.device)
+    fns = (lambda: link_traffic_routes(idx, routes, vol, n_links),
+           lambda: link_traffic_routes_plain(idx, routes, vol, n_links),
+           lambda: torch.scatter_add(base, 1, routes64[idx].view(B, -1),
+                                     w_hops))
+    dev_ms = [_graph_ms(f) for f in fns]
+    ms = [_time_ms(f) for f in fns]
+    # bytes this call must move: idx once, the route rows it names once
+    # (L2-resident across the B rows), vol, the output; one add per hop
+    # that lands on a link
+    rows_touched = int(torch.unique(idx).numel())
+    n_bytes = (idx.numel() * idx.element_size() + rows_touched * H * 4
+               + E * 4 + B * n_links * 4)
+    n_ops = int((routes[idx] < n_links).sum().item())
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    regs = [e["registers"] for e in ptxas
+            if "link_traffic_routes_kernel<long long>" in e["kernel"]]
+    blocks = routes_occupancy(idx.dtype, E, n_links)
+    threads = min(512, 32 * max(2, -(-E // 32)))
+    row = {
+        "name": "link_traffic_routes", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/noc_segsum.cu",
+        "replaces": "src/repro/kernels/noc_segsum.py:54",
+        "note": "link_traffic_pallas with the route gather that feeds it "
+                "(src/repro/core/noc_batch.py:527) fused in",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms[0], "plain_ms": ms[1], "bound_ms": max(tb, to) * 1e3,
+        "bound_by": "bytes" if tb >= to else "operations",
+        "library_ms": ms[2], "device_ms": dev_ms[0],
+        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "library": "routes[idx] then torch.scatter_add (two launches)",
+        "registers": regs[0] if regs else None,
+        "threads_per_block": threads, "blocks_per_sm": blocks,
+        "resident_warps_per_sm": blocks * threads // 32,
+    }
+    print(f"[time] link_traffic_routes idx {tuple(idx.shape)} int64, routes "
+          f"{tuple(routes.shape)} -> {n_links}: kernel {ms[0]!r} ms, plain "
+          f"{ms[1]!r} ms, gather + scatter_add {ms[2]!r} ms (per call); "
+          f"device {dev_ms[0]!r}, {dev_ms[1]!r}, {dev_ms[2]!r} ms; bound "
+          f"{row['bound_ms']!r} ms ({n_bytes} bytes: {rows_touched} route "
+          f"rows touched; {n_ops} adds); {row['registers']} registers, "
+          f"{threads} threads a block, {blocks} blocks ("
+          f"{row['resident_warps_per_sm']} warps) resident per SM of 64 "
+          f"warps, {B} blocks on 132 SMs; card {card}")
+    return row
+
+
 def _graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
     """Device time of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed ``replays`` times under CUDA events. Host overhead
@@ -808,6 +980,95 @@ def _check_lif(dev, rng, vgg, resnet):
     print(f"[kernel] lif: bit-identical to its plain version in {n_cases} "
           f"cases ({len(shapes)} shapes from {shapes[0]} to {shapes[-1]}, "
           "float32 and bfloat16, hard and soft reset) ok")
+    return 0.0
+
+
+def _check_lif_backward(dev, rng, vgg, resnet):
+    """Phase 2, ``lif_backward`` part: the fused backward against its plain
+    version at every LIF state shape of the two training paths (batch 8),
+    hard and soft reset: float32 rect bit for bit at alpha 2 and 3 with
+    every cotangent present; with ``g_u`` absent, with ``g_s`` absent, and
+    with ``need_s`` false, bit for bit; sigmoid and atan in float32 within
+    rtol=1e-5, atol=1e-6; bfloat16 (rect, sigmoid, atan) within 2^-5 of
+    each result's largest magnitude. Returns the path's max abs error
+    (float32 rect)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lif import (lif_backward_kernel,
+                                         lif_backward_plain, lif_step_plain)
+    shapes = sorted(set(_lif_state_shapes(vgg) + _lif_state_shapes(resnet)),
+                    key=lambda s: -math.prod(s))
+    n_exact = n_tol = n_tol_same = 0
+    worst = {}
+    for shape in shapes:
+        n = math.prod(shape)
+        raw = [rng.standard_normal(n), rng.standard_normal(n),
+               rng.standard_normal(n) * 1.5, rng.random(n) < 0.3,
+               rng.standard_normal(n)]
+        for dtype in (torch.float32, torch.bfloat16):
+            gu, gs, u, s, c = (torch.as_tensor(a.astype(np.float32),
+                                               device=dev).to(dtype)
+                               .reshape(shape) for a in raw)
+            un = lif_step_plain(u, s, c)[0]
+            for reset in ("hard", "soft"):
+                cases = []
+                if dtype == torch.float32:
+                    cases += [("exact", (gu, gs), dict(alpha=a))
+                              for a in (2.0, 3.0)]
+                    cases += [("exact", (None, gs), {}),
+                              ("exact", (gu, None), {}),
+                              ("exact", (gu, gs), dict(need_s=False))]
+                    cases += [("tol", (gu, gs), dict(surrogate=k))
+                              for k in ("sigmoid", "atan")]
+                else:
+                    cases += [("tol", (gu, gs), dict(surrogate=k))
+                              for k in ("rect", "sigmoid", "atan")]
+                for kind, cot, kw in cases:
+                    kw = dict(kw, reset=reset)
+                    got = lif_backward_kernel(*cot, u, s, un, **kw)
+                    torch.cuda.synchronize()
+                    want = lif_backward_plain(*cot, u, s, un, **kw)
+                    label = (f"{shape} {str(dtype)[6:]} {reset} "
+                             f"{kw.get('surrogate', 'rect')} "
+                             f"{'g_u' if cot[0] is not None else '-'}/"
+                             f"{'g_s' if cot[1] is not None else '-'} "
+                             f"{kw}")
+                    pairs = [(a, b) for a, b in zip(got, want)
+                             if b is not None]
+                    if (len(pairs) != sum(b is not None for b in got)
+                            or any(a.dtype != dtype for a, _ in pairs)):
+                        raise AssertionError(f"lif_backward returned other "
+                                             f"outputs than plain: {label}")
+                    if kind == "exact":
+                        if not all(torch.equal(a, b) for a, b in pairs):
+                            raise AssertionError(
+                                f"lif_backward kernel != plain at {label}")
+                        n_exact += 1
+                        continue
+                    key = (str(dtype)[6:], kw["surrogate"])
+                    for a, b in pairs:
+                        a, b = a.float(), b.float()
+                        err = (a - b).abs().max().item()
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        if dtype == torch.float32:
+                            ok = torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                        else:
+                            ok = err <= 2**-5 * b.abs().max().item()
+                        if not ok:
+                            raise AssertionError(
+                                f"lif_backward outside its tolerance at "
+                                f"{label}: max_abs_err {err!r}")
+                    n_tol += 1
+                    n_tol_same += all(torch.equal(a, b) for a, b in pairs)
+    print(f"[kernel] lif_backward: bit-identical to its plain version in "
+          f"{n_exact} float32 cases ({len(shapes)} shapes from {shapes[0]} "
+          f"to {shapes[-1]}, hard and soft reset, rect at alpha 2 and 3, "
+          f"g_u absent, g_s absent, need_s false) ok")
+    worst = {f"{d}/{k}": v for (d, k), v in worst.items()}
+    print(f"[kernel] lif_backward: {n_tol} cases within tolerance (sigmoid "
+          f"and atan in float32, rtol=1e-5 atol=1e-6; rect, sigmoid and atan "
+          f"in bfloat16, 2^-5 of the largest magnitude), {n_tol_same} of "
+          f"them bit-identical; max_abs_err by dtype/surrogate {worst} ok")
     return 0.0
 
 
@@ -909,13 +1170,14 @@ def _batch(cfg, seed: int, dev, batch: int = 8):
 
 
 @contextlib.contextmanager
-def _recording(forward):
-    """Within the scope, ``snn.neurons.lif_step`` runs ``forward`` (the
-    kernel or its plain version) and every spike tensor it returns is
-    recorded, as are the logits of ``snn.bptt.loss_fn``'s rollout."""
+def _recording(forward, backward):
+    """Within the scope, ``snn.neurons.lif_step`` runs ``forward`` and
+    ``backward`` (the kernels or their plain versions) and every spike
+    tensor it returns is recorded, as are the logits of
+    ``snn.bptt.loss_fn``'s rollout."""
     from repro_torch.snn import bptt, neurons
     rec = {"spikes": [], "logits": []}
-    real_forward, real_rollout = neurons._lif_forward, bptt.model_rollout
+    real = neurons._lif_forward, neurons._lif_backward, bptt.model_rollout
 
     def lif(*args, **kw):
         u, s = forward(*args, **kw)
@@ -923,21 +1185,34 @@ def _recording(forward):
         return u, s
 
     def rollout(*args, **kw):
-        logits, rate = real_rollout(*args, **kw)
+        logits, rate = real[2](*args, **kw)
         rec["logits"].append(logits.detach())
         return logits, rate
 
-    neurons._lif_forward, bptt.model_rollout = lif, rollout
+    neurons._lif_forward, neurons._lif_backward, bptt.model_rollout = (
+        lif, backward, rollout)
     try:
         yield rec
     finally:
-        neurons._lif_forward, bptt.model_rollout = real_forward, real_rollout
+        neurons._lif_forward, neurons._lif_backward, bptt.model_rollout = real
+
+
+@contextlib.contextmanager
+def _lif_backward_as(backward):
+    """Within the scope, ``snn.neurons.lif_step``'s backward is ``backward``."""
+    from repro_torch.snn import neurons
+    real, neurons._lif_backward = neurons._lif_backward, backward
+    try:
+        yield
+    finally:
+        neurons._lif_backward = real
 
 
 def _profile_step(step, label: str, kernel: str = "lif_kernel"):
     """torch.profiler over one call of ``step``: wall, device kernel time,
     busy share, kernel count and the share of the kernels whose name holds
-    ``kernel``."""
+    ``kernel``. Returns ``{"wall", "busy", "kernels"}`` (None when the
+    profiler recorded no device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -965,14 +1240,20 @@ def _profile_step(step, label: str, kernel: str = "lif_kernel"):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{label}-profile] kernel x{e.count} "
               f"{e.self_device_time_total / 1e3:.3f} ms {e.key[:90]}")
-    return dev_us / 1e6 / wall
+    return {"wall": wall, "busy": dev_us / 1e6 / wall, "kernels": n}
 
 
 def _train_path(cfg, label, steps, dev, kernels, lifs_per_step):
-    """Phase 8: ``train_step`` at full width, batch 8, ``steps`` times from
-    one set of weights; loss, wall and LIF launches per step; one profiled
-    step. Returns the LIF launches of the run."""
+    """Phase 7: ``train_step`` at full width, batch 8, ``steps`` times from
+    one set of weights; loss, wall and LIF launches per step (the backward
+    kernel once per forward launch); one profiled step. Then the same
+    training on with the fused backward and with its plain version in six
+    alternating turns of 2 steps each (kernel first, then plain first, ...):
+    step wall, and one profiled step each for kernels per step and busy
+    share. Returns the LIF
+    launches of the run: (forward, backward)."""
     import torch
+    from repro_torch.kernels.lif import lif_backward_kernel, lif_backward_plain
     from repro_torch.snn.bptt import make_optimizer, train_step
     from repro_torch.snn.models import init_model
     net = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -993,25 +1274,59 @@ def _train_path(cfg, label, steps, dev, kernels, lifs_per_step):
           f"first: mean {sum(walls[1:]) / (steps - 1)!r} s); launches "
           f"{launches}")
     want = lifs_per_step * cfg.T * steps
-    if launches["lif_step_kernel"] != want:
-        raise AssertionError(f"{label}: {launches['lif_step_kernel']} LIF "
-                             f"launches, not {want}")
+    fwd, bwd = launches["lif_step_kernel"], launches["lif_backward_kernel"]
+    if fwd != want or bwd != want:
+        raise AssertionError(f"{label}: {fwd} LIF and {bwd} LIF backward "
+                             f"launches, not {want} each")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: loss is not finite: {losses}")
-    print(f"[{label}] lif launches per step "
-          f"{launches['lif_step_kernel'] // steps} = {lifs_per_step} LIFs x "
+    print(f"[{label}] lif launches per step {fwd // steps} and lif_backward "
+          f"launches per step {bwd // steps} = {lifs_per_step} LIFs x "
           f"T={cfg.T} ok")
     _profile_step(lambda: train_step(net, opt, x, y, cfg), label)
-    return launches["lif_step_kernel"]
+
+    backward = {"kernel": lif_backward_kernel, "plain": lif_backward_plain}
+    walls = {"kernel": [], "plain": []}
+    for turn in range(6):
+        for name in ("kernel", "plain")[::1 if turn % 2 == 0 else -1]:
+            with _lif_backward_as(backward[name]):
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    net, opt, m = train_step(net, opt, x, y, cfg)
+                    torch.cuda.synchronize()
+                    walls[name].append(time.perf_counter() - t0)
+    prof = {}
+    for name in ("kernel", "plain"):
+        with _lif_backward_as(backward[name]):
+            prof[name] = _profile_step(
+                lambda: train_step(net, opt, x, y, cfg),
+                f"{label}-{name}-backward")
+        print(f"[{label}] {name} LIF backward: step wall {walls[name]} s "
+              f"(median {statistics.median(walls[name])!r} s, mean "
+              f"{statistics.fmean(walls[name])!r} s)"
+              + ("" if prof[name] is None else
+                 f"; profiled step: {prof[name]['kernels']} kernels, busy "
+                 f"share {prof[name]['busy']!r}, wall "
+                 f"{prof[name]['wall']!r} s"))
+    if prof["kernel"] is not None and prof["plain"] is not None:
+        saved = prof["plain"]["kernels"] - prof["kernel"]["kernels"]
+        print(f"[{label}] the fused backward saves {saved} kernels a step, "
+              f"{saved / (lifs_per_step * cfg.T)!r} per LIF backward")
+        if saved <= 0:
+            raise AssertionError(f"{label}: the fused backward launches no "
+                                 "fewer kernels a step than the plain one")
+    return fwd, bwd
 
 
 def _kernel_vs_plain_step(cfg, label, dev):
-    """The first training step through the LIF kernel and through its plain
-    version on the card, same weights and batch, deterministic cuDNN: loss,
-    logits, every spike tensor and every gradient. Returns the names of the
-    gradients that differ."""
+    """The first training step through the LIF kernels (forward and
+    backward) and through their plain versions on the card, same weights
+    and batch, deterministic cuDNN: loss, logits, every spike tensor and
+    every gradient. Returns the names of the gradients that differ."""
     import torch
-    from repro_torch.kernels.lif import lif_step_kernel, lif_step_plain
+    from repro_torch.kernels.lif import (lif_backward_kernel,
+                                         lif_backward_plain, lif_step_kernel,
+                                         lif_step_plain)
     from repro_torch.snn.bptt import loss_and_grads
     from repro_torch.snn.models import init_model
     net = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -1021,8 +1336,9 @@ def _kernel_vs_plain_step(cfg, label, dev):
         True, False
     try:
         runs = []
-        for forward in (lif_step_kernel, lif_step_plain):
-            with _recording(forward) as rec:
+        for forward, backward in ((lif_step_kernel, lif_backward_kernel),
+                                  (lif_step_plain, lif_backward_plain)):
+            with _recording(forward, backward) as rec:
                 loss, ce, rate, grads = loss_and_grads(net, cfg, x, y)
                 torch.cuda.synchronize()
             runs.append((loss, rec["logits"], rec["spikes"], grads))
@@ -1039,11 +1355,11 @@ def _kernel_vs_plain_step(cfg, label, dev):
                              "logits, spikes) differs from the plain path's")
     names = [n for n, _ in net.named_parameters()]
     differ = [n for n, a, b in zip(names, g_k, g_p) if not torch.equal(a, b)]
-    print(f"[{label}] kernel path vs plain path, first step, deterministic "
-          f"cuDNN: loss {l_k.item()!r} and logits bit-identical, "
-          f"{len(sp_k)} spike tensors bit-identical; gradients "
-          f"bit-identical for {len(names) - len(differ)} of {len(names)} "
-          f"parameters")
+    print(f"[{label}] kernel path (LIF forward and backward kernels) vs "
+          f"plain path, first step, deterministic cuDNN: loss "
+          f"{l_k.item()!r} and logits bit-identical, {len(sp_k)} spike "
+          f"tensors bit-identical; gradients bit-identical for "
+          f"{len(names) - len(differ)} of {len(names)} parameters")
     return differ, dict(zip(names, zip(g_k, g_p)))
 
 
@@ -1126,59 +1442,88 @@ def _spike_conv_path(vgg, dev, kernels):
 
 
 def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
-                      mm_launches, mm_err):
-    """Phase 7, SNN rows: one timestep's worth of each kernel on the
-    Spike-VGG16 path, summed over its calls (13 LIF states; 12 spiking-conv
-    im2col products with the path's own spikes and weights)."""
+                      mm_launches, mm_err, bwd_err):
+    """Phase 9, SNN rows: one timestep's worth of each kernel on the
+    Spike-VGG16 path, summed over its calls (13 LIF states, forward and
+    backward; 12 spiking-conv im2col products with the path's own spikes
+    and weights). ``lif_launches`` is (forward, backward)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.lif import lif_step_kernel, lif_step_plain
+    from repro_torch.kernels.lif import (lif_backward_kernel,
+                                         lif_backward_plain, lif_step_kernel,
+                                         lif_step_plain)
     from repro_torch.kernels.ops import im2col
     from repro_torch.kernels.spike_matmul import (spike_matmul_kernel,
                                                   spike_matmul_plain)
-    tot = dict(ms=0.0, plain=0.0, dev=0.0, plain_dev=0.0, bytes=0, ops=0)
-    for shape in _lif_state_shapes(vgg):
-        n = math.prod(shape)
-        # enough input sets to exceed the 50 MB L2 cache, used in turn, so
-        # every call reads its inputs from device memory, as the training
-        # step's u and s (written a timestep earlier) are
-        sets = [[torch.as_tensor(a.astype(np.float32), device=dev)
-                 .reshape(shape)
-                 for a in (rng.standard_normal(n), rng.random(n) < 0.2,
-                           rng.standard_normal(n))]
-                for _ in range(max(2, -(-64_000_000 // (12 * n))))]
-        turn = itertools.cycle(sets)
-        fns = (lambda: lif_step_kernel(*next(turn)),
-               lambda: lif_step_plain(*next(turn)))
-        d_k, d_p = (_graph_ms(f) for f in fns)
-        m_k, m_p = (_time_ms(f) for f in fns)
-        tot["ms"] += m_k
-        tot["plain"] += m_p
-        tot["dev"] += d_k
-        tot["plain_dev"] += d_p
-        tot["bytes"] += 5 * 4 * n          # read u, s, I; write u', s'
-        tot["ops"] += 5 * n                # 2 mul, 1 sub, 1 add, 1 compare
-        print(f"[time] lif {shape}: kernel {m_k!r} ms, plain {m_p!r} ms (per "
-              f"call); device {d_k!r}, {d_p!r} ms; bytes bound "
-              f"{20 * n / HBM_BYTES_PER_S * 1e3!r} ms")
-    tb, to = tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S
-    lif_row = {
-        "name": "lif", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lif.cu",
-        "replaces": "src/repro/kernels/lif.py:38",
-        "launches": lif_launches, "max_abs_err": 0.0,
-        "ms": tot["ms"], "plain_ms": tot["plain"],
-        "bound_ms": max(tb, to) * 1e3,
-        "bound_by": "bytes" if tb >= to else "operations",
-        "library_ms": None, "device_ms": tot["dev"],
-        "plain_device_ms": tot["plain_dev"], "library_device_ms": None,
-        "calls": "sum over the 13 LIF states of one Spike-VGG16 timestep",
-    }
-    print(f"[time] lif, one VGG16 timestep (13 calls): kernel {tot['ms']!r} "
-          f"ms, plain {tot['plain']!r} ms; device {tot['dev']!r}, "
-          f"{tot['plain_dev']!r} ms; bound {lif_row['bound_ms']!r} ms "
-          f"({tot['bytes']} bytes, {tot['ops']} flops); no single PyTorch "
-          f"call computes this function (library_ms null); card {card}")
+    # (name, kernel, plain, tensors a call reads, bytes an element, flops an
+    # element): the forward reads u, s, I and writes u', s'; the backward
+    # (hard reset, rect, every cotangent present and every output asked
+    # for, as at 0 < t < T - 1) reads g_u, g_s, u, s, u' and writes d_u,
+    # d_s, g, and does 11 flops (subtract, compare, divide, 6 multiplies,
+    # 2 adds/subtracts)
+    specs = [("lif", lif_step_kernel, lif_step_plain, 3, 20, 5),
+             ("lif_backward", lif_backward_kernel, lif_backward_plain, 5, 32,
+              11)]
+    rows = []
+    for name, kern, plain, n_in, per_byte, per_op in specs:
+        tot = dict(ms=0.0, plain=0.0, dev=0.0, plain_dev=0.0, bytes=0, ops=0)
+        for shape in _lif_state_shapes(vgg):
+            n = math.prod(shape)
+            # enough input sets to exceed the 50 MB L2 cache, used in turn,
+            # so every call reads its inputs from device memory, as the
+            # training step's tensors (written a layer or a timestep
+            # earlier) are
+            draws = [rng.standard_normal, lambda k: rng.random(k) < 0.2,
+                     rng.standard_normal]
+            if n_in == 5:
+                draws = [rng.standard_normal] * 2 + draws[:2] + [
+                    lambda k: rng.standard_normal(k) + 1.0]
+            sets = [[torch.as_tensor(d(n).astype(np.float32), device=dev)
+                     .reshape(shape) for d in draws]
+                    for _ in range(max(2, -(-64_000_000 // (per_byte * n))))]
+            turn = itertools.cycle(sets)
+            fns = (lambda: kern(*next(turn)), lambda: plain(*next(turn)))
+            d_k, d_p = (_graph_ms(f) for f in fns)
+            m_k, m_p = (_time_ms(f) for f in fns)
+            tot["ms"] += m_k
+            tot["plain"] += m_p
+            tot["dev"] += d_k
+            tot["plain_dev"] += d_p
+            tot["bytes"] += per_byte * n
+            tot["ops"] += per_op * n
+            bound = per_byte * n / HBM_BYTES_PER_S * 1e3
+            print(f"[time] {name} {shape}: kernel {m_k!r} ms, plain {m_p!r} "
+                  f"ms (per call); device {d_k!r}, {d_p!r} ms; bytes bound "
+                  f"{bound!r} ms (bound / device time {bound / d_k!r}); host "
+                  f"{(m_k - d_k) * 1e3!r} us a call")
+        tb, to = tot["bytes"] / HBM_BYTES_PER_S, tot["ops"] / FP32_OPS_PER_S
+        calls = len(_lif_state_shapes(vgg))
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lif.cu",
+            "replaces": "src/repro/kernels/lif.py:38",
+            "launches": lif_launches[0 if name == "lif" else 1],
+            "max_abs_err": 0.0 if name == "lif" else bwd_err,
+            "ms": tot["ms"], "plain_ms": tot["plain"],
+            "bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None, "device_ms": tot["dev"],
+            "plain_device_ms": tot["plain_dev"], "library_device_ms": None,
+            "calls": f"sum over the {calls} LIF states of one Spike-VGG16 "
+                     "timestep",
+            "host_us_per_call": (tot["ms"] - tot["dev"]) * 1e3 / calls,
+        }
+        if name == "lif_backward":
+            row["note"] = ("the backward of lif_step_pallas's update, which "
+                           "the reference leaves to JAX autodiff")
+        rows.append(row)
+        print(f"[time] {name}, one VGG16 timestep ({calls} calls): kernel "
+              f"{tot['ms']!r} ms, plain {tot['plain']!r} ms; device "
+              f"{tot['dev']!r}, {tot['plain_dev']!r} ms; bound "
+              f"{row['bound_ms']!r} ms ({tot['bytes']} bytes, {tot['ops']} "
+              f"flops); host {row['host_us_per_call']!r} us a call (ms - "
+              f"device ms); no single PyTorch call computes this function "
+              f"(library_ms null); card {card}")
 
     tot = dict(ms=0.0, plain=0.0, lib=0.0, dev=0.0, plain_dev=0.0,
                lib_dev=0.0, bytes=0, ops=0, dense_ops=0)
@@ -1228,7 +1573,7 @@ def _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
           f"ms); kernel {mm_row['achieved_tb_per_s']!r} TB/s, "
           f"{mm_row['vs_library']!r}x torch.matmul's device time; card "
           f"{card}")
-    return [lif_row, mm_row]
+    return rows + [mm_row]
 
 
 # ---- the LM serving slice: the flash-attention kernel, prefill and decode ----
@@ -1596,12 +1941,48 @@ def _time_flash_danube(dev, card):
           f"the library call; card {card}")
 
 
+def _wrapper_host_times(dev, card) -> None:
+    """``--wrapper-times``: host microseconds a call of each LIF wrapper at
+    the 13 Spike-VGG16 state shapes, eager ``ms`` minus CUDA-graph device
+    ``ms`` of the same call, inputs reused (cached or not, the host work is
+    the same)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lif as lif_mod
+    from repro_torch.snn import spike_vgg16
+    _build.build([lif_mod.KERNEL])
+    rng = np.random.default_rng(0)
+    specs = [("lif_step_kernel", lif_mod.lif_step_kernel, 3)]
+    if hasattr(lif_mod, "lif_backward_kernel"):
+        specs.append(("lif_backward_kernel", lif_mod.lif_backward_kernel, 5))
+    for name, fn, n_in in specs:
+        host = []
+        for shape in _lif_state_shapes(spike_vgg16()):
+            args = [torch.as_tensor(rng.standard_normal(math.prod(shape))
+                                    .astype(np.float32), device=dev)
+                    .reshape(shape) for _ in range(n_in)]
+            d = _graph_ms(lambda: fn(*args))
+            m = _time_ms(lambda: fn(*args), reps=500)
+            host.append((m - d) * 1e3)
+        print(json.dumps({"wrapper": name, "host_us_per_call": host,
+                          "mean_us": sum(host) / len(host), "card": card}))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs one CUDA card", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--wrapper-times"]:
+        card = _card_line()
+        print(card)
+        _wrapper_host_times(torch.device("cuda"), card)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     import numpy as np
     from repro_torch.core import (NoC, HierarchicalMesh, evaluate_batch,
                                   random_dag)
@@ -1616,7 +1997,8 @@ def main() -> int:
     from repro_torch.kernels import lif as lif_mod
     from repro_torch.kernels import spike_matmul as mm_mod
     from repro_torch.kernels.noc_segsum import (KERNEL, link_traffic,
-                                                link_traffic_plain)
+                                                link_traffic_plain,
+                                                link_traffic_routes)
     from repro_torch.obs import Recorder
     from repro_torch.snn import profile_model, spike_resnet18, spike_vgg16
 
@@ -1630,8 +2012,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)}")
-    kernels = (link_traffic, delta_cost, delta_mod.sa_chains,
-               lif_mod.lif_step_kernel, mm_mod.spike_matmul_kernel,
+    kernels = (link_traffic, link_traffic_routes, delta_cost,
+               delta_mod.sa_chains, lif_mod.lif_step_kernel,
+               lif_mod.lif_backward_kernel, mm_mod.spike_matmul_kernel,
                fa_mod.flash_attention_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
@@ -1706,10 +2089,13 @@ def main() -> int:
         raise AssertionError(f"{KERNEL} disagrees on the main path's volumes")
     print(f"[kernel] {KERNEL} main path volumes: max_abs_err={main_err!r} "
           f"(max {want.abs().max().item()!r}, rtol=1e-5) ok")
+    routes_err, routes_main = _check_link_traffic_routes(dev, rng, noc,
+                                                         graph)
     delta_err = _check_delta_cost(dev, graph, noc, rng)
     _check_sa_chains(dev)
     resnet = spike_resnet18()
     _check_lif(dev, rng, vgg, resnet)
+    bwd_err = _check_lif_backward(dev, rng, vgg, resnet)
     _check_spike_matmul(dev, rng, vgg)
     flash_err = _check_flash(dev)
 
@@ -1760,13 +2146,18 @@ def main() -> int:
     if not math.isclose(best, host, rel_tol=1e-5):
         raise AssertionError(f"best rollout latency {best!r} (cuda scorer) "
                              f"!= host evaluate {host!r}")
-    if len(res.history) != 40 or launches["link_traffic"] <= 0:
+    if (len(res.history) != 40 or launches["link_traffic_routes"] != 40
+            or launches["link_traffic"] != 0):
         raise AssertionError(f"main path ran {len(res.history)} iterations "
-                             f"and {launches} kernel launches")
+                             f"and {launches} kernel launches, not 40 "
+                             "link_traffic_routes launches and no "
+                             "link_traffic launch")
     print(f"[deploy] best latency {best!r} s (cuda) vs host evaluate "
-          f"{host!r} s ok")
+          f"{host!r} s ok; link_traffic_routes launches per deploy_model "
+          f"{launches['link_traffic_routes']} (one per PPO iteration), "
+          f"link_traffic {launches['link_traffic']} ok")
 
-    ppo_launches = launches["link_traffic"]
+    ppo_launches = launches["link_traffic_routes"], launches["link_traffic"]
 
     # ---- phase 5: the device SA path ---------------------------------------------
     sa_launches, sa_plan, sa_check = _sa_path(vgg, noc, kernels)
@@ -1832,12 +2223,16 @@ def main() -> int:
         "name": "link_traffic", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/noc_segsum.cu",
         "replaces": "src/repro/kernels/noc_segsum.py:54",
-        "launches": ppo_launches, "max_abs_err": main_err,
+        "launches": ppo_launches[1], "max_abs_err": main_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "device_ms": dev_ms[0],
         "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "path": "none: the PPO scorer runs link_traffic_routes; held against "
+                "its plain version in phase 2",
     }]
+    rows.append(_time_link_traffic_routes(routes_main, ppo_launches[0],
+                                          routes_err, ptxas[KERNEL], card))
     inc = build_incident_tables(sa_plan.graph)
     delta_times = {}
     for label, R, K, hops in [
@@ -1882,7 +2277,7 @@ def main() -> int:
     rows.append(_time_sa_chains(sa_check, sa_launches["sa_chains"],
                                 ptxas[delta_mod.KERNEL], card))
     rows += _time_snn_kernels(dev, rng, vgg, first_convs, card, lif_launches,
-                              mm_launches, mm_err)
+                              mm_launches, mm_err, bwd_err)
 
     # ---- phase 10: the LM token server at full width ---------------------------
     from repro_torch.configs import get_config

@@ -22,8 +22,10 @@ segment-sum over these tables, batched over a population axis. Backends:
 * ``"torch"`` (alias ``"jax"``) — gathers plus ``scatter_add_``/``index_add_``
   on any device, float32 by default, float64 on request;
 * ``"cuda"`` (alias ``"pallas"``) — the torch path with per-link traffic from
-  the hand-written kernel :func:`repro_torch.kernels.noc_segsum.link_traffic`.
-  Link traffic accumulates in float32 whatever ``dtype`` is asked for. On CPU
+  the hand-written kernel
+  :func:`repro_torch.kernels.noc_segsum.link_traffic_routes`, which gathers
+  each edge's route itself. Link traffic accumulates in float32 whatever
+  ``dtype`` is asked for. On CPU
   tensors the kernel's plain version runs instead, which is how the CPU tests
   reach this path.
 
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.noc_segsum import link_traffic
+from ..kernels.noc_segsum import link_traffic_routes
 from .graph import LogicalGraph
 from .topology import Topology
 
@@ -394,14 +396,17 @@ class BatchedNoC:
 
     def _link_traffic(self, dt: DeviceTables, idx, vol, kernel: bool):
         """[B, n_links] bytes per link for pair indices ``idx`` [B, E]."""
-        ids = dt.routes[idx]                              # [B, E, max_hops]
-        B, n_links = ids.shape[0], self.tables.n_links
-        w = vol[None, :, None].expand(ids.shape).reshape(B, -1)
-        ids = ids.reshape(B, -1)
+        n_links = self.tables.n_links
         if kernel:
-            return link_traffic(ids, w.float(), n_links).to(vol.dtype)
+            # the route gather runs inside the kernel: no [B, E, max_hops]
+            # ids or weights in device memory
+            return link_traffic_routes(idx, dt.routes, vol.float(),
+                                       n_links).to(vol.dtype)
+        ids = dt.routes[idx]                              # [B, E, max_hops]
+        B = ids.shape[0]
+        w = vol[None, :, None].expand(ids.shape).reshape(B, -1)
         out = torch.zeros(B, n_links + 1, dtype=vol.dtype, device=vol.device)
-        return out.scatter_add_(1, ids.long(), w)[:, :n_links]
+        return out.scatter_add_(1, ids.reshape(B, -1).long(), w)[:, :n_links]
 
     @staticmethod
     def _core_sum(dt: DeviceTables, x, n: int):
@@ -571,7 +576,8 @@ class BatchedNoC:
         ``terms`` is ``((metric, weight), ...)`` over :data:`FUSED_TERMS`.
         Only the metrics the objective needs are computed: gathers for
         comm/mean-hops combos, one link-traffic segment sum (``scatter_add_``
-        on the torch backend, the CUDA kernel on ``backend="cuda"``) when
+        on the torch backend, the fused gather-and-sum CUDA kernel on
+        ``backend="cuda"``) when
         link-level terms appear, and per-core reductions only when latency or
         energy is involved. Energy uses the topology's per-link
         ``energy_per_byte`` when available, else the scalar ``e_byte_hop``;

@@ -1,16 +1,24 @@
-"""Per-link NoC traffic as a per-row segment sum: the CUDA kernel, its plain
-PyTorch version, and the wrapper that picks between them by device.
+"""Per-link NoC traffic as a per-row segment sum: the CUDA kernels, their
+plain PyTorch versions, and the wrappers that pick between them by device.
 
 ``core.noc_batch`` reduces per-link traffic to a segment sum: every edge of
 every placement adds its volume to each directed link on its route, with
-routes stored as padded link-id tables (pad id == ``n_links``)::
+routes stored as padded link-id tables (pad id == ``n_links``).
+:func:`link_traffic` is the reference kernel's own contract, on ids and
+weights already gathered per route hop::
 
     out[b, l] = sum_k w[b, k] * (ids[b, k] == l)
 
-The kernel (``csrc/noc_segsum.cu``) replaces the reference's Pallas kernel
-``repro/kernels/noc_segsum.py::link_traffic_pallas``; its source note gives
-the design and the bound. A CUDA tensor launches the kernel (or raises); a
-CPU tensor takes :func:`link_traffic_plain`.
+:func:`link_traffic_routes` is the same sum with the gather fused in, on
+each edge's pair index into the route table, which is what the scorer
+calls::
+
+    out[b, l] = sum_{e, h} vol[e] * (routes[idx[b, e], h] == l)
+
+The kernels (``csrc/noc_segsum.cu``) replace the reference's Pallas kernel
+``repro/kernels/noc_segsum.py::link_traffic_pallas``; the source note gives
+the design and the bounds. A CUDA tensor launches a kernel (or raises); a
+CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch
 from . import _build
 
 KERNEL = "noc_segsum"
+# the kernel holds a route-table row index in an int
+_MAX_PAIRS = 2**31 - 1
 
 
 def link_traffic_plain(ids: torch.Tensor, w: torch.Tensor,
@@ -77,3 +87,85 @@ def link_traffic(ids: torch.Tensor, w: torch.Tensor,
 
 
 link_traffic.launches = 0
+
+
+def link_traffic_routes_plain(idx: torch.Tensor, routes: torch.Tensor,
+                              vol: torch.Tensor, n_links: int) -> torch.Tensor:
+    """Plain version: gather each edge's route, broadcast its volume over the
+    route's hops and segment-sum with :func:`link_traffic_plain`. Float32
+    ``[B, n_links]``."""
+    ids = routes[idx]                                  # [B, E, H]
+    B = ids.shape[0]
+    w = vol[None, :, None].expand(ids.shape).reshape(B, -1)
+    return link_traffic_plain(ids.reshape(B, -1), w, n_links)
+
+
+def _routes_lib():
+    lib = _build.load(KERNEL)
+    fn = lib.repro_link_traffic_routes
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def routes_occupancy(idx_dtype: torch.dtype, E: int, n_links: int) -> int:
+    """Blocks of the fused kernel resident on one SM when it is launched for
+    ``E`` edges and ``n_links`` links (CUDA's occupancy calculator)."""
+    fn = _build.load(KERNEL).repro_link_traffic_routes_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(int(idx_dtype == torch.int64), E, n_links)
+
+
+def link_traffic_routes(idx: torch.Tensor, routes: torch.Tensor,
+                        vol: torch.Tensor, n_links: int) -> torch.Tensor:
+    """Per-link traffic of every placement in one launch, the route gather
+    fused into the segment sum: float32 ``[B, n_links]``, by definition
+    ``link_traffic(routes[idx].reshape(B, -1), vol broadcast, n_links)``.
+
+    idx [B, E] int32 or int64 pair indices into routes [P, H] int32 link ids
+    in ``[0, n_links]`` (``n_links`` is padding and is dropped, as is any
+    other id outside ``[0, n_links)``); vol [E] float32. On the card an idx
+    outside ``[0, P)`` is a device-side error, as the plain gather's is. CPU
+    tensors take the plain version.
+    """
+    tensors = (idx, routes, vol)
+    if all(t.device.type == "cpu" for t in tensors):
+        return link_traffic_routes_plain(idx, routes, vol, n_links)
+    dev = idx.device
+    if dev.type != "cuda" or routes.device != dev or vol.device != dev:
+        raise ValueError("idx, routes and vol must be on one CUDA device (or "
+                         "all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if (idx.dtype not in (torch.int32, torch.int64)
+            or routes.dtype != torch.int32 or vol.dtype != torch.float32):
+        raise TypeError("idx must be int32 or int64, routes int32 and vol "
+                        f"float32, got {[t.dtype for t in tensors]}")
+    if idx.dim() != 2 or routes.dim() != 2 or vol.shape != idx.shape[1:]:
+        raise ValueError("idx must be [B, E], routes [P, H] and vol [E], got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("idx, routes and vol must be contiguous")
+    (B, E), (P, H) = idx.shape, routes.shape
+    if P > _MAX_PAIRS:
+        raise ValueError(f"routes has {P} rows; the kernel takes at most "
+                         f"{_MAX_PAIRS}")
+    if B == 0 or E == 0 or H == 0 or n_links == 0:
+        return torch.zeros(B, n_links, dtype=torch.float32, device=dev)
+    out = torch.empty(B, n_links, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _routes_lib()(idx.data_ptr(), int(idx.dtype == torch.int64),
+                       routes.data_ptr(), vol.data_ptr(), out.data_ptr(), B,
+                       E, H, P, int(n_links), dev.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"link_traffic_routes kernel launch failed: CUDA "
+                           f"error {rc}")
+    link_traffic_routes.launches += 1
+    return out
+
+
+link_traffic_routes.launches = 0

@@ -15,22 +15,24 @@ behind :func:`spike`, a ``torch.autograd.Function`` with the reference's
 fused LIF kernel (``repro_torch.kernels.lif``) on CUDA tensors and the
 kernel's plain version on CPU tensors; both compute in float32 and round once
 to the input dtype (the reference's module computes in the input dtype, which
-is the same thing for the float32 training path). Its backward is written in
-torch operations and, like the reference's autodiff, differentiates through
-``s_prev`` as well as ``u``.
+is the same thing for the float32 training path). Its backward is the fused
+LIF backward kernel of the same module on CUDA tensors (one launch) and its
+plain version, torch operation by torch operation, on CPU tensors; like the
+reference's autodiff, it differentiates through ``s_prev`` as well as ``u``.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from ..kernels import lif as _lif
+from ..kernels.lif import surrogate_grad
 
-# the forward of lif_step; a module attribute so that a check can swap in
-# the plain version on the card and compare the two bit for bit
+# the forward and backward of lif_step; module attributes so that a check
+# can swap in the plain versions on the card and compare them bit for bit
 _lif_forward = _lif.lif_step_kernel
+_lif_backward = _lif.lif_backward_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,18 +42,6 @@ class LIFConfig:
     reset: str = "hard"           # hard | soft
     surrogate: str = "rect"       # rect | sigmoid | atan
     surrogate_scale: float = 2.0  # window width / steepness α
-
-
-def _surrogate_grad(u_minus_th, kind: str, alpha: float):
-    if kind == "rect":
-        # STBP rectangular window: 1/alpha inside |u-θ| < alpha/2
-        return (u_minus_th.abs() < (alpha / 2)).to(u_minus_th.dtype) / alpha
-    if kind == "sigmoid":
-        s = torch.sigmoid(alpha * u_minus_th)
-        return alpha * s * (1 - s)
-    if kind == "atan":
-        return alpha / (2 * (1 + (math.pi / 2 * alpha * u_minus_th) ** 2))
-    raise ValueError(f"unknown surrogate {kind}")
 
 
 class _Spike(torch.autograd.Function):
@@ -64,7 +54,7 @@ class _Spike(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (u_minus_th,) = ctx.saved_tensors
-        return g * _surrogate_grad(u_minus_th, ctx.kind, ctx.alpha), None, None
+        return g * surrogate_grad(u_minus_th, ctx.kind, ctx.alpha), None, None
 
 
 def spike(u_minus_th, kind: str = "rect", alpha: float = 2.0):
@@ -77,9 +67,10 @@ class _LIFStep(torch.autograd.Function):
     def forward(ctx, u, s_prev, current, cfg: LIFConfig):
         if cfg.reset not in ("hard", "soft"):
             raise ValueError(cfg.reset)
+        u, s_prev = u.contiguous(), s_prev.contiguous()
         u_new, s_new = _lif_forward(
-            u.contiguous(), s_prev.contiguous(), current.contiguous(),
-            threshold=cfg.threshold, decay=cfg.decay, reset=cfg.reset)
+            u, s_prev, current.contiguous(), threshold=cfg.threshold,
+            decay=cfg.decay, reset=cfg.reset)
         ctx.save_for_backward(u, s_prev, u_new)
         ctx.cfg = cfg
         ctx.set_materialize_grads(False)
@@ -89,30 +80,13 @@ class _LIFStep(torch.autograd.Function):
     def backward(ctx, g_u, g_s):
         u, s_prev, u_new = ctx.saved_tensors
         cfg = ctx.cfg
-        # total cotangent of u': its own plus the spike's through the
-        # surrogate of spike(u' - θ)
-        g = g_u
-        if g_s is not None:
-            g_spike = g_s * _surrogate_grad(u_new - cfg.threshold,
-                                            cfg.surrogate,
-                                            cfg.surrogate_scale)
-            g = g_spike if g is None else g + g_spike
-        if g is None:
-            return None, None, None, None
-        # the reference's autodiff order: u' = ((λ·u)·(1 - s)) + I or
-        # ((λ·u) - θ·s) + I
         need_u, need_s = ctx.needs_input_grad[:2]
-        d_u = d_s = None
-        if cfg.reset == "hard":
-            if need_u:
-                d_u = cfg.decay * (g * (1.0 - s_prev))
-            if need_s:
-                d_s = -(g * (cfg.decay * u))
-        else:
-            if need_u:
-                d_u = cfg.decay * g
-            if need_s:
-                d_s = -(cfg.threshold * g)
+        d_u, d_s, g = _lif_backward(
+            None if g_u is None else g_u.contiguous(),
+            None if g_s is None else g_s.contiguous(), u, s_prev, u_new,
+            threshold=cfg.threshold, decay=cfg.decay, reset=cfg.reset,
+            surrogate=cfg.surrogate, alpha=cfg.surrogate_scale,
+            need_u=need_u, need_s=need_s)
         return d_u, d_s, g, None
 
 

@@ -11,7 +11,14 @@ Integer weights whose partial sums stay below 2^24 must match exactly.
 volumes within 1e-5 of each chain's sum of absolute terms (its warp
 reduction adds in another order than the plain row sum). The LIF kernel is
 bit-identical to its plain version in float32 and bfloat16 (both compute in
-float32 in the same order and round once). ``spike_matmul`` agrees within
+float32 in the same order and round once). The fused LIF backward is bit
+for bit its plain version in float32 with the rect surrogate (any alpha,
+any cotangent absent, any of d_u / d_s skipped); sigmoid and atan agree
+within rtol=1e-5, atol=1e-6, and bfloat16 within 2^-5 of each result's
+largest magnitude. ``link_traffic_routes`` (the route gather fused into the
+segment sum) is exact on integer volumes and within rtol=1e-5, atol=1e-3 on
+float volumes, for int32 and int64 pair indices, and an out-of-range pair
+index is a device-side error. ``spike_matmul`` agrees within
 rtol=atol=1e-4 and within 1e-4 + 1e-4 x (|spikes| @ |w|) in float32
 (bf16 tensor cores on three bf16 slices that sum to each weight, in
 another summation order than cuBLAS) and rtol=atol=1e-2 in bfloat16 (one
@@ -28,6 +35,10 @@ trajectory. float16 and mixed inputs of the compute kernels run in float32
 and return the reference's dtype, against their plain versions at the
 tolerances above.
 """
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 
@@ -39,10 +50,11 @@ from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
                                             sa_chains_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_kernel, flash_attention_plain)
-from repro_torch.kernels.lif import (lif_step_kernel,  # noqa: E402
-                                     lif_step_plain)
-from repro_torch.kernels.noc_segsum import (link_traffic,  # noqa: E402
-                                            link_traffic_plain)
+from repro_torch.kernels.lif import (  # noqa: E402
+    lif_backward_kernel, lif_backward_plain, lif_step_kernel, lif_step_plain)
+from repro_torch.kernels.noc_segsum import (  # noqa: E402
+    link_traffic, link_traffic_plain, link_traffic_routes,
+    link_traffic_routes_plain)
 from repro_torch.kernels.spike_matmul import (  # noqa: E402
     spike_matmul_kernel, spike_matmul_plain)
 
@@ -104,6 +116,131 @@ def test_link_traffic_kernel_rejects_bad_inputs(cuda):
         link_traffic(ids.t(), w.t(), 4)
     with pytest.raises(ValueError):
         link_traffic(ids, w.cpu(), 4)
+
+
+# (B, E, P, H, n_links): the PPO rollout shape on the 8x8 mesh (E = 310
+# edges of the 64-slice Spike-VGG16 graph, H = 14 hops, P = 64 x 64 pairs),
+# E off the 32-edge chunk, one hop, routes longer than a warp, one edge, and
+# a link axis of three tiles (n_links > 8192)
+ROUTE_SHAPES = [(256, 310, 4096, 14, 256), (3, 45, 100, 5, 20),
+                (4, 70, 64, 1, 16), (2, 40, 50, 40, 300), (5, 1, 9, 3, 7),
+                (4, 200, 4096, 14, 20000)]
+
+
+def _route_inputs(B, E, P, H, n_links, kind, idx_dtype, seed, device):
+    """Random route table (link ids in [0, n_links], the back half of each
+    row padded with n_links at random), pair indices and volumes."""
+    rng = np.random.default_rng(seed)
+    routes = rng.integers(0, n_links + 1, (P, H))
+    routes[:, H // 2:][rng.random((P, H - H // 2)) < 0.5] = n_links
+    idx = rng.integers(0, P, (B, E))
+    vol = (rng.integers(0, 16, E) if kind == "int" else rng.random(E))
+    return (torch.as_tensor(idx, dtype=idx_dtype, device=device),
+            torch.as_tensor(routes, dtype=torch.int32, device=device),
+            torch.as_tensor(vol, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("B,E,P,H,n_links", ROUTE_SHAPES)
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_link_traffic_routes_kernel_matches_plain(cuda, B, E, P, H, n_links,
+                                                  kind, idx_dtype):
+    idx, routes, vol = _route_inputs(B, E, P, H, n_links, kind, idx_dtype,
+                                     B * 31 + E, cuda)
+    before = link_traffic_routes.launches
+    got = link_traffic_routes(idx, routes, vol, n_links)
+    torch.cuda.synchronize()
+    assert link_traffic_routes.launches == before + 1
+    want = link_traffic_routes_plain(idx, routes, vol, n_links)
+    assert got.shape == (B, n_links) and got.dtype == torch.float32
+    if kind == "int":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+def test_link_traffic_routes_kernel_drops_padding_and_out_of_range(cuda):
+    """Route ids equal to n_links (padding), negative or past n_links add
+    nothing, by hand; every pair of both rows is walked."""
+    routes = torch.tensor([[16, 16, -1], [99, 3, 3], [0, 15, 16]],
+                          dtype=torch.int32, device=cuda)
+    idx = torch.tensor([[1, 2, 0], [2, 2, 1]], device=cuda)
+    vol = torch.tensor([1.0, 2.0, 4.0], device=cuda)
+    out = link_traffic_routes(idx, routes, vol, 16)
+    torch.cuda.synchronize()
+    expect = torch.zeros(2, 16, device=cuda)
+    expect[0, 3], expect[0, 0], expect[0, 15] = 2.0, 2.0, 2.0
+    expect[1, 0], expect[1, 15], expect[1, 3] = 3.0, 3.0, 8.0
+    assert torch.equal(out, expect)
+
+
+def test_link_traffic_routes_kernel_on_a_degraded_mesh(cuda):
+    """The scorer's own tables of an 8x8 mesh with dropped links and a
+    dropped core (detour routes), live placements, integer volumes."""
+    from repro_torch.core.noc_batch import batched_noc
+    from repro_torch.core.topology import degrade
+    noc = degrade(NoC(8, 8), links=(5, 40), nodes=(27,))
+    b = batched_noc(noc)
+    dt = b.device_tables(cuda)
+    rng = np.random.default_rng(4)
+    alive = noc.alive_cores()
+    P = np.stack([rng.permutation(alive)[:40] for _ in range(64)])
+    src, dst = rng.integers(0, 40, (2, 300))
+    idx = torch.as_tensor(np.ascontiguousarray(P[:, src] * noc.n_cores
+                                               + P[:, dst]), device=cuda)
+    vol = torch.as_tensor(rng.integers(1, 100, 300), dtype=torch.float32,
+                          device=cuda)
+    got = link_traffic_routes(idx, dt.routes, vol, b.tables.n_links)
+    torch.cuda.synchronize()
+    want = link_traffic_routes_plain(idx, dt.routes, vol, b.tables.n_links)
+    assert torch.equal(got, want)
+
+
+def test_link_traffic_routes_kernel_rejects_bad_inputs(cuda):
+    idx, routes, vol = _route_inputs(2, 8, 10, 3, 4, "int", torch.int64, 0,
+                                     cuda)
+    before = link_traffic_routes.launches
+    with pytest.raises(TypeError):
+        link_traffic_routes(idx.short(), routes, vol, 4)
+    with pytest.raises(TypeError):
+        link_traffic_routes(idx, routes.long(), vol, 4)
+    with pytest.raises(TypeError):
+        link_traffic_routes(idx, routes, vol.double(), 4)
+    with pytest.raises(ValueError):
+        link_traffic_routes(idx, routes, vol[:4], 4)
+    with pytest.raises(ValueError):
+        link_traffic_routes(idx[0], routes, vol, 4)
+    with pytest.raises(ValueError):
+        link_traffic_routes(idx, routes.t(), vol, 4)
+    with pytest.raises(ValueError):
+        link_traffic_routes(idx.t().contiguous().t(), routes, vol, 4)
+    with pytest.raises(ValueError):
+        link_traffic_routes(idx, routes.cpu(), vol, 4)
+    assert link_traffic_routes.launches == before
+
+
+@pytest.mark.parametrize("bad", ["P", "-1"])
+def test_link_traffic_routes_kernel_faults_on_an_out_of_range_idx(cuda, bad):
+    """An idx outside [0, P) is a device-side error (the plain gather's is
+    a device-side assert), not a silently dropped edge. The fault poisons
+    the process's CUDA context, so it runs in a process of its own."""
+    code = textwrap.dedent(f"""
+        import torch
+        from repro_torch.kernels.noc_segsum import link_traffic_routes
+        routes = torch.zeros(16, 3, dtype=torch.int32, device="cuda")
+        idx = torch.zeros(2, 5, dtype=torch.int64, device="cuda")
+        idx[1, 3] = 16 if {bad!r} == "P" else -1
+        out = link_traffic_routes(idx, routes, torch.ones(5, device="cuda"), 4)
+        torch.cuda.synchronize()
+        print("no error", out.sum().item())
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "no error" not in proc.stdout
+    assert any(m in proc.stderr for m in ("CUDA error", "AcceleratorError",
+                                          "illegal instruction")), \
+        proc.stderr[-2000:]
 
 
 # (R, K, hop table): the reference kernel test's shape, the SA path's shape
@@ -382,14 +519,149 @@ def test_lif_kernel_rejects_bad_inputs(cuda):
     assert lif_step_kernel.launches == before
 
 
+def _lif_grad_inputs(shape, dtype, seed, device, offset=0):
+    """g_u, g_s, u, s, u' for one LIF backward (u' from the forward kernel
+    on the same u, s and a random current); ``offset`` as in
+    ``_lif_inputs``."""
+    u, s, c = _lif_inputs(shape, dtype, seed, device, offset)
+    rng = np.random.default_rng(seed + 1)
+    n = int(np.prod(shape))
+    gu, gs = (torch.as_tensor(rng.standard_normal(n + offset)
+                              .astype(np.float32), device=device)
+              .to(dtype)[offset:].reshape(shape) for _ in range(2))
+    return gu, gs, u, s, lif_step_plain(u, s, c)[0]
+
+
+def _same(got, want):
+    return all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", LIF_SHAPES)
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("alpha", [2.0, 3.0])
+def test_lif_backward_kernel_is_bit_identical_to_plain(cuda, shape, reset,
+                                                       alpha):
+    """float32, rect surrogate, every cotangent present and every output
+    asked for: d_u, d_s and g bit for bit the plain version's, at alpha 2
+    (1 / alpha exact) and 3 (PyTorch may multiply by a rounded reciprocal
+    where the kernel divides)."""
+    args = _lif_grad_inputs(shape, torch.float32, len(shape) + shape[-1],
+                            cuda)
+    kw = dict(reset=reset, alpha=alpha)
+    before = lif_backward_kernel.launches
+    got = lif_backward_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert lif_backward_kernel.launches == before + 1
+    want = lif_backward_plain(*args, **kw)
+    assert all(a.dtype == torch.float32 and a.shape == shape for a in got)
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("present", ["both", "g_u", "g_s"])
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True),
+                                  (False, False)])
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+def test_lif_backward_kernel_absent_inputs_unaligned(cuda, present, need,
+                                                     reset):
+    """Any cotangent absent, any of d_u / d_s skipped, 4097 elements off
+    every 16-byte boundary (the scalar path) and 4099 aligned (the vector
+    path and a tail), other constants: bit for bit the plain version."""
+    kw = dict(threshold=0.3, decay=0.9, reset=reset, alpha=3.0,
+              need_u=need[0], need_s=need[1])
+    for n, offset in ((4097, 1), (4099, 0)):
+        gu, gs, u, s, un = _lif_grad_inputs((n,), torch.float32, n, cuda,
+                                            offset)
+        assert (u.data_ptr() % 16 != 0) == bool(offset)
+        cot = (gu if present != "g_s" else None,
+               gs if present != "g_u" else None)
+        before = lif_backward_kernel.launches
+        got = lif_backward_kernel(*cot, u, s, un, **kw)
+        torch.cuda.synchronize()
+        launched = present != "g_u" or need[0] or need[1]
+        assert lif_backward_kernel.launches == before + launched
+        want = lif_backward_plain(*cot, u, s, un, **kw)
+        assert _same(got, want)
+        if present == "g_u":
+            assert got[2] is gu
+
+
+# float32 rect is bit-identical (above); the rest within their tolerance
+TOLERANCE_CASES = [("sigmoid", torch.float32), ("atan", torch.float32),
+                   ("rect", torch.bfloat16), ("sigmoid", torch.bfloat16),
+                   ("atan", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("surrogate,dtype", TOLERANCE_CASES)
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+def test_lif_backward_kernel_within_tolerance(cuda, surrogate, dtype, reset):
+    """sigmoid and atan in float32 (expf and the divisions are not claimed
+    bit-identical to PyTorch's kernels): rtol=1e-5, atol=1e-6; bfloat16,
+    every surrogate (every intermediate rounded to bfloat16 as the plain
+    version's operations round it, the constants in float32): within 2^-5
+    of each result's largest magnitude."""
+    args = _lif_grad_inputs((8, 64, 33), dtype, 21, cuda)
+    kw = dict(reset=reset, surrogate=surrogate)
+    got = lif_backward_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = lif_backward_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            torch.testing.assert_close(
+                a.float(), b.float(), rtol=0,
+                atol=2**-5 * b.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float16,) * 5,
+                                    (torch.bfloat16, torch.float32,
+                                     torch.bfloat16, torch.float32,
+                                     torch.float32)])
+def test_lif_backward_kernel_mixed_dtypes_run_in_float32(cuda, dtypes):
+    """float16 and mixed tensors: cast up exactly, computed in float32 and
+    rounded once to the promoted dtype, bit for bit the plain version on
+    the float32 casts."""
+    args = [t.to(d) for t, d in zip(
+        _lif_grad_inputs((8, 64, 33), torch.float32, 5, cuda), dtypes)]
+    out = args[0].dtype
+    for d in dtypes[1:]:
+        out = torch.promote_types(out, d)
+    got = lif_backward_kernel(*args, reset="soft")
+    torch.cuda.synchronize()
+    want = lif_backward_plain(*(a.float() for a in args), reset="soft")
+    assert all(a.dtype == out for a in got)
+    assert _same(got, tuple(w.to(out) for w in want))
+
+
+def test_lif_backward_kernel_rejects_bad_inputs(cuda):
+    gu, gs, u, s, un = _lif_grad_inputs((4, 8), torch.float32, 0, cuda)
+    before = lif_backward_kernel.launches
+    with pytest.raises(TypeError):
+        lif_backward_kernel(gu.double(), gs, u, s, un)
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs[:, :4], u, s, un)
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu.t(), gs, u, s, un)
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs.cpu(), u, s, un)
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs, u, s, un, reset="none")
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs, u, s, un, surrogate="relu")
+    assert lif_backward_kernel.launches == before
+
+
 @pytest.mark.parametrize("reset", ["hard", "soft"])
 @pytest.mark.parametrize("surrogate", ["rect", "sigmoid", "atan"])
 def test_lif_function_gradients_through_the_kernel(cuda, reset, surrogate,
                                                    monkeypatch):
-    """``snn.neurons.lif_step`` over three timesteps through the kernel, and
-    through the plain version on the card: equal states and equal
-    gradients (the backward is the same torch code; the forwards are
-    bit-identical)."""
+    """``snn.neurons.lif_step`` over three timesteps through both LIF
+    kernels (forward and backward, one launch each a step), and through
+    both plain versions on the card: equal states, and gradients bit for
+    bit with the rect surrogate, within the backward kernel's stated
+    tolerance (rtol=1e-5, atol=1e-6) with sigmoid and atan."""
     from repro_torch.snn import neurons
     cfg = neurons.LIFConfig(reset=reset, surrogate=surrogate)
     cur = torch.as_tensor(np.random.default_rng(1).random((3, 8, 64, 16, 16),
@@ -407,14 +679,21 @@ def test_lif_function_gradients_through_the_kernel(cuda, reset, surrogate,
         (grad,) = torch.autograd.grad((s * g).sum() + u.sum(), x)
         return u.detach(), s.detach(), grad
 
-    before = lif_step_kernel.launches
+    before = lif_step_kernel.launches, lif_backward_kernel.launches
     kernel = run()
-    assert lif_step_kernel.launches == before + 3
+    assert lif_step_kernel.launches == before[0] + 3
+    assert lif_backward_kernel.launches == before[1] + 3
     monkeypatch.setattr(neurons, "_lif_forward", lif_step_plain)
+    monkeypatch.setattr(neurons, "_lif_backward", lif_backward_plain)
     plain = run()
-    assert lif_step_kernel.launches == before + 3
-    for a, b in zip(kernel, plain):
-        assert torch.equal(a, b)
+    assert lif_step_kernel.launches == before[0] + 3
+    assert lif_backward_kernel.launches == before[1] + 3
+    assert torch.equal(kernel[0], plain[0])
+    assert torch.equal(kernel[1], plain[1])
+    if surrogate == "rect":
+        assert torch.equal(kernel[2], plain[2])
+    else:
+        torch.testing.assert_close(kernel[2], plain[2], rtol=1e-5, atol=1e-6)
 
 
 # ---- spike matmul -------------------------------------------------------------
@@ -572,8 +851,9 @@ def test_spike_conv_matches_fp32_conv_on_the_card(cuda, stride):
 def test_vgg16_train_step_kernel_path_is_bit_identical_to_plain(cuda,
                                                                 monkeypatch):
     """One full-width Spike-VGG16 training step (batch 8, T=4) through the
-    LIF kernel and through its plain version on the card, deterministic
-    cuDNN: the same loss and the same gradient, bit for bit."""
+    LIF kernels (forward and backward) and through their plain versions on
+    the card, deterministic cuDNN: the same loss and the same gradient, bit
+    for bit."""
     from repro_torch.snn import bptt, models, neurons
     cfg = models.spike_vgg16()
     net = models.init_model(cfg, torch.Generator().manual_seed(0),
@@ -583,13 +863,16 @@ def test_vgg16_train_step_kernel_path_is_bit_identical_to_plain(cuda,
     y = torch.as_tensor(rng.integers(0, 10, 8), device=cuda)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
-    before = lif_step_kernel.launches
+    before = lif_step_kernel.launches, lif_backward_kernel.launches
     kernel = bptt.loss_and_grads(net, cfg, x, y)
     torch.cuda.synchronize()
-    assert lif_step_kernel.launches == before + 13 * cfg.T
+    assert lif_step_kernel.launches == before[0] + 13 * cfg.T
+    assert lif_backward_kernel.launches == before[1] + 13 * cfg.T
     monkeypatch.setattr(neurons, "_lif_forward", lif_step_plain)
+    monkeypatch.setattr(neurons, "_lif_backward", lif_backward_plain)
     plain = bptt.loss_and_grads(net, cfg, x, y)
-    assert lif_step_kernel.launches == before + 13 * cfg.T
+    assert lif_step_kernel.launches == before[0] + 13 * cfg.T
+    assert lif_backward_kernel.launches == before[1] + 13 * cfg.T
     for a, b in zip(kernel[:3], plain[:3]):
         assert torch.equal(a, b)
     for (name, _), a, b in zip(net.named_parameters(), kernel[3], plain[3]):
@@ -598,14 +881,17 @@ def test_vgg16_train_step_kernel_path_is_bit_identical_to_plain(cuda,
 
 def test_ppo_with_a_cfg_scores_on_the_card_by_default(cuda):
     """``optimize_placement(method="ppo", cfg=PPOConfig(...))`` with no
-    backend scores its rollouts through the link-traffic kernel."""
+    backend scores its rollouts through the link-traffic kernel that
+    gathers the routes itself (once an iteration), and never through the
+    unfused one."""
     from repro_torch.core.graph import random_dag
     from repro_torch.core.placement import PPOConfig, optimize_placement
-    before = link_traffic.launches
+    before = link_traffic_routes.launches, link_traffic.launches
     res = optimize_placement(random_dag(16, seed=0), NoC(4, 4),
                              method="ppo", objective="latency",
                              cfg=PPOConfig(batch_size=32, iterations=2))
-    assert link_traffic.launches > before
+    assert link_traffic_routes.launches == before[0] + 2
+    assert link_traffic.launches == before[1]
     assert len(res.history) == 2
 
 

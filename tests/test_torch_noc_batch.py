@@ -5,7 +5,10 @@ Grades: the numpy backend and the torch backend in float64 are exact on
 integer-volume graphs; the float32 torch/cuda paths stay within the bounds
 the reference uses for its own pallas backend (rtol=1e-5, atol=1e-3). The
 cuda backend runs here on CPU tensors, i.e. through the kernel's plain
-version.
+version. The fused route-gather segment sum (``link_traffic_routes``) and
+the cuda scorer's link traffic are exact against the reference's Pallas
+kernel (interpret mode) on integer volumes, whose float32 partial sums stay
+below 2^24.
 """
 import os
 
@@ -27,7 +30,8 @@ from repro_torch.core import graph as p_graph  # noqa: E402
 from repro_torch.core import noc_batch as p_nb  # noqa: E402
 from repro_torch.core import topology as p_topology  # noqa: E402
 from repro_torch.deploy import objective as p_objective  # noqa: E402
-from repro_torch.kernels.noc_segsum import link_traffic  # noqa: E402
+from repro_torch.kernels.noc_segsum import (  # noqa: E402
+    link_traffic, link_traffic_routes, link_traffic_routes_plain)
 
 SPECS = ["mesh:3x5", "torus:4x4", "torus:3x5", "hier:2x2:2x2"]
 FIELDS = ("comm_cost", "mean_hops", "max_hops", "max_link", "latency",
@@ -115,6 +119,74 @@ def test_segsum_plain_all_padding():
                        torch.ones(2, 64), 16)
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), 0.0)
+
+
+def _degraded_case(seed=3, B=6):
+    """``_case`` on an 8x8 mesh with two links and one core dropped, so
+    routes detour and some run longer than the intact mesh's."""
+    ref, port = (m.degrade(m.parse_topology("mesh:8x8", link_bw=1.6e9,
+                                            core_flops=2e9),
+                           links=(5, 40), nodes=(27,))
+                 for m in (r_topology, p_topology))
+    alive = ref.alive_cores()
+    n = alive.size - 4
+    g = r_graph.random_dag(n, seed=seed)
+    rg = r_graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+    pg = p_graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+    rng = np.random.default_rng(seed)
+    P = np.stack([rng.permutation(alive)[:n] for _ in range(B)])
+    return ref, port, rg, pg, P
+
+
+ROUTE_CASES = SPECS + ["degraded 8x8"]
+
+
+@pytest.mark.parametrize("spec", ROUTE_CASES)
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_link_traffic_routes_plain_matches_pallas_interpret(spec, idx_dtype):
+    """The fused gather + segment sum on each edge's pair index, against
+    the reference's Pallas kernel (interpret mode) on the reference's own
+    ``flat_routes[idx]`` and broadcast volumes: exact on integer volumes,
+    route padding (and the degraded mesh's detours) included."""
+    ref, port, rg, pg, P = (_degraded_case() if spec == "degraded 8x8"
+                            else _case(spec))
+    t = r_nb.build_tables(ref)
+    src, dst, vol = rg.edge_arrays()
+    idx = P[:, src] * t.n_cores + P[:, dst]                    # [B, E]
+    flat = t.route_links.reshape(t.n_cores * t.n_cores, t.max_hops)
+    ids = flat[idx]                                            # [B, E, H]
+    assert (ids == t.n_links).any()                            # padding
+    w = np.broadcast_to(vol[None, :, None], ids.shape).astype(np.float32)
+    B = P.shape[0]
+    want = np.asarray(link_traffic_pallas(
+        jnp.asarray(ids.reshape(B, -1)), jnp.asarray(w.reshape(B, -1)),
+        t.n_links, interpret=True))
+    dt = p_nb.batched_noc(port).device_tables("cpu")
+    args = (torch.as_tensor(idx).to(idx_dtype), dt.routes,
+            torch.as_tensor(vol, dtype=torch.float32), t.n_links)
+    got = link_traffic_routes_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (B, t.n_links)
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = link_traffic_routes.launches
+    assert torch.equal(link_traffic_routes(*args), got)    # CPU: the plain
+    assert link_traffic_routes.launches == before
+
+
+@pytest.mark.parametrize("spec", ROUTE_CASES)
+def test_cuda_scorer_link_traffic_is_the_reference_pallas_one(spec):
+    """The scorer's kernel route (backend "cuda", here on CPU tensors, so
+    through ``link_traffic_routes``' plain version) gives the reference's
+    pallas backend's per-link traffic exactly on integer volumes, and its
+    other float32 metrics within the reference's own tolerance."""
+    ref, port, rg, pg, P = (_degraded_case() if spec == "degraded 8x8"
+                            else _case(spec))
+    m_ref = r_nb.evaluate_batch(ref, rg, P, backend="pallas")
+    m = p_nb.evaluate_batch(port, pg, P, backend="cuda", device="cpu")
+    np.testing.assert_array_equal(m.link_traffic, m_ref.link_traffic)
+    np.testing.assert_array_equal(m.max_link, m_ref.max_link)
+    for f in ("comm_cost", "latency", "core_traffic"):
+        np.testing.assert_allclose(getattr(m, f), getattr(m_ref, f),
+                                   rtol=1e-5, atol=1e-3)
 
 
 OBJECTIVE_SPECS = ["latency", "max_link", "energy", "interchip", "mean_hops",

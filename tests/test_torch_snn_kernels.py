@@ -8,7 +8,11 @@ against the plain versions on the card (``tests/test_torch_kernels_gpu.py``).
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are the reference kernel tests' own (``tests/test_kernels.py``),
 tightened to rtol 1e-6 for float32 LIF, whose plain version computes in the
-reference's order.
+reference's order. The LIF backward's plain version is held against
+``jax.vjp`` of the reference's ``lif_step``: float32 within rtol 1e-6,
+atol 1e-7; bfloat16 within 2^-5 of each result's largest magnitude (XLA and
+PyTorch round bfloat16 intermediates at different places, which moves the
+sigmoid and atan surrogates by up to two bfloat16 steps).
 """
 import os
 
@@ -17,11 +21,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as r_ops, ref as r_ref  # noqa: E402
+from repro.snn import neurons as r_neurons  # noqa: E402
 from repro_torch.kernels import ops as p_ops, ref as p_ref  # noqa: E402
-from repro_torch.kernels.lif import lif_step_kernel  # noqa: E402
+from repro_torch.kernels.lif import (lif_backward_kernel,  # noqa: E402
+                                     lif_backward_plain, lif_step_kernel)
 from repro_torch.kernels import spike_matmul as p_mm  # noqa: E402
 from repro_torch.kernels.spike_matmul import spike_matmul_kernel  # noqa: E402
 
@@ -80,6 +87,92 @@ def test_lif_step_keyword_arguments_reach_the_update():
         np.testing.assert_allclose(_np(un), _np(ur), rtol=1e-6)
     with pytest.raises(ValueError, match="reset"):
         p_ops.lif_step(*map(torch.as_tensor, (u, s, c)), reset="none")
+
+
+def _lif_backward_case(shape, seed, dtype, cfg):
+    """Inputs of one LIF update and its cotangents as numpy float32 (bf16
+    values when ``dtype`` is bfloat16), the reference's ``u'`` and its
+    ``vjp`` function."""
+    rng = np.random.default_rng(seed)
+    jd = DTYPES[dtype][0]
+    raw = [rng.standard_normal(shape) * 1.5, rng.random(shape) < 0.3,
+           rng.standard_normal(shape), rng.standard_normal(shape),
+           rng.standard_normal(shape)]
+    u, s, c, gu, gs = (np.array(jnp.asarray(a.astype(np.float32), jd),
+                                np.float32) for a in raw)
+    (un, _), vjp = jax.vjp(
+        lambda a, b, d: r_neurons.lif_step(a, b, d, cfg),
+        *(jnp.asarray(a, jd) for a in (u, s, c)))
+    return u, s, gu, gs, np.array(un, np.float32), vjp
+
+
+@pytest.mark.parametrize("reset", ["hard", "soft"])
+@pytest.mark.parametrize("surrogate", ["rect", "sigmoid", "atan"])
+@pytest.mark.parametrize("present", ["both", "g_u", "g_s"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lif_backward_plain_matches_reference_vjp(reset, surrogate, present,
+                                                  dtype):
+    """The plain backward against ``jax.vjp`` of the reference's LIF update,
+    with one cotangent absent where ``present`` says so (a zero cotangent
+    for the reference): d_u, d_s and g (the cotangent of I)."""
+    cfg = dict(reset=reset, surrogate=surrogate, decay=0.7)
+    u, s, gu, gs, un, vjp = _lif_backward_case(
+        (4, 33, 17), len(present) + 7 * len(surrogate), dtype,
+        r_neurons.LIFConfig(**cfg))
+    jd, td = DTYPES[dtype]
+    zero = np.zeros_like(gu)
+    want = vjp(tuple(jnp.asarray(g if present in ("both", name) else zero, jd)
+                     for g, name in ((gu, "g_u"), (gs, "g_s"))))
+    t = {k: torch.as_tensor(v).to(td) for k, v in
+         dict(u=u, s=s, gu=gu, gs=gs, un=un).items()}
+    kw = dict(threshold=1.0, decay=0.7, reset=reset, surrogate=surrogate,
+              alpha=2.0)
+    got = lif_backward_plain(t["gu"] if present != "g_s" else None,
+                             t["gs"] if present != "g_u" else None,
+                             t["u"], t["s"], t["un"], **kw)
+    for name, a, b in zip(("d_u", "d_s", "g"), got, want):
+        assert a.dtype == td and a.shape == u.shape, name
+        b = np.asarray(b, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(_np(a), b, rtol=1e-6, atol=1e-7,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(_np(a), b, rtol=0,
+                                       atol=2**-5 * np.abs(b).max(),
+                                       err_msg=name)
+    # the wrapper takes the plain version on CPU tensors, launching nothing
+    before = lif_backward_kernel.launches
+    again = lif_backward_kernel(t["gu"] if present != "g_s" else None,
+                                t["gs"] if present != "g_u" else None,
+                                t["u"], t["s"], t["un"], **kw)
+    assert lif_backward_kernel.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lif_backward_plain_need_flags_and_absent_cotangents():
+    """``need_u`` / ``need_s`` drop d_u / d_s and nothing else; with only
+    ``g_u`` the cotangent of I is ``g_u`` itself; with neither, all three
+    are None; an unknown reset or surrogate raises."""
+    rng = np.random.default_rng(11)
+    gu, gs, u, un = (torch.as_tensor(rng.standard_normal(64)
+                                     .astype(np.float32)) for _ in range(4))
+    s = torch.as_tensor((rng.random(64) < 0.5).astype(np.float32))
+    full = lif_backward_plain(gu, gs, u, s, un)
+    for need_u, need_s in ((True, False), (False, True), (False, False)):
+        d_u, d_s, g = lif_backward_kernel(gu, gs, u, s, un, need_u=need_u,
+                                          need_s=need_s)
+        assert (d_u is None) != need_u and (d_s is None) != need_s
+        assert torch.equal(g, full[2])
+        if need_u:
+            assert torch.equal(d_u, full[0])
+        if need_s:
+            assert torch.equal(d_s, full[1])
+    assert lif_backward_plain(gu, None, u, s, un)[2] is gu
+    assert lif_backward_kernel(None, None, u, s, un) == (None, None, None)
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs, u, s, un, reset="none")
+    with pytest.raises(ValueError):
+        lif_backward_kernel(gu, gs, u, s, un, surrogate="relu")
 
 
 # ---- spike matmul -----------------------------------------------------------
