@@ -127,7 +127,33 @@ Phases, each of which fails the run loudly:
     kernel's share of its device time) and decode step; the prefill again
     through the attention's plain version
     (last-position logits within relative L2 5e-2) and prefill + decode
-    against ``forward`` on the same tokens (the same tolerance).
+    against ``forward`` on the same tokens (the same tolerance);
+11. drive the placement front end on the card: ``deploy_model(spike_vgg16(),
+    NoC(8, 8, ...), method="policy", objective="latency")`` with its
+    defaults (batch 64, 40 iterations: 40 ``link_traffic_routes`` launches,
+    no ``link_traffic``, the best latency against the host evaluate within
+    rtol 1e-5; the place stage and the policy's sample, score and update
+    times); phase 4's PPO with ``device_discretize=True`` (every rollout's
+    placements from the resolver on the card equal the numpy resolver's on
+    the same cells, 40 calls of 256 x 64; the best plan against the host
+    evaluate; whether the history equals phase 4's, demanded only when a
+    second host-resolver run repeats phase 4, else the ops PyTorch reports
+    as nondeterministic; ``ppo.discretize`` for both resolvers); the PPO
+    plan's ``flow_report`` (byte-hops and hottest link equal to the host
+    evaluate); ``run_scenario`` at ``benchmarks/fault_replace.py``'s full
+    configuration (S-VGG16 on hier 2x2:4x4, budget 4096, deploy budget
+    65536, threshold 0.02, migration weight 0.12, warm t0 0.005, the busiest
+    inter-chip link dropped, ``compare_cold=True``), identical with the
+    recorder on and off, its objectives the host evaluate's, with
+    replacements, moved MB, maximum degradation, wall and scorer calls a
+    second; the placement service at ``benchmarks/service.py``'s full
+    configuration (S-ResNet18 on 4x4, balanced, SA budget 12000): cold, hit
+    and warm near-miss p50s, a fused batch of 4 seeds bit-identical to 4
+    serial runs, the cache saved, reloaded and hit, one ``POST /deploy`` to
+    a localhost server; ``python -m repro_torch.deploy --smoke`` and
+    ``report --method sa --backend device`` as subprocesses on the card,
+    the report's one device search counted from its trace's ``sa.device``
+    events and, in process, one ``sa_chains`` launch per search.
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after.
@@ -145,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -1969,6 +1996,415 @@ def _wrapper_host_times(dev, card) -> None:
                           "mean_us": sum(host) / len(host), "card": card}))
 
 
+# ---- the placement front end: policy, device resolver, flow report, runtime,
+# service and the CLI ------------------------------------------------------------
+
+# benchmarks/fault_replace.py's full configuration and operating point
+FAULT_REPLACE = dict(budget=4096, deploy_budget=65536, threshold=0.02,
+                     migration_weight=0.12, warm_t0=0.005)
+# benchmarks/service.py's full configuration
+SERVICE = dict(budget=12000, fuse_rows=4, near_miss_seed=777, hit_repeats=300,
+               cold_repeats=3, warm_repeats=3)
+
+
+def _span_totals(rec, prefix: str) -> dict:
+    out: dict = {}
+    for ev in rec.events:
+        if ev["kind"] == "span" and ev["name"].startswith(prefix):
+            out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"]
+    return out
+
+
+def _policy_path(vgg, noc, kernels):
+    """Phase 11a: ``deploy_model(method="policy", objective="latency")`` with
+    its defaults (batch 64, 40 iterations) on the card: one
+    ``link_traffic_routes`` launch an iteration, none of ``link_traffic``,
+    and the best rollout's float32 latency against the host evaluate."""
+    import torch
+    from repro_torch.core.noc_batch import validate_placements
+    from repro_torch.deploy import as_objective, deploy_model
+    from repro_torch.obs import Recorder
+    rec = Recorder()
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    plan = deploy_model(vgg, noc, method="policy", objective="latency",
+                        recorder=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(kernels)
+    res = plan.placement
+    validate_placements(noc, res.placement, plan.graph.n)
+    host = as_objective("latency").from_metrics(
+        noc.evaluate(plan.graph, res.placement), noc)
+    best = res.history[-1]["best_cost"]
+    print(f"[policy] deploy_model(method='policy', objective='latency'): "
+          f"wall {wall!r} s; stage times {json.dumps(plan.stage_times_s)}; "
+          f"phase totals over {len(res.history)} iterations (host clock, "
+          f"each phase ends in a sync): {json.dumps(_span_totals(rec, 'policy.'))}; "
+          f"launches {launches}")
+    if not math.isclose(best, host, rel_tol=1e-5):
+        raise AssertionError(f"policy: best rollout latency {best!r} (cuda "
+                             f"scorer) != host evaluate {host!r}")
+    if (len(res.history) != 40 or launches["link_traffic_routes"] != 40
+            or launches["link_traffic"] != 0):
+        raise AssertionError(f"policy ran {len(res.history)} iterations "
+                             f"and {launches} kernel launches, not 40 "
+                             "link_traffic_routes launches and no "
+                             "link_traffic launch")
+    print(f"[policy] best latency {best!r} s (cuda) vs host evaluate "
+          f"{host!r} s ok; link_traffic_routes 40, link_traffic 0 ok")
+
+
+def _ppo_nondeterministic_ops(vgg, noc):
+    """The ops of one PPO deploy that PyTorch reports as having no
+    deterministic implementation on the card."""
+    import warnings
+    import torch
+    from repro_torch.deploy import deploy_model
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            deploy_model(vgg, noc, method="ppo", objective="latency",
+                         budget=2)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def _ppo_device_resolver(vgg, noc, kernels, host_plan, host_phases):
+    """Phase 11b: phase 4's PPO with ``device_discretize=True``. Every
+    rollout's placements from the resolver on the card equal the numpy
+    resolver's on the same cells; the best plan matches the host evaluate;
+    the history is held against phase 4's host-resolver run where the card
+    shows PPO to repeat itself. Returns the plan."""
+    import numpy as np
+    import torch
+    from repro_torch.core.placement import ppo as ppo_mod
+    from repro_torch.core.placement.discretize_batch import \
+        resolve_collisions_batch
+    from repro_torch.deploy import as_objective, deploy_model
+    from repro_torch.device import resolve_device
+    from repro_torch.obs import Recorder
+    calls = []
+    real = ppo_mod.make_torch_resolver
+
+    def recording(rows, cols, priority=None, device=None):
+        resolve = real(rows, cols, priority, device=device)
+
+        def resolve_and_keep(cells):
+            out = resolve(cells)
+            calls.append((np.array(cells), out))
+            return out
+        return resolve_and_keep
+
+    rec = Recorder()
+    ppo_mod.make_torch_resolver = recording
+    try:
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        plan = deploy_model(vgg, noc, method="ppo", objective="latency",
+                            device_discretize=True, recorder=rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ppo_mod.make_torch_resolver = real
+    launches = _counts(kernels)
+    for it, (cells, out) in enumerate(calls):
+        want = resolve_collisions_batch(cells, noc.rows, noc.cols)
+        if out.device.type != resolve_device(None).type or \
+                not np.array_equal(out.cpu().numpy(), want):
+            raise AssertionError(f"device resolver differs from numpy on "
+                                 f"rollout {it} (or left the card)")
+    if len(calls) != 40 or calls[0][0].shape != (256, plan.graph.n):
+        raise AssertionError(f"device resolver ran {len(calls)} times")
+    res = plan.placement
+    host = as_objective("latency").from_metrics(
+        noc.evaluate(plan.graph, res.placement), noc)
+    best = res.history[-1]["best_cost"]
+    if not math.isclose(best, host, rel_tol=1e-5) or \
+            launches["link_traffic_routes"] != 40:
+        raise AssertionError(f"PPO (device resolver): best {best!r} vs host "
+                             f"{host!r}; launches {launches}")
+    phases = _span_totals(rec, "ppo.")
+    print(f"[ppo-dev] device resolver == numpy resolver on all {len(calls)} "
+          f"rollouts of {calls[0][0].shape} cells ok; best latency {best!r} "
+          f"vs host {host!r} ok; wall {wall!r} s; launches {launches}")
+    print(f"[ppo-dev] ppo.discretize over 40 iterations: device resolver "
+          f"{phases['ppo.discretize']!r} s, host resolver (phase 4) "
+          f"{host_phases['ppo.discretize']!r} s (host clock; both bin on the "
+          f"host)")
+    same = res.history == host_plan.placement.history and np.array_equal(
+        res.placement, host_plan.placement.placement)
+    print(f"[ppo-dev] whole history equal to phase 4's host-resolver run: "
+          f"{same}")
+    if not same:
+        again = deploy_model(vgg, noc, method="ppo", objective="latency")
+        repeats = again.placement.history == host_plan.placement.history
+        ops = _ppo_nondeterministic_ops(vgg, noc)
+        print(f"[ppo-dev] a second host-resolver run repeats phase 4: "
+              f"{repeats}; ops PyTorch reports as nondeterministic on the "
+              f"card: {ops}")
+        if repeats:
+            raise AssertionError("PPO repeats itself on the card but the "
+                                 "device resolver changed its history")
+    return plan
+
+
+def _flow_of(plan, noc):
+    """Phase 11c: the flow report of a plan, byte-hops and hottest link
+    equal to the host evaluate."""
+    from repro_torch.obs import flow_report
+    rep = flow_report(noc, plan.graph, plan.placement)
+    m = noc.evaluate(plan.graph, plan.placement.placement)
+    if rep.byte_hops != m.comm_cost or rep.max_link != m.max_link:
+        raise AssertionError(f"flow report {rep.byte_hops!r}/"
+                             f"{rep.max_link!r} != host evaluate "
+                             f"{m.comm_cost!r}/{m.max_link!r}")
+    print(f"[flow] PPO plan: byte_hops {rep.byte_hops!r}, max_link "
+          f"{rep.max_link!r} == host evaluate; {rep.n_active_links} of "
+          f"{rep.n_links} links active, gini {rep.gini!r}, cov {rep.cov!r} ok")
+
+
+def _runtime_path(kernels):
+    """Phase 11d: ``run_scenario`` at benchmarks/fault_replace.py's full
+    configuration: S-VGG16 on hier 2x2:4x4, the busiest inter-chip link of
+    the seeded deployment dropped at step 2, ``compare_cold=True``; once
+    with the recorder (deploying itself) and once without (on the first
+    deployment's plan). Both results must be identical, and every objective
+    they record is the host evaluate's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import HierarchicalMesh
+    from repro_torch.core.topology import degrade
+    from repro_torch.deploy import as_objective, deploy_model, run_scenario
+    from repro_torch.obs import Recorder
+    from repro_torch.snn import spike_vgg16
+    fr = FAULT_REPLACE
+    hm = HierarchicalMesh(2, 2, 4, 4, **FULL_NOC)
+    cfg = spike_vgg16(n_classes=10, in_res=32, T=4)
+    t0 = time.perf_counter()
+    plan = deploy_model(cfg, hm, method="simulated_annealing", seed=0,
+                        budget=fr["deploy_budget"], schedule="none")
+    deploy_s = time.perf_counter() - t0
+    m = hm.evaluate(plan.graph, plan.placement.placement)
+    loads = np.zeros(hm.n_links)
+    for label, vol in m.link_traffic.items():
+        loads[hm.link_id_of(label)] = vol
+    lid = int(np.argmax(np.where(hm.interchip_mask(), loads, -1.0)))
+    kw = dict(method="simulated_annealing", objective="comm_cost",
+              budget=fr["budget"], deploy_budget=fr["deploy_budget"],
+              migration_weight=fr["migration_weight"],
+              warm_kw={"t0": fr["warm_t0"]}, seed=0,
+              threshold=fr["threshold"], compare_cold=True,
+              cold_budget=fr["deploy_budget"])
+    scenario = f"steps=6;fault=link:{lid}@2"
+    rec = Recorder()
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    on = run_scenario(cfg, hm, scenario, recorder=rec, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(kernels)
+    off = run_scenario(cfg, hm, scenario, plan=plan, **kw)
+    identical = on.to_dict() == off.to_dict()
+    calls = rec.counters.get("noc_batch.dispatches", 0)
+    print(f"[runtime] hier 2x2:4x4 S-VGG16, link {lid} dropped at step 2: "
+          f"replacements {on.n_replacements}, cold fallbacks "
+          f"{on.n_cold_fallbacks}, moved {on.moved_state_bytes / 1e6!r} MB, "
+          f"max degradation {on.max_degradation!r}, final objective "
+          f"{on.final_objective!r}; wall {wall!r} s (first deployment "
+          f"{deploy_s!r} s); {calls} scorer calls = {calls / wall!r} a "
+          f"second; launches {launches}")
+    print("[runtime] recoveries " + json.dumps(on.recoveries))
+    print(f"[runtime] result identical with the recorder on and off: "
+          f"{identical}")
+    if not identical:
+        raise AssertionError("run_scenario differs with the recorder on and "
+                             "off on the card")
+    obj = as_objective("comm_cost")
+    final = degrade(hm, links=on.samples[-1]["faults"]["links"])
+    host_final = obj.from_metrics(
+        final.evaluate(on.final_graph, on.final_placement), final)
+    host_initial = float(m.comm_cost)
+    first = on.samples[0]["objective"]
+    after = [r["objective_after"] for r in on.recoveries]
+    if on.final_objective != host_final or first != host_initial or \
+            (after and after[-1] != host_final):
+        raise AssertionError(f"runtime objectives: initial {first!r} vs "
+                             f"host {host_initial!r}, final "
+                             f"{on.final_objective!r} vs host "
+                             f"{host_final!r}, last recovery {after}")
+    print("[runtime] initial, recovered and final objectives equal the host "
+          "evaluate ok")
+    for r in on.recoveries:
+        cold = r["cold_reference"]
+        print(f"[runtime] recovery at step {r['t']}: warm "
+              f"{r['objective_after']!r} vs cold reference "
+              f"{cold['objective']!r} (ratio "
+              f"{r['objective_after'] / cold['objective']!r}), moved "
+              f"{r['moved_state_bytes']!r} vs {cold['moved_state_bytes']!r} "
+              "bytes")
+
+
+def _service_path():
+    """Phase 11e: the placement service at benchmarks/service.py's full
+    configuration (S-ResNet18 on a 4x4 mesh, balanced, SA budget 12000,
+    comm_cost) on the card: cold, hit and warm latencies, a fused batch of
+    4 seeds bit-identical to 4 serial runs, the cache saved and reloaded to
+    a hit, and one POST /deploy to a localhost server."""
+    import tempfile
+    import threading
+    import numpy as np
+    from repro_torch.core import NoC
+    from repro_torch.deploy import (DeployRequest, PlacementService,
+                                    PlanCache, execute_request)
+    from repro_torch.deploy.service import make_server, request_over_http
+    from repro_torch.obs import bench_percentiles
+    from repro_torch.snn import spike_resnet18
+    sv = SERVICE
+    noc = NoC(4, 4, **FULL_NOC)
+    cfg = spike_resnet18(n_classes=10, in_res=32, T=4)
+
+    def req(seed):
+        return DeployRequest.from_call(
+            cfg, noc, partition_strategy="balanced",
+            method="simulated_annealing", objective="comm_cost",
+            schedule="none", budget=sv["budget"], seed=seed)
+
+    cold = []
+    cold_lat = bench_percentiles(
+        lambda: cold.append(PlacementService().submit(req(len(cold)))),
+        repeats=sv["cold_repeats"], warmup=0)
+    if not all(r.status == "miss" for r in cold):
+        raise AssertionError("service: cold requests were not misses")
+    svc = PlacementService()
+    svc.submit(req(0))
+    hit = bench_percentiles(lambda: svc.submit(req(0)),
+                            repeats=sv["hit_repeats"])
+    if svc.submit(req(0)).placement != cold[0].placement:
+        raise AssertionError("service: a hit differs from the cold plan")
+    donor_plan = execute_request(req(0))
+    warm_resps = []
+
+    def warm_once():
+        # a fresh cache holding only the donor, so every repeat starts
+        # from the same donor
+        cache = PlanCache()
+        cache.put(req(0), donor_plan)
+        resp = PlacementService(cache=cache).submit(req(sv["near_miss_seed"]))
+        if resp.status != "warm":
+            raise AssertionError(f"service: near miss was {resp.status}")
+        warm_resps.append(resp)
+    warm = bench_percentiles(warm_once, repeats=sv["warm_repeats"],
+                             warmup=0)
+    warm_resp = warm_resps[0]
+    seeds = [100 + i for i in range(sv["fuse_rows"])]
+    t0 = time.perf_counter()
+    fused = PlacementService().submit_batch([req(s) for s in seeds])
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [execute_request(req(s)) for s in seeds]
+    serial_s = time.perf_counter() - t0
+    for s, f, p in zip(seeds, fused, serial):
+        if not (f.fused and f.placement == p.placement.placement.tolist()
+                and f.objective_cost == p.placement.objective_cost):
+            raise AssertionError(f"service: fused row of seed {s} differs "
+                                 "from its serial run on the card")
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "plans.json")
+        svc.cache.save(path)
+        reloaded = PlacementService(cache=PlanCache.load(path)).submit(req(0))
+    if reloaded.status != "hit" or reloaded.placement != cold[0].placement:
+        raise AssertionError("service: the reloaded cache did not hit")
+    entry = svc.cache.get(cold[0].cache_key)
+    server, queue = make_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        over_http = request_over_http(url, req(0))
+    finally:
+        server.shutdown()
+        server.server_close()
+        queue.close()
+        thread.join(timeout=30)
+    if over_http.status != "hit" or over_http.placement != cold[0].placement:
+        raise AssertionError("service: POST /deploy did not return the "
+                             "cached plan")
+    print(f"[service] S-ResNet18 on 4x4, SA budget {sv['budget']}: cold p50 "
+          f"{cold_lat['p50']!r} s, hit p50 {hit['p50']!r} s "
+          f"({hit['n']} hits), warm near miss p50 {warm['p50']!r} s "
+          f"({warm_resp.attempts} attempts, cost "
+          f"{warm_resp.objective_cost!r} vs donor "
+          f"{donor_plan.placement.objective_cost!r}); cold cost "
+          f"{cold[0].objective_cost!r}; entry device {entry['device']}, "
+          f"backend {entry['resolved_backend']}")
+    print(f"[service] fused batch of {len(seeds)} seeds {fused_s!r} s vs "
+          f"serial {serial_s!r} s: every row bit-identical ok; cache saved, "
+          f"reloaded, hit ok; POST /deploy on localhost {over_http.status} "
+          f"in {over_http.latency_s!r} s service-side, the cached plan ok")
+
+
+def _cli_path(kernels):
+    """Phase 11f: ``python -m repro_torch.deploy --smoke`` and ``report
+    --method sa --backend device`` as subprocesses on the card (the
+    report's trace holds one ``sa.device`` event, one search through the
+    kernel), then the same report in process with one ``sa_chains`` launch
+    per ``sa.device`` event."""
+    import os
+    import tempfile
+    from repro_torch.deploy import cli
+    from repro_torch.obs import read_jsonl
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    report = ["report", "--method", "sa", "--backend", "device",
+              "--cores", "64"]
+    with tempfile.TemporaryDirectory() as td:
+        trace = str(Path(td) / "report.jsonl")
+        for argv in (["--smoke"], report + ["--trace", trace]):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "repro_torch.deploy",
+                                  *argv], cwd=root, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"python -m repro_torch.deploy {argv} "
+                                     f"failed:\n{out.stderr[-3000:]}")
+            print(f"[cli] python -m repro_torch.deploy {' '.join(argv)}: "
+                  f"exit 0 in {time.perf_counter() - t0!r} s; last lines: "
+                  + " | ".join(out.stdout.strip().splitlines()[-3:]))
+        searches = [e for e in read_jsonl(trace) if e["name"] == "sa.device"]
+        if len(searches) != 1 or not searches[0]["attrs"]["use_pallas"]:
+            raise AssertionError(f"report ran {len(searches)} device SA "
+                                 "searches, not one through the kernel")
+        _reset_counts(kernels)
+        trace2 = str(Path(td) / "report2.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(report + ["--trace", trace2])
+        launches = _counts(kernels)
+        n = sum(e["name"] == "sa.device" for e in read_jsonl(trace2))
+    if n != 1 or launches["sa_chains"] != n or launches["delta_cost"] != 0:
+        raise AssertionError(f"report: {n} sa.device events, launches "
+                             f"{launches}")
+    print(f"[cli] report --method sa --backend device: {n} device SA search, "
+          f"sa_chains launches {launches['sa_chains']} (one per search), "
+          f"delta_cost {launches['delta_cost']} ok")
+
+
+def _placement_front_end(vgg, noc, kernels, ppo_plan, ppo_phases):
+    """Phase 11: the placement front end on the card."""
+    t0 = time.perf_counter()
+    _policy_path(vgg, noc, kernels)
+    plan = _ppo_device_resolver(vgg, noc, kernels, ppo_plan, ppo_phases)
+    _flow_of(plan, noc)
+    _runtime_path(kernels)
+    _service_path()
+    _cli_path(kernels)
+    print(f"[front-end] phase 11 in {time.perf_counter() - t0!r} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2291,6 +2727,9 @@ def main() -> int:
     _serve_path(danube, "serve-danube", DANUBE["batch"],
                 DANUBE["prompt_len"], DANUBE["gen_len"], dev, kernels)
     rows.append(_time_flash(dev, card, flash_launches, flash_err))
+
+    # ---- phase 11: the placement front end on the card --------------------------
+    _placement_front_end(vgg, noc, kernels, plan, phases)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,4 +11,5 @@ from .multilevel import (CoarseningLevel, coarsen, coarsen_once,  # noqa: F401
                          grid_comm_cost, heavy_edge_matching,
                          multilevel_placement, project_placement,
                          refine_placement)
+from .policy_baseline import PolicyConfig, run_policy_baseline  # noqa: F401
 from .ppo import PPOConfig, run_ppo  # noqa: F401

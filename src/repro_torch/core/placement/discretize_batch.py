@@ -18,15 +18,20 @@ sequential data dependence the reference semantics require) with all batch
 samples resolved per step by pure numpy gather/argmax, instead of ``B × n``
 Python spiral searches.
 
-The reference's device resolver (``make_jax_resolver``) has no torch
-counterpart yet; the name stays and raises ``NotImplementedError``.
+The device resolver (:func:`make_torch_resolver`, also bound to the
+reference's name ``make_jax_resolver``) runs the same loop over nodes on a
+torch device, each step one gather from the scan table for the whole batch;
+it consumes integer grid cells (bin actions with `continuous_to_grid_batch`,
+which is float64 and matches the reference binning exactly).
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
+from ...device import resolve_device
 from .discretize import _clockwise_ring, continuous_to_grid
 
 
@@ -103,10 +108,44 @@ def actions_to_placement_batch(cont: np.ndarray, rows: int, cols: int,
         continuous_to_grid_batch(cont, rows, cols, clip), rows, cols, priority)
 
 
-def make_jax_resolver(rows: int, cols: int, priority=None):
-    """The reference's device-resident resolver. Its torch counterpart is
-    ROADMAP queue 1, item 3 (the torch resolver); the host resolver above is
-    the discretizer of record."""
-    raise NotImplementedError(
-        "the device resolver is not ported yet (ROADMAP queue 1, item 3: "
-        "torch resolver); use actions_to_placement_batch")
+def make_torch_resolver(rows: int, cols: int, priority=None, device=None):
+    """``cells [B, n] -> placements [B, n]`` (int64 tensor on ``device``,
+    ``None``: the card): the collision resolver as a loop over nodes in
+    priority order, each step vectorised over the batch. Integer table
+    lookups only, so it matches the numpy resolver exactly, the ``-1`` fill
+    of nodes a partial priority order never visits included.
+
+    The first free core of each row is ``argmax`` over an int32 free mask
+    gathered along the row's scan order (``torch.argmax`` returns the first
+    of tied maxima)."""
+    dev = resolve_device(device)
+    table = torch.as_tensor(scan_table(rows, cols), dtype=torch.long,
+                            device=dev)
+    n_cores = rows * cols
+    if priority is not None and np.unique(priority).size != len(priority):
+        # a duplicate would resolve one node twice and take two cores
+        raise ValueError("priority must not contain duplicate node ids")
+    prio = None if priority is None else [int(p) for p in priority]
+
+    def resolve(cells):
+        cells = torch.as_tensor(np.asarray(cells), dtype=torch.long,
+                                device=dev)
+        B, n = cells.shape
+        if n > n_cores:                     # same loud failure as numpy path
+            raise ValueError(f"{n} nodes do not fit on {rows}x{cols} grid")
+        bidx = torch.arange(B, device=dev)
+        free = torch.ones(B, n_cores, dtype=torch.int32, device=dev)
+        out = torch.full((B, n), -1, dtype=torch.long, device=dev)
+        for node in (range(n) if prio is None else prio):
+            scan = table[cells[:, node]]                    # [B, n_cores]
+            first = torch.argmax(free.gather(1, scan), dim=1)
+            chosen = scan[bidx, first]
+            out[:, node] = chosen
+            free[bidx, chosen] = 0
+        return out
+
+    return resolve
+
+
+#: the reference's name for the device resolver
+make_jax_resolver = make_torch_resolver

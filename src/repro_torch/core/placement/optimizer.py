@@ -2,14 +2,13 @@
 
 ``optimize_placement(graph, noc, method=...)`` returns a uniform
 :class:`PlacementResult`. ``noc`` is any :class:`..topology.Topology`.
-Every method of the reference is ported except ``policy``, which raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Every method of the reference is ported.
 
-``device`` (``None``: the card) is where PPO trains, where the torch/cuda
-scorers run and where the device searches run. ``backend=None`` resolves to
-``"cuda"`` on a CUDA device (float32 scoring on the card; the link-traffic
-kernel for link-level objectives) and to ``"batch"`` (numpy float64, as in
-the reference) on the CPU. ``backend="device"`` (``simulated_annealing``/
+``device`` (``None``: the card) is where PPO and the policy baseline
+train, where the torch/cuda scorers run and where the device searches run.
+``backend=None`` resolves to ``"cuda"`` on a CUDA device (float32 scoring
+on the card; the link-traffic kernel for link-level objectives) and to
+``"batch"`` (numpy float64, as in the reference) on the CPU. ``backend="device"`` (``simulated_annealing``/
 ``sa``, ``genetic``/``ga`` and ``multilevel``'s coarse level) switches to the
 device-resident searches of :mod:`.device_search` — O(degree) delta costs
 through the ``delta_cost`` kernel, plus ``restarts=N`` parallel SA chains —
@@ -34,6 +33,7 @@ from ...deploy.objective import as_objective
 from ...device import resolve_backend, resolve_device
 from ...obs import maybe_span
 from . import baselines, device_search, multilevel, population
+from .policy_baseline import PolicyConfig, run_policy_baseline
 from .ppo import PPOConfig, run_ppo
 
 
@@ -74,9 +74,6 @@ METHODS = ("zigzag", "sigmate", "random_search", "simulated_annealing",
 METHOD_ALIASES = {"sa": "simulated_annealing", "ga": "genetic",
                   "rs": "random_search", "ml": "multilevel"}
 
-#: methods of the reference not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {"policy": "queue 1, item 4 (policy_baseline)"}
-
 # arguments optimize_placement supplies itself — never forwardable via **kw
 _OWN_PARAMS = frozenset({"graph", "noc", "seed", "backend", "objective",
                             "recorder", "budget", "generations", "iters",
@@ -85,10 +82,6 @@ _OWN_PARAMS = frozenset({"graph", "noc", "seed", "backend", "objective",
 
 def _check_method(method: str) -> str:
     method = METHOD_ALIASES.get(method, method)
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"placement method {method!r} is not ported yet (ROADMAP "
-            f"{NOT_PORTED[method]})")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     return method
@@ -108,8 +101,9 @@ def method_kwargs(method: str, backend: str | None = None,
     ``iters``/``generations`` are always accepted (they alias ``budget``);
     deterministic constructors take none; ``multilevel`` additionally accepts
     everything its ``coarse_method`` does (pass the requested coarse method,
-    default ``simulated_annealing``); ``ppo`` takes the :class:`PPOConfig`
-    fields :func:`optimize_placement` does not set itself, plus ``cfg`` and
+    default ``simulated_annealing``); ``ppo`` and ``policy`` take the
+    :class:`PPOConfig` / :class:`PolicyConfig` fields
+    :func:`optimize_placement` does not set itself, plus ``cfg`` and
     ``init``.
     """
     method = _check_method(method)
@@ -137,7 +131,8 @@ def method_kwargs(method: str, backend: str | None = None,
         if coarse == "multilevel":        # no recursive coarsening
             return own | budgets
         return own | method_kwargs(coarse, backend=backend) | budgets
-    fields = frozenset(f.name for f in dataclasses.fields(PPOConfig))
+    cfg_cls = PPOConfig if method == "ppo" else PolicyConfig
+    fields = frozenset(f.name for f in dataclasses.fields(cfg_cls))
     return (fields - frozenset({"iterations", "seed", "backend",
                                 "objective"})) | frozenset({"cfg", "init"})
 
@@ -201,7 +196,7 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
         raise ValueError(
             f"backend='device' implements simulated_annealing (sa) and "
             f"genetic (ga) only, not {method!r}")
-    if method == "ppo" and \
+    if method in ("ppo", "policy") and \
             getattr(noc, "n_alive_cores", noc.n_cores) != noc.n_cores:
         raise ValueError(
             f"method {method!r} does not support degraded topologies — its "
@@ -212,12 +207,12 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
                     "population_random_search",
                     "population_simulated_annealing")
     chip_seed = (_chip_seed(graph, noc)
-                 if method in init_methods + ("ppo",) else None)
+                 if method in init_methods + ("ppo", "policy") else None)
     if chip_seed is not None and method in init_methods:
         kw.setdefault("init", chip_seed)
-    # ppo has no init hook; a user-supplied ``init`` (e.g. a fast device-SA
-    # placement) joins the best-of candidate set like the chip seed
-    rl_init = kw.pop("init", None) if method == "ppo" else None
+    # RL methods have no init hook; a user-supplied ``init`` (e.g. a fast
+    # device-SA placement) joins the best-of candidate set like the chip seed
+    rl_init = (kw.pop("init", None) if method in ("ppo", "policy") else None)
     with maybe_span(recorder, f"place.{method}", seed=seed,
                     backend=bk) as sp:
         if method == "zigzag":
@@ -277,6 +272,18 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
                 objective=objective, recorder=recorder, device=dev, **kw)
         elif method == "greedy":
             placement = baselines.greedy(graph, noc)
+        elif method == "policy":
+            cfg = kw.pop("cfg", None)
+            if cfg is None:
+                cfg = PolicyConfig(iterations=budget or 40, seed=seed,
+                                   backend=bk, objective=ob, **kw)
+            else:
+                _reject_cfg_extras("policy", cfg, kw)
+                cfg = _override_cfg(cfg, backend, objective)
+            out = run_policy_baseline(graph, noc, cfg, recorder=recorder,
+                                      device=dev)
+            placement, history = out["best_placement"], out["history"]
+            ob = cfg.objective
         else:
             cfg = kw.pop("cfg", None)
             if cfg is None:
@@ -291,7 +298,7 @@ def optimize_placement(graph, noc, method: str = "ppo", seed: int = 0,
 
         obj = as_objective(ob)
         m = noc.evaluate(graph, placement)
-        if method == "ppo":
+        if method in ("ppo", "policy"):
             # best-of candidate set: the chip-respecting constructor and any
             # user-supplied seed placement compete with the RL result
             for cand in (chip_seed, rl_init):

@@ -11,7 +11,9 @@ ppo_epochs 10, clip 0.1–0.5, reward clip [-10, 10]. Defaults below mirror them
 
 Each iteration samples a rollout batch on the device, copies the actions to
 the host, discretizes them with the float64 host resolver (bit-exact against
-the sequential spiral), copies the placements back to the scorer, and runs
+the sequential spiral; ``cfg.device_discretize`` bins on the host and
+resolves collisions on the device instead, with the same placements),
+copies the placements back to the scorer, and runs
 all ``ppo_epochs`` epochs of the update as a loop on the device. The scorer
 follows ``cfg.backend``: ``"cuda"`` scores link-level objectives through the
 link-traffic kernel, and ``None`` (the default) means ``"cuda"`` on a CUDA
@@ -34,7 +36,8 @@ from ...obs import maybe_span
 from ...train.optim import AdamW, AdamWConfig
 from ..noc_batch import make_scorer
 from . import actor_critic as ac
-from .discretize_batch import actions_to_placement_batch
+from .discretize_batch import (actions_to_placement_batch,
+                               continuous_to_grid_batch, make_torch_resolver)
 
 
 @dataclasses.dataclass
@@ -55,7 +58,7 @@ class PPOConfig:
     # device: "cuda" on a CUDA device, "batch" (numpy float64) on the CPU
     backend: str | None = None
     objective: object = "comm_cost"   # repro_torch.deploy.objective spec
-    device_discretize: bool = False   # reference's device resolver: not ported
+    device_discretize: bool = False   # resolve collisions on the device
     init_params: tuple | None = None  # (actor, critic) reference param dicts
     eps: object = None          # [iterations, batch_size, n, 2] N(0,1) draws
 
@@ -122,10 +125,6 @@ def run_ppo(graph, noc, cfg: PPOConfig = PPOConfig(), baseline_cost=None,
     dispatch counters and one span per phase of each iteration
     (``ppo.sample``, ``ppo.discretize``, ``ppo.score``, ``ppo.update``); the
     trajectory is the same with or without it."""
-    if cfg.device_discretize:
-        raise NotImplementedError(
-            "device_discretize: the device resolver is not ported yet "
-            "(ROADMAP queue 1, item 3: torch resolver)")
     dev = resolve_device(device)
     lap = torch.as_tensor(graph.laplacian(), dtype=torch.float32, device=dev)
     feats = torch.as_tensor(graph.node_features(), dtype=torch.float32,
@@ -152,6 +151,8 @@ def run_ppo(graph, noc, cfg: PPOConfig = PPOConfig(), baseline_cost=None,
 
     score = make_scorer(noc, graph, resolve_backend(cfg.backend, dev),
                         cfg.objective, recorder=recorder, device=dev)
+    resolver = (make_torch_resolver(noc.rows, noc.cols, priority, device=dev)
+                if cfg.device_discretize else None)
     best_cost, best_placement = np.inf, None
     history = []
     for it in range(cfg.iterations):
@@ -166,9 +167,14 @@ def run_ppo(graph, noc, cfg: PPOConfig = PPOConfig(), baseline_cost=None,
                     mu, log_std, cfg.batch_size, generator=noise, eps=eps)
             acts_np = acts.cpu().numpy().astype(np.float64)
         with maybe_span(recorder, "ppo.discretize"):
-            # the host float64 resolver is the discretizer of record
-            placements = actions_to_placement_batch(
-                acts_np, noc.rows, noc.cols, cfg.action_clip, priority)
+            if resolver is not None:
+                cells = continuous_to_grid_batch(acts_np, noc.rows, noc.cols,
+                                                 cfg.action_clip)
+                placements = resolver(cells).cpu().numpy()
+            else:
+                # the host float64 resolver is the discretizer of record
+                placements = actions_to_placement_batch(
+                    acts_np, noc.rows, noc.cols, cfg.action_clip, priority)
         with maybe_span(recorder, "ppo.score"):
             costs = score(placements)    # whole rollout batch in one call
         b_min = int(costs.argmin())

@@ -166,10 +166,14 @@ def deploy_model(model, noc, partition_strategy: str = "auto",
                  **method_kw) -> DeploymentPlan:
     """Run the full deployment flow of ``model`` onto ``noc``.
 
-    This is the reference engine's body (``repro.deploy.engine._deploy``)
-    called directly: the reference's ``deploy_model`` first canonicalizes the
-    call into a ``DeployRequest``, and that request layer is not ported yet
-    (ROADMAP queue 1, item 5). Results are the same either way.
+    The call canonicalizes into a
+    :class:`repro_torch.deploy.request.DeployRequest` (the typed, hashable,
+    JSON-able request the placement service caches plans under) and executes
+    through :func:`execute_request`, with the original ``model`` / ``noc``
+    objects passed straight through. Inputs outside the canonical surface
+    (custom topology classes, migration objectives, callables in
+    ``method_kw``, search configs with injected draws) skip the request
+    layer and run the engine directly. Results are the same either way.
 
     ``model`` is an :class:`repro_torch.snn.SNNConfig` (profiled here) or a
     pre-built ``list[LayerProfile]``. ``noc`` is any topology (flat ``NoC``
@@ -199,6 +203,105 @@ def deploy_model(model, noc, partition_strategy: str = "auto",
     durations), the placement search emits per-iteration events, and scoring
     dispatch counts accumulate as counters.
     """
+    from .request import DeployRequest, RequestEncodeError
+    try:
+        request = DeployRequest.from_call(
+            model, noc, partition_strategy=partition_strategy, method=method,
+            objective=objective, schedule=schedule, n_units=n_units,
+            batch=batch, training=training, spike_density=spike_density,
+            core=core, seed=seed, budget=budget, backend=backend,
+            bwd_ratio=bwd_ratio, contention_feedback=contention_feedback,
+            copartition_iters=copartition_iters, method_kw=method_kw)
+    except RequestEncodeError:
+        return _deploy(
+            model, noc, partition_strategy=partition_strategy, method=method,
+            objective=objective, schedule=schedule, n_units=n_units,
+            batch=batch, training=training, spike_density=spike_density,
+            core=core, seed=seed, budget=budget, backend=backend,
+            bwd_ratio=bwd_ratio, contention_feedback=contention_feedback,
+            copartition_iters=copartition_iters, recorder=recorder,
+            device=device, **method_kw)
+    return execute_request(request, recorder=recorder, model=model, noc=noc,
+                           device=device)
+
+
+def execute_request(request, recorder=None, model=None, noc=None,
+                    device=None, **overrides) -> DeploymentPlan:
+    """Execute a :class:`repro_torch.deploy.request.DeployRequest` end to
+    end on ``device`` (``None``: the card; the device is an argument of
+    execution, not part of the request).
+
+    ``model`` / ``noc`` default to :meth:`DeployRequest.materialize_model` /
+    :meth:`DeployRequest.materialize_topology`; callers holding the live
+    objects (``deploy_model``, the in-process service) pass them through to
+    skip the rebuild. ``overrides`` are raw engine kwargs layered on top of
+    :meth:`DeployRequest.deploy_kwargs` (the service uses
+    ``_fixed_placement=`` to instantiate cached plans without searching).
+    """
+    kw = request.deploy_kwargs()
+    kw.update(overrides)
+    if model is None:
+        model = request.materialize_model()
+    if noc is None:
+        noc = request.materialize_topology()
+    return _deploy(model, noc, recorder=recorder, device=device, **kw)
+
+
+def instantiate_plan(request, placement, recorder=None, model=None,
+                     noc=None, device=None) -> DeploymentPlan:
+    """Rebuild a full :class:`DeploymentPlan` from a cached ``placement``.
+
+    Re-runs profile/partition/schedule but pins the placement (no search) —
+    this is how a serialized cache entry (or a server response) turns back
+    into a live plan for flow reports and replay. The placement must match
+    the request's round-0 partition; a plan whose search ran co-partition
+    rounds that changed the slicing cannot be re-instantiated this way and
+    raises ``ValueError``.
+    """
+    placement = np.asarray(placement, dtype=int)
+    return execute_request(request, recorder=recorder, model=model, noc=noc,
+                           device=device, _fixed_placement=placement)
+
+
+def _evaluate_placement(graph, noc, method, objective, placement, recorder):
+    """PlacementResult for a known placement — evaluate, don't search."""
+    from ..core.placement import PlacementResult
+    from ..obs import maybe_span
+
+    placement = np.asarray(placement, dtype=int)
+    if placement.shape != (graph.n,):
+        raise ValueError(
+            f"fixed placement has shape {placement.shape}, but the request "
+            f"partitions into {graph.n} slices — the cached plan does not "
+            "match this request's partition (was it produced with "
+            "copartition rounds?)")
+    obj = as_objective(objective)
+    with maybe_span(recorder, "place.fixed", method=method) as sp:
+        m = noc.evaluate(graph, placement)
+        cost = obj.from_metrics(m, noc, placement)
+    return PlacementResult(
+        method=method, placement=placement, comm_cost=m.comm_cost,
+        mean_hops=m.mean_hops, latency=m.latency, throughput=m.throughput,
+        max_link=m.max_link, wall_time_s=sp.duration_s, history=None,
+        objective=obj.name, objective_cost=cost)
+
+
+def _deploy(model, noc, partition_strategy: str = "auto",
+            method: str = "ppo", objective="comm_cost",
+            schedule: str = "fpdeep", n_units: int = 8,
+            batch: int = 8, training: bool = True,
+            spike_density: float = 0.15, core: CoreSpec = CoreSpec(),
+            seed: int = 0, budget: int | None = None,
+            backend: str | None = None, bwd_ratio: float = 2.0,
+            contention_feedback: bool = False,
+            copartition_iters: int = 0,
+            recorder=None, device=None, _fixed_placement=None,
+            **method_kw) -> DeploymentPlan:
+    """The deployment engine proper (see :func:`deploy_model`).
+
+    ``_fixed_placement`` short-circuits the place stage (and the co-partition
+    loop) with a pre-computed placement — :func:`instantiate_plan`'s path.
+    """
     # placement sits beside deploy in the layering (core.placement imports
     # deploy.objective at module scope) — resolve it at call time
     from ..core.placement import optimize_placement
@@ -224,14 +327,20 @@ def deploy_model(model, noc, partition_strategy: str = "auto",
         # actually scheduled, not the request
         n_units = max(n_units, part.n)
     with rec.span("deploy.place", method=method) as sp_place:
-        result = optimize_placement(graph, noc, method=method, seed=seed,
-                                    budget=budget, backend=backend,
-                                    objective=objective, recorder=recorder,
-                                    device=device, **method_kw)
+        if _fixed_placement is not None:
+            result = _evaluate_placement(graph, noc, method, objective,
+                                         _fixed_placement, recorder)
+        else:
+            result = optimize_placement(graph, noc, method=method, seed=seed,
+                                        budget=budget, backend=backend,
+                                        objective=objective,
+                                        recorder=recorder, device=device,
+                                        **method_kw)
 
     rounds_run = 0
     with rec.span("deploy.copartition", iters=copartition_iters) as sp_copart:
-        if copartition_iters > 0 and part.chip_of is not None \
+        if copartition_iters > 0 and _fixed_placement is None \
+                and part.chip_of is not None \
                 and getattr(noc, "n_chips", 1) > 1:
 
             def _placed_interchip(g, placement):

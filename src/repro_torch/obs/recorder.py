@@ -220,6 +220,26 @@ def maybe_span(recorder: Recorder | None, name: str, **attrs):
         sp.duration_s = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# Timing primitives
+# ---------------------------------------------------------------------------
+
+def bench_time(fn, repeats: int = 1) -> float:
+    """Seconds per call, measured with the monotonic high-resolution clock
+    (time.perf_counter — time.time is wall-clock and can step backwards)."""
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    return (time.perf_counter() - t0) / repeats
+
+
+def timed(fn, *args, **kw):
+    """(result, wall_time_us) of one call."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, (time.perf_counter() - t0) * 1e6
+
+
 def percentiles(samples, qs=(50, 99)) -> dict:
     """{min, max, mean, p50, p99, ...} over a sample list — the
     latency-percentile summary the benchmark suites and the future placement
@@ -236,3 +256,21 @@ def percentiles(samples, qs=(50, 99)) -> dict:
         hi = min(lo + 1, n - 1)
         out[f"p{q:g}"] = xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
     return out
+
+
+def bench_percentiles(fn, repeats: int = 20, warmup: int = 1,
+                      qs=(50, 99)) -> dict:
+    """Per-call latency percentiles over ``repeats`` timed calls.
+
+    Unlike :func:`bench_time` (one mean over a batch), this times every call
+    individually and summarizes the distribution — p50/p99 is what a serving
+    deployment is gated on, and tail latencies are exactly what a single mean
+    hides. Returns ``{n, min, max, mean, p50, p99}`` (seconds)."""
+    for _ in range(warmup):
+        fn()
+    samples = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    return {"n": repeats, **percentiles(samples, qs=qs)}

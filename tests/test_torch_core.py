@@ -173,5 +173,41 @@ def test_actions_to_placement_batch_exact(rows, cols, n, prio):
 
 
 def test_device_resolver_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_disc.make_jax_resolver(4, 4)
+    """The device resolver, under the reference's name, against the
+    reference's jitted resolver on the same cells."""
+    rng = np.random.default_rng(11)
+    cells = r_disc.continuous_to_grid_batch(rng.normal(size=(8, 16, 2)), 4, 4)
+    got = p_disc.make_jax_resolver(4, 4, device="cpu")(cells)
+    assert got.dtype == torch.int64
+    _same(np.asarray(r_disc.make_jax_resolver(4, 4)(cells)), got.numpy())
+
+
+@pytest.mark.parametrize("rows,cols,n,order", [
+    (4, 4, 16, None), (3, 5, 12, "full"), (3, 5, 12, "partial"),
+    (8, 8, 64, "full"), (2, 3, 6, "collide")])
+def test_device_resolver_exact(rows, cols, n, order):
+    """Exact against the numpy resolver and the reference's jitted one, as
+    tests/test_discretize_batch.py::test_jax_resolver_matches_numpy holds
+    it: full and partial priority orders (unvisited nodes stay -1), and every
+    node starting on one cell."""
+    rng = np.random.default_rng(rows * cols + n)
+    cells = r_disc.continuous_to_grid_batch(rng.normal(size=(8, n, 2)), rows,
+                                            cols)
+    prio = rng.permutation(n)
+    if order == "collide":
+        cells = np.zeros_like(cells)
+    p = {"full": prio, "partial": prio[: n // 2]}.get(order)
+    got = p_disc.make_torch_resolver(rows, cols, p, device="cpu")(cells)
+    want = r_disc.resolve_collisions_batch(cells, rows, cols, p)
+    _same(want, got.numpy())
+    _same(np.asarray(r_disc.make_jax_resolver(rows, cols, p)(cells)),
+          got.numpy())
+
+
+def test_device_resolver_rejects_duplicates_and_overflow():
+    for make in (r_disc.make_jax_resolver, p_disc.make_torch_resolver):
+        kw = {} if make is r_disc.make_jax_resolver else {"device": "cpu"}
+        with pytest.raises(ValueError, match="duplicate"):
+            make(4, 4, np.array([0, 1, 1]), **kw)
+        with pytest.raises(ValueError, match="do not fit"):
+            make(2, 2, **kw)(np.zeros((3, 5), dtype=np.int64))

@@ -17,9 +17,13 @@ torch = pytest.importorskip("torch")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 
+from repro.core import graph as r_graph  # noqa: E402
 from repro.core import topology as r_topology  # noqa: E402
+from repro.core.placement import optimize_placement as r_optimize  # noqa: E402
+from repro.core.placement import policy_baseline as r_policy  # noqa: E402
 from repro.core.placement import actor_critic as r_ac  # noqa: E402
 from repro.deploy import deploy_model as r_deploy  # noqa: E402
+from repro.models.specs import materialize as r_materialize  # noqa: E402
 from repro.snn import spike_vgg16 as r_vgg16  # noqa: E402
 
 from repro_torch.core import topology as p_topology  # noqa: E402
@@ -97,12 +101,44 @@ def test_constructor_plan_matches_reference(spec, method, extra):
                                   ref.placement.placement)
 
 
+def _policy_draws(seed, iterations, batch, n, n_cores, d_hidden):
+    """The reference policy baseline's initial weights and Gumbel draws,
+    replayed from its key sequence (``policy_baseline.run_policy_baseline``:
+    the seed key, one split an iteration, one key a sample, one split a
+    node)."""
+    key = jax.random.PRNGKey(seed)
+    params = r_materialize(key, r_policy.policy_specs(5, n_cores, d_hidden))
+
+    def one(kb):
+        def body(kb, _):
+            kb, k = jax.random.split(kb)
+            return kb, jax.random.gumbel(k, (n_cores,))
+        return jax.lax.scan(body, kb, None, length=n)[1]
+    gumbel = []
+    for _ in range(iterations):
+        key, k = jax.random.split(key)
+        gumbel.append(np.asarray(jax.vmap(one)(jax.random.split(k, batch))))
+    return {"init_params": _np_tree(params), "gumbel": np.stack(gumbel)}
+
+
 def test_unported_methods_and_kwargs_raise():
     topo = p_topology.parse_topology("mesh:3x3")
     from repro_torch.core import random_dag
     g = random_dag(6, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimize_placement(g, topo, method="policy", device="cpu")
+    # policy, once refused, matches the reference's optimize_placement under
+    # its own initial weights and Gumbel draws
+    ref = r_optimize(r_graph.LogicalGraph(g.adj, g.compute, g.memory),
+                     r_topology.parse_topology("mesh:3x3"), method="policy",
+                     budget=2, batch_size=4, d_hidden=8, seed=1,
+                     objective="max_link")
+    pol = optimize_placement(g, topo, method="policy", budget=2, batch_size=4,
+                             d_hidden=8, seed=1, objective="max_link",
+                             device="cpu",
+                             **_policy_draws(1, 2, 4, g.n, 9, 8))
+    np.testing.assert_array_equal(pol.placement, ref.placement)
+    assert pol.objective_cost == ref.objective_cost
+    assert [h["mean_cost"] for h in pol.history] == \
+        [h["mean_cost"] for h in ref.history]
     with pytest.raises(ValueError, match="backend='device' implements"):
         optimize_placement(g, topo, method="ppo", backend="device",
                            device="cpu")

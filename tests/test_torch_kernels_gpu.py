@@ -33,7 +33,10 @@ kernel ``sa_chains`` is bit-identical to the plain loop that launches
 ``delta_cost`` once a step: best slots, best costs and the whole
 trajectory. float16 and mixed inputs of the compute kernels run in float32
 and return the reference's dtype, against their plain versions at the
-tolerances above.
+tolerances above. The placement front end on the card: the policy baseline
+scores through the fused link-traffic kernel, the collision resolver is
+exact against numpy, and fused service searches equal serial ones bit for
+bit.
 """
 import subprocess
 import sys
@@ -893,6 +896,65 @@ def test_ppo_with_a_cfg_scores_on_the_card_by_default(cuda):
     assert link_traffic_routes.launches == before[0] + 2
     assert link_traffic.launches == before[1]
     assert len(res.history) == 2
+
+
+def test_policy_on_the_card_scores_through_the_route_kernel(cuda):
+    """The policy baseline on the card: a link-level objective launches the
+    fused link-traffic kernel once an iteration, its best cost is the host
+    evaluate's (float32 scoring, rtol 1e-5), and its placements are
+    injective."""
+    from repro_torch.core.graph import random_dag
+    from repro_torch.core.placement import optimize_placement
+    from repro_torch.deploy import as_objective
+    g, noc = random_dag(16, seed=0), NoC(4, 4)
+    g.adj[:] = np.round(g.adj)
+    before = link_traffic_routes.launches, link_traffic.launches
+    res = optimize_placement(g, noc, method="policy", objective="latency",
+                             budget=3, batch_size=32)
+    assert link_traffic_routes.launches == before[0] + 3
+    assert link_traffic.launches == before[1]
+    assert len(set(res.placement.tolist())) == g.n
+    host = as_objective("latency").from_metrics(
+        noc.evaluate(g, res.placement), noc)
+    np.testing.assert_allclose(res.history[-1]["best_cost"], host,
+                               rtol=1e-5)
+
+
+def test_device_resolver_on_the_card_is_exact(cuda):
+    """The collision resolver on the card against the numpy resolver at the
+    PPO path's shape (256 rollouts of 64 nodes on 8x8), with a full and a
+    partial priority order."""
+    from repro_torch.core.placement.discretize_batch import (
+        continuous_to_grid_batch, make_torch_resolver,
+        resolve_collisions_batch)
+    rng = np.random.default_rng(0)
+    cells = continuous_to_grid_batch(rng.normal(0, 0.6, (256, 64, 2)), 8, 8)
+    prio = rng.permutation(64)
+    for p in (None, prio, prio[:40]):
+        got = make_torch_resolver(8, 8, p)(cells)
+        assert got.is_cuda
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      resolve_collisions_batch(cells, 8, 8, p))
+
+
+@pytest.mark.parametrize("method", ["simulated_annealing", "random_search"])
+def test_fused_service_searches_match_serial_on_the_card(cuda, method):
+    """Cold requests fused into one batched float32 scorer call on the card
+    give every row its serial search's plan, bit for bit."""
+    from repro_torch.deploy import DeployRequest, PlacementService
+    from repro_torch.deploy import execute_request
+    from repro_torch.snn import spike_resnet18
+    for objective in ("comm_cost", "max_link"):
+        reqs = [DeployRequest.from_call(
+            spike_resnet18(n_classes=10, in_res=32, T=4), NoC(4, 4),
+            method=method, objective=objective, schedule="none", budget=300,
+            seed=s) for s in (1, 2, 3)]
+        resps = PlacementService().submit_batch(reqs)
+        assert all(r.fused and r.status == "miss" for r in resps)
+        for req, resp in zip(reqs, resps):
+            solo = execute_request(req)
+            assert resp.placement == solo.placement.placement.tolist()
+            assert resp.objective_cost == solo.placement.objective_cost
 
 
 # ---- flash attention and the token server --------------------------------------

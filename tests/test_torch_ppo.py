@@ -197,9 +197,32 @@ def test_run_ppo_own_generator_is_seeded():
     b = p_ppo.run_ppo(g, PNoC(3, 3), cfg, device="cpu")
     assert a.history == b.history
     np.testing.assert_array_equal(a.best_placement, b.best_placement)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_ppo.run_ppo(g, PNoC(3, 3), p_ppo.PPOConfig(device_discretize=True),
+    # the device resolver is an exact drop-in for the host one
+    # (tests/test_deploy.py::test_ppo_device_discretize_matches_host_path)
+    c = p_ppo.run_ppo(g, PNoC(3, 3),
+                      dataclasses.replace(cfg, device_discretize=True),
                       device="cpu")
+    assert c.history == a.history
+    np.testing.assert_array_equal(c.best_placement, a.best_placement)
+
+
+def test_run_ppo_device_discretize_matches_reference():
+    """``device_discretize=True`` on both sides under the reference's draws:
+    the same trajectory as the reference's jitted resolver path."""
+    g = r_graph.random_dag(10, seed=2)
+    rg = r_graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+    pg = p_graph.LogicalGraph(np.round(g.adj), g.compute, g.memory)
+    kw = dict(batch_size=8, ppo_epochs=2, iterations=3, d_gcn=D_GCN,
+              d_fc=D_FC, seed=1, device_discretize=True)
+    ref = r_ppo.run_ppo(rg, RNoC(4, 4), r_ppo.PPOConfig(**kw))
+    params, eps = _reference_draws(1, 3, 8, g.n)
+    port = p_ppo.run_ppo(pg, PNoC(4, 4),
+                         p_ppo.PPOConfig(**kw, init_params=params, eps=eps),
+                         device="cpu")
+    for h_r, h_p in zip(ref.history, port.history, strict=True):
+        for k in ("mean_cost", "min_cost", "best_cost"):
+            np.testing.assert_allclose(h_p[k], h_r[k], rtol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(port.best_placement, ref.best_placement)
 
 
 def test_ppo_backend_default_resolves_by_device(monkeypatch):
