@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --wrapper-times   # only the LIF wrappers' host cost
+    python3 chip_smoke.py --train-restart   # only phase 12d
 
 Phases, each of which fails the run loudly:
 
@@ -153,10 +154,37 @@ Phases, each of which fails the run loudly:
     a localhost server; ``python -m repro_torch.deploy --smoke`` and
     ``report --method sa --backend device`` as subprocesses on the card,
     the report's one device search counted from its trace's ``sa.device``
-    events and, in process, one ``sa_chains`` launch per search.
+    events and, in process, one ``sa_chains`` launch per search;
+12. LM training: (a) the flash backward kernel against its plain version
+    at the trained internlm2-1.8b layer (B2, H16, Hkv 8, S4096, D128, bf16,
+    causal), h2o-danube's (B1, H32, D80, S4608, window 4096), the smoke
+    configs' float32 shape with and without a window, odd S and D in both
+    dtypes and D=256 (float32 within 1e-4 of each gradient's largest
+    magnitude, bf16 within relative L2 2e-2), each run twice bit-identical;
+    the forward's lse against the plain version's (float32 1e-5, bf16
+    1e-4, of 1 + max |lse|) and its output bit-identical with and without
+    lse; the backward's times (eager and CUDA-graph device time) against
+    its bound, its plain version and the backward of
+    ``F.scaled_dot_product_attention`` (its device time from a graph of the
+    backward alone); (b) ``launch.train.main`` at
+    internlm2-1.8b's full width and depth, 6 steps of 2 x 4096 tokens:
+    each step's synchronised wall, tokens/s, loss and flash launches (48
+    forward, all on the tensor cores, and 24 backward calls a step under
+    ``remat="full"``), losses finite and falling, peak device memory, the
+    last step under torch.profiler (busy share, top kernels, the flash
+    backward's share); then 2 steps with ``--grad-compression int8_ef``;
+    (c) one step's loss and gradients at full width, depth cut to 2,
+    through the kernels and through their plain versions (every gradient
+    leaf within relative L2 5e-2); (d) the launcher at the smoke config,
+    6 steps straight against 3, a checkpoint and a relaunch to 6, under
+    deterministic algorithms: the step-6 checkpoints bit-identical (in a
+    child process, ``--train-restart``, which alone gets
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
 
 Every path starts with all launch counts set to 0 (the flash kernel's
-tensor-core count too) and reads them just after.
+tensor-core count too) and reads them just after. The ``kernels`` line
+lists ``flash_attention_backward`` (phase 12b's launches, phase 12a's
+times) beside the eight kernels of the earlier phases.
 
 ``--wrapper-times`` runs nothing but the host microseconds a call of the LIF
 wrappers at the 13 Spike-VGG16 state shapes (eager ms minus CUDA-graph
@@ -175,6 +203,7 @@ import io
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -898,7 +927,7 @@ def _time_link_traffic_routes(main, launches, err, ptxas, card):
         "ms": ms[0], "plain_ms": ms[1], "bound_ms": max(tb, to) * 1e3,
         "bound_by": "bytes" if tb >= to else "operations",
         "library_ms": ms[2], "device_ms": dev_ms[0],
-        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2], "library_device_ms": dev_ms[2],
         "library": "routes[idx] then torch.scatter_add (two launches)",
         "registers": regs[0] if regs else None,
         "threads_per_block": threads, "blocks_per_sm": blocks,
@@ -1682,16 +1711,18 @@ def _check_flash(dev):
 
 
 @contextlib.contextmanager
-def _attention_route(fn):
+def _attention_route(forward, backward=None):
     """Within the scope, the model's causal self-attention on the card runs
-    ``fn`` (the kernel or its plain version)."""
+    ``forward`` and, when given, ``backward`` (the kernels or their plain
+    versions)."""
     from repro_torch.models import layers
-    real = layers._flash_forward
-    layers._flash_forward = fn
+    real = layers._flash_forward, layers._flash_backward
+    layers._flash_forward = forward
+    layers._flash_backward = backward or real[1]
     try:
         yield
     finally:
-        layers._flash_forward = real
+        layers._flash_forward, layers._flash_backward = real
 
 
 def _rel_err(a, b) -> float:
@@ -1877,7 +1908,7 @@ def _time_flash(dev, card, launches, err):
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": ms[2], "device_ms": dev_ms[0],
-        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2], "library_device_ms": dev_ms[2],
         "calls": "one layer's attention of the internlm2-1.8b prefill "
                  "(B4, H16, Hkv8, S2048, D128, bf16, causal)",
     }
@@ -2405,6 +2436,443 @@ def _placement_front_end(vgg, noc, kernels, ppo_plan, ppo_phases):
     print(f"[front-end] phase 11 in {time.perf_counter() - t0!r} s")
 
 
+# ---- the LM training slice: the flash backward kernel, LM training ------------
+
+TRAIN = dict(arch="internlm2-1.8b", steps=6, batch=2, seq=4096)
+# the trained internlm2-1.8b layer's attention: [B, H, Hkv, S, D]
+TRAINED = (TRAIN["batch"], 16, 8, TRAIN["seq"], 128)
+# flash backward vs plain: float32 within 1e-4 of each gradient's largest
+# magnitude plus 1e-5 where a gradient cancels to rounding; bfloat16 within
+# relative L2 2e-2 (float32 arithmetic on bf16 inputs, one rounding each)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the forward's lse against the plain version's: float32 1e-5; the
+# tensor-core kernel keeps m in log2 units, so bf16 within 1e-4
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+
+
+def _bwd_case(dev, b, h, hkv, s, d, window, dtype, seed=0):
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=gen, device=dev) * 0.5
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev) * 0.5
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    dout = torch.randn(b, h, s, d, generator=gen, device=dev)
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    lse = torch.empty(b, h, s, device=dev)
+    out = flash_attention_kernel(q, k, v, window=window, lse=lse)
+    return q, k, v, out, dout, lse
+
+
+def _bwd_err(got, want, dtype) -> float:
+    """The backward's error against its plain version, the worst of dq, dk,
+    dv: in float32 the max abs error over the gradient's largest magnitude
+    (magnitudes below 0.1 count as 0.1, so a gradient that cancels to
+    rounding is held to 1e-5 absolute); in bfloat16 the relative L2
+    error."""
+    if dtype == "float32":
+        return max(((g - w).abs().max()
+                    / w.abs().max().clamp(min=0.1)).item()
+                   for g, w in zip(got, want))
+    return max(_rel_err(g, w) for g, w in zip(got, want))
+
+
+def _check_flash_backward(dev):
+    """Phase 12a: the flash backward kernel against its plain version over
+    the sweep, deterministic; the forward's lse against the plain
+    version's; the forward's output bit-identical with and without lse.
+    Returns the max error at the trained shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_kernel, flash_attention_plain)
+    f32, bf16 = torch.float32, torch.bfloat16
+    sweep = [("trained internlm2 layer",) + TRAINED + (None, bf16),
+             ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16),
+             ("smoke configs", 2, 4, 2, 128, 16, None, f32),
+             ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32),
+             ("odd S and D", 1, 4, 2, 77, 20, 5, f32),
+             ("odd S and D", 1, 4, 2, 77, 20, 5, bf16),
+             ("D=256", 1, 4, 2, 100, 256, 37, f32)]
+    trained_err = None
+    for name, b, h, hkv, s, d, window, dtype in sweep:
+        args = _bwd_case(dev, b, h, hkv, s, d, window, dtype)
+        got = flash_attention_backward_kernel(*args, window=window)
+        again = flash_attention_backward_kernel(*args, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_backward_plain(*args, window=window)
+        key = str(dtype).split(".")[1]
+        err = _bwd_err(got, want, key)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        ok = err <= BWD_TOL[key] and same and finite
+        print(f"[kernel] flash_attention_backward {name} B{b} H{h} Hkv{hkv} "
+              f"S{s} D{d} window {window} {dtype}: error {err!r} "
+              f"({'relative L2' if key == 'bfloat16' else 'max abs over max'}"
+              f", tolerance {BWD_TOL[key]}); a second run bit-identical: "
+              f"{same} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"flash_attention_backward disagrees with "
+                                 f"its plain version on {name}")
+        if trained_err is None:
+            trained_err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want))
+        del args, got, again, want
+    # lse, and the output with and without it
+    for name, b, h, hkv, s, d, window, dtype in [
+            ("smoke configs", 2, 4, 2, 128, 16, 24, f32),
+            ("odd S and D", 1, 4, 2, 77, 20, 5, f32),
+            ("served internlm2 prefill", SERVED["batch"], 16, 8,
+             SERVED["prompt_len"], 128, None, f32),
+            ("served internlm2 prefill", SERVED["batch"], 16, 8,
+             SERVED["prompt_len"], 128, None, bf16),
+            ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16)]:
+        q, k, v, out, _, lse = _bwd_case(dev, b, h, hkv, s, d, window, dtype)
+        plain = torch.empty_like(lse)
+        flash_attention_plain(q, k, v, window=window, lse=plain)
+        without = flash_attention_kernel(q, k, v, window=window)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[1]
+        err = (lse - plain).abs().max().item()
+        same = torch.equal(out, without)
+        ok = err <= LSE_TOL[key] * (1 + plain.abs().max().item()) and same
+        print(f"[kernel] flash_attention lse {name} B{b} H{h} Hkv{hkv} S{s} "
+              f"D{d} window {window} {dtype}: max abs error {err!r} "
+              f"(tolerance {LSE_TOL[key]} x (1 + max |lse| "
+              f"{plain.abs().max().item()!r})); output bit-identical without "
+              f"lse: {same} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"flash_attention lse disagrees on {name}")
+    return trained_err
+
+
+def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
+    """Device time of the backward of ``F.scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True)`` alone: its forward runs once on a side
+    stream, outside the graph; autograd runs each backward kernel on the
+    stream of its forward, so capturing on that stream records the backward
+    and nothing else. ``reps`` backward calls in one graph, replayed
+    ``replays`` times under CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        for _ in range(3):
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def _time_flash_backward(dev, card, launches, err):
+    """Phase 12a, ``flash_attention_backward`` row: one layer's attention
+    backward at the trained shape (B2, H16, Hkv 8, S4096, D128, bf16,
+    causal) through the kernel, its plain version and the backward of
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same tensors, timed alone."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        visible_pairs)
+    b, h, hkv, s, d = TRAINED
+    q, k, v, out, dout, lse = _bwd_case(dev, b, h, hkv, s, d, None,
+                                        torch.bfloat16, seed=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    fns = (lambda: flash_attention_backward_kernel(q, k, v, out, dout, lse),
+           lambda: flash_attention_backward_plain(q, k, v, out, dout, lse),
+           lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                       retain_graph=True))
+    lib_err = max(_rel_err(a, b_) for a, b_ in zip(fns[2](), fns[1]()))
+    ms = [_time_ms(fns[0], reps=10, warmup=2),
+          _time_ms(fns[1], reps=3, warmup=1),
+          _time_ms(fns[2], reps=10, warmup=2)]
+    # device time from graph replay; the library's backward is captured
+    # alone, on the stream its forward ran on (see _sdpa_backward_graph_ms)
+    dev_ms = [_graph_ms(fns[0], reps=5, replays=3),
+              _graph_ms(fns[1], reps=1, replays=2),
+              _sdpa_backward_graph_ms(q, k, v, dout, reps=5, replays=3)]
+    pairs = visible_pairs(s) * b * h
+    n_ops = 10 * d * pairs      # q.k, dout.v, p^T dout, ds k, ds^T q
+    n_bytes = (2 * (3 * q.numel() + 2 * out.numel() + 3 * k.numel())
+               + 4 * lse.numel())   # q, k, v, out, dout, lse; dq, dk, dv
+    t_ops, t_bytes = n_ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    row = {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/models/layers.py:168",
+        "launches": launches, "max_abs_err": err,
+        "ms": ms[0], "plain_ms": ms[1],
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": ms[2], "device_ms": dev_ms[0],
+        "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
+        "calls": "one layer's attention backward of internlm2-1.8b training "
+                 "(B2, H16, Hkv8, S4096, D128, bf16, causal): the delta "
+                 "pre-pass, dQ and dK/dV kernels",
+    }
+    row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
+    row["vs_library"] = dev_ms[0] / dev_ms[2]
+    print(f"[time] flash_attention_backward B{b} H{h} Hkv{hkv} S{s} D{d} bf16 "
+          f"causal: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
+          f"{ms[2]!r} ms (per call); device (graph) kernel {dev_ms[0]!r}, "
+          f"plain {dev_ms[1]!r}, SDPA backward {dev_ms[2]!r} ms; kernel "
+          f"device time {row['vs_library']!r}x SDPA backward's; bound "
+          f"{row['bound_ms']!r} ms ({n_ops} flops over {pairs} visible pairs "
+          f"at {BF16_OPS_PER_S:.3g} flop/s; {n_bytes} bytes); kernel "
+          f"{row['achieved_tflops']!r} TFLOP/s; SDPA vs plain relative L2 "
+          f"{lib_err!r}; card {card}")
+    return row
+
+
+@contextlib.contextmanager
+def _recorded_train_steps(rec, profile_at=None):
+    """Within the scope, every step ``launch.train.main`` takes is
+    synchronised and recorded in ``rec``: wall, loss, ce, and the flash
+    forward / backward launches it made; step ``profile_at`` runs under
+    torch.profiler (its wall is recorded apart)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_kernel)
+    from repro_torch.launch import train
+    real = train.make_train_step
+
+    def make(loss_fn, tcfg):
+        step = real(loss_fn, tcfg)
+
+        def recorded(*args):
+            torch.cuda.synchronize()
+            before = (flash_attention_kernel.launches,
+                      flash_attention_backward_kernel.launches)
+            t0 = time.perf_counter()
+            if len(rec) == profile_at:
+                box = []
+                prof = _profile_step(lambda: box.append(step(*args)),
+                                     "train-lm", "flash_bwd")
+                out = box[0]
+            else:
+                out, prof = step(*args), None
+            torch.cuda.synchronize()
+            rec.append({
+                "wall": time.perf_counter() - t0, "profiled": prof,
+                "loss": float(out[2]["loss"]), "ce": float(out[2]["ce"]),
+                "fwd": flash_attention_kernel.launches - before[0],
+                "bwd": flash_attention_backward_kernel.launches - before[1]})
+            return out
+        return recorded
+
+    train.make_train_step = make
+    try:
+        yield rec
+    finally:
+        train.make_train_step = real
+
+
+def _train_lm_path(dev, kernels):
+    """Phase 12b: ``python -m repro_torch.launch.train`` at internlm2-1.8b's
+    full width and depth, 6 steps of 2 x 4096 tokens (the last profiled),
+    then 2 steps with int8 error-feedback gradient compression. Returns the
+    flash backward launches of the main run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.models.specs import n_params
+    cfg = get_config(TRAIN["arch"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"])]
+    print(f"[train-lm] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat "
+          f"{cfg.remat}, logit_chunk {cfg.logit_chunk}; "
+          f"{n_params(lm.lm_specs(cfg))} parameters; main({argv})")
+    rec = []
+    _reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _recorded_train_steps(rec, profile_at=TRAIN["steps"] - 1):
+        params = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _counts(kernels)
+    del params
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rec]
+    steady = [r["wall"] for r in rec[1:-1]]
+    for i, r in enumerate(rec):
+        print(f"[train-lm] step {i}: loss {r['loss']!r}, ce {r['ce']!r}, "
+              f"wall {r['wall']!r} s (synchronised"
+              f"{', under the profiler' if r['profiled'] else ''}), "
+              f"{tokens / r['wall']!r} tokens/s; flash forward launches "
+              f"{r['fwd']}, backward {r['bwd']}")
+    mean = statistics.fmean(steady)
+    print(f"[train-lm] main() wall {wall!r} s (weights drawn, first step's "
+          f"warm-up included); steps 1-{len(rec) - 2}: mean step wall "
+          f"{mean!r} s, {tokens / mean!r} tokens/s, median "
+          f"{statistics.median(steady)!r} s; peak device memory {peak} "
+          f"bytes; launches {launches}")
+    want_fwd, want_bwd = 2 * cfg.n_layers, cfg.n_layers   # remat="full"
+    if (len(rec) != TRAIN["steps"]
+            or any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec)
+            or launches["flash_attention_kernel.tensor_core"]
+            != want_fwd * TRAIN["steps"]):
+        raise AssertionError(f"train-lm: flash launches a step "
+                             f"{[(r['fwd'], r['bwd']) for r in rec]}, not "
+                             f"{want_fwd} forward (all on the tensor cores) "
+                             f"and {want_bwd} backward")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train-lm: losses {losses} not finite or not "
+                             "falling")
+    print(f"[train-lm] losses finite, step {len(losses) - 1} below step 0; "
+          f"{want_fwd} forward flash launches (all on the tensor cores) and "
+          f"{want_bwd} backward calls a step ok")
+
+    rec_ef = []
+    torch.cuda.reset_peak_memory_stats()
+    with _recorded_train_steps(rec_ef):
+        params = train.main(argv[:2] + ["--steps", "2"] + argv[4:]
+                            + ["--grad-compression", "int8_ef"])
+    peak_ef = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    ef = [r["loss"] for r in rec_ef]
+    print(f"[train-lm] --grad-compression int8_ef, 2 steps: losses {ef}, "
+          f"walls {[r['wall'] for r in rec_ef]} s; peak device memory "
+          f"{peak_ef} bytes")
+    if len(ef) != 2 or not all(math.isfinite(v) for v in ef):
+        raise AssertionError(f"train-lm int8_ef: losses {ef}")
+    return launches["flash_attention_backward_kernel"]
+
+
+def _train_kernel_vs_plain(dev):
+    """Phase 12c: one step's loss and gradients of internlm2-1.8b at full
+    width, depth cut 24 -> 2, bf16, 2 x 4096 tokens: the kernel route
+    against the plain Function (the plain forward and backward swapped in).
+    Every gradient leaf within relative L2 ``LOGITS_REL_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_plain)
+    from repro_torch.models import lm
+    from repro_torch.models.lm import Segment
+    from repro_torch.models.specs import materialize, tree_leaves
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              segments=(Segment("attn", "dense", 2),))
+    params = materialize(lm.lm_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    toks, labels = batch_for_step(DataConfig(vocab=cfg.vocab,
+                                             batch=TRAIN["batch"],
+                                             seq_len=TRAIN["seq"]), 0)
+    toks = torch.as_tensor(toks, device=dev).long()
+    labels = torch.as_tensor(labels, device=dev).long()
+
+    def grads():
+        loss, _ = lm.lm_loss(params, cfg, toks, labels)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    kernel = grads()
+    with _attention_route(flash_attention_plain,
+                          flash_attention_backward_plain):
+        plain = grads()
+    torch.cuda.synchronize()
+    errs = {"/".join(p): _rel_err(a, b)
+            for (p, _), a, b in zip(tree_leaves(params), kernel[1], plain[1])}
+    worst = max(errs, key=errs.get)
+    print(f"[train-lm-route] {cfg.name} depth 2, one step at "
+          f"{TRAIN['batch']} x {TRAIN['seq']}: loss kernel route "
+          f"{kernel[0].item()!r}, plain route {plain[0].item()!r}; gradient "
+          f"relative L2 error: worst {worst} {errs[worst]!r}, all {errs} "
+          f"(tolerance {LOGITS_REL_TOL})")
+    if not (errs[worst] <= LOGITS_REL_TOL
+            and abs(kernel[0].item() - plain[0].item())
+            <= LOGITS_REL_TOL * abs(plain[0].item())):
+        raise AssertionError("train-lm-route: the kernel route's gradients "
+                             "disagree with the plain route's")
+    del params, leaves, kernel, plain
+    torch.cuda.empty_cache()
+
+
+def _train_restart(dev):
+    """Phase 12d (``--train-restart``, in a child process): the launcher at
+    internlm2's smoke config on the card, 6 steps straight against 3 steps,
+    a checkpoint and a relaunch to 6, under
+    ``torch.use_deterministic_algorithms(True)``: the step-6 checkpoints'
+    parameters and moments bit-identical."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    argv = ["--arch", TRAIN["arch"], "--smoke", "--batch", "2", "--seq",
+            "128", "--ckpt-every", "3"]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as straight, \
+                tempfile.TemporaryDirectory() as split:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                train.main(argv + ["--steps", "6", "--ckpt-dir", straight])
+                train.main(argv + ["--steps", "3", "--ckpt-dir", split])
+                train.main(argv + ["--steps", "6", "--ckpt-dir", split])
+            log = out.getvalue()
+            with np.load(f"{straight}/step_6/arrays.npz") as a, \
+                    np.load(f"{split}/step_6/arrays.npz") as b:
+                keys = sorted(a.files)
+                differ = [k for k in keys if k not in b.files
+                          or a[k].tobytes() != b[k].tobytes()]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    restored = "restored checkpoint at step 3" in log
+    print(f"[train-restart] {TRAIN['arch']} smoke on the card: 6 steps "
+          f"straight vs 3 + relaunch to 6 (deterministic algorithms): "
+          f"relaunch restored at step 3: {restored}; {len(keys)} leaves of "
+          f"the step-6 checkpoint (params and opt), differing: {differ}")
+    if not restored or differ or not keys:
+        raise AssertionError("train-restart: the relaunched run is not "
+                             "bit-identical to the straight one")
+
+
+def _train_restart_in_child():
+    """Phase 12d in a child process: cuBLAS reads its workspace setting once,
+    at its first call, and deterministic algorithms need ``:4096:8``; the
+    child gets it, so the earlier phases run under the default setting."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                          "--train-restart"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    print(out.stdout, end="")
+    if out.returncode != 0:
+        raise AssertionError(f"train-restart: the child exited "
+                             f"{out.returncode}:\n{out.stderr[-3000:]}")
+    print(f"[train-restart] child process: exit 0 in "
+          f"{time.perf_counter() - t0!r} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2415,6 +2883,9 @@ def main() -> int:
         card = _card_line()
         print(card)
         _wrapper_host_times(torch.device("cuda"), card)
+        return 0
+    if sys.argv[1:] == ["--train-restart"]:
+        _train_restart(torch.device("cuda"))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -2451,7 +2922,8 @@ def main() -> int:
     kernels = (link_traffic, link_traffic_routes, delta_cost,
                delta_mod.sa_chains, lif_mod.lif_step_kernel,
                lif_mod.lif_backward_kernel, mm_mod.spike_matmul_kernel,
-               fa_mod.flash_attention_kernel)
+               fa_mod.flash_attention_kernel,
+               fa_mod.flash_attention_backward_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2730,6 +3202,17 @@ def main() -> int:
 
     # ---- phase 11: the placement front end on the card --------------------------
     _placement_front_end(vgg, noc, kernels, plan, phases)
+
+    # ---- phase 12: LM training at full width ------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    flash_bwd_err = _check_flash_backward(dev)
+    bwd_launches = _train_lm_path(dev, kernels)
+    rows.append(_time_flash_backward(dev, card, bwd_launches, flash_bwd_err))
+    torch.cuda.reset_peak_memory_stats()
+    _train_kernel_vs_plain(dev)
+    _train_restart_in_child()
+    print(f"[train-lm] phase 12 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,9 +82,16 @@ constexpr int kPStride = kBK + 4;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
 }
 
 struct Strides {
@@ -125,9 +132,10 @@ __device__ __forceinline__ void load_transposed(float* dst, const T* x,
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, Strides qs,
-                 Strides ks, Strides vs, Strides os, int H, int rep, int S,
-                 int D, float scale, int causal, int window) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int H, int rep, int S, int D, float scale,
+                 int causal, int window) {
   constexpr int kCols = DMAX / 64;           // float4 column groups / thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -277,6 +285,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
+    // every thread of the row holds the full m and l
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -290,9 +302,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Strides& qs, const Strides& ks, const Strides& vs,
-                   const Strides& os, int B, int H, int Hkv, int S, int D,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float* lse, const Strides& qs, const Strides& ks,
+                   const Strides& vs, const Strides& os, int B, int H,
+                   int Hkv, int S, int D, float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr int bytes = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
   auto kern = flash_fwd_kernel<T, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -301,25 +314,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, H,
-      H / Hkv, S, D, scale, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, qs, ks, vs, os,
+      H, H / Hkv, S, D, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     const Strides& qs, const Strides& ks, const Strides& vs,
-                     const Strides& os, int B, int H, int Hkv, int S, int D,
-                     float scale, int causal, int window,
-                     cudaStream_t stream) {
+                     float* lse, const Strides& qs, const Strides& ks,
+                     const Strides& vs, const Strides& os, int B, int H,
+                     int Hkv, int S, int D, float scale, int causal,
+                     int window, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D,
+    return launch<T, 64>(q, k, v, out, lse, qs, ks, vs, os, B, H, Hkv, S, D,
                          scale, causal, window, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D,
-                          scale, causal, window, stream);
-  return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D, scale,
-                        causal, window, stream);
+    return launch<T, 128>(q, k, v, out, lse, qs, ks, vs, os, B, H, Hkv, S,
+                          D, scale, causal, window, stream);
+  return launch<T, 256>(q, k, v, out, lse, qs, ks, vs, os, B, H, Hkv, S, D,
+                        scale, causal, window, stream);
 }
 
 // ---- bfloat16: the tensor-core route ---------------------------------------
@@ -376,7 +389,8 @@ __global__ void __launch_bounds__(MmaTile<DP>::NT)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, Strides qs, Strides ks,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, Strides qs, Strides ks,
                      Strides vs, Strides os, int rep, int S, int D,
                      float scale_log2, int causal, int window, int vec) {
   using Tile = MmaTile<DP>;
@@ -579,6 +593,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       inv[r] = 1.f / fmaxf(sum, 1e-30f);
+      // m is in log2 units: the natural-log lse is m ln 2 + log l
+      const int row = w0 + 16 * mt + lane / 4 + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && row < S)
+        lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+            m[mt][r] * 0.6931471805599453f + logf(fmaxf(sum, 1e-30f));
     }
     if (vec) {
 #pragma unroll
@@ -617,7 +636,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, const Strides& qs, const Strides& ks,
+                       void* out, float* lse, const Strides& qs,
+                       const Strides& ks,
                        const Strides& vs, const Strides& os, int B, int H,
                        int Hkv, int S, int D, float scale, int causal,
                        int window, int vec, cudaStream_t stream) {
@@ -635,8 +655,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      qs, ks, vs, os, H / Hkv, S, D, scale * 1.4426950408889634f, causal,
-      window, vec);
+      lse, qs, ks, vs, os, H / Hkv, S, D, scale * 1.4426950408889634f,
+      causal, window, vec);
   return cudaGetLastError();
 }
 
@@ -649,7 +669,8 @@ bool strides8(const Strides& s) {
 }
 
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
-                         void* out, const Strides& qs, const Strides& ks,
+                         void* out, float* lse, const Strides& qs,
+                         const Strides& ks,
                          const Strides& vs, const Strides& os, int B, int H,
                          int Hkv, int S, int D, float scale, int causal,
                          int window, cudaStream_t stream) {
@@ -658,8 +679,8 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                   strides8(os);
 #define REPRO_FA_CASE(DP)                                                    \
   case DP / 32:                                                              \
-    return launch_mma<DP>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D,     \
-                          scale, causal, window, vec, stream);
+    return launch_mma<DP>(q, k, v, out, lse, qs, ks, vs, os, B, H, Hkv, S,  \
+                          D, scale, causal, window, vec, stream);
   switch ((D + 31) / 32) {
     REPRO_FA_CASE(32)
     REPRO_FA_CASE(64)
@@ -675,6 +696,866 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 #undef REPRO_FA_CASE
 }
 
+// ---- backward ----------------------------------------------------------------
+//
+// The backward computes the reference's `_flash_bwd`, the custom VJP of
+// `_flash` in repro/models/layers.py (pure JAX there, no Pallas), from the
+// forward's saved (q, k, v, out) and lse:
+//
+//   delta_i = sum_d dout[i, d] out[i, d]
+//   p_ij = exp(scale q_i.k_j - lse_i)      (0 where the forward masks)
+//   dv_j = sum_i p_ij dout_i      ds_ij = p_ij (dout_i.v_j - delta_i) scale
+//   dq_i = sum_j ds_ij k_j        dk_j = sum_i ds_ij q_i
+//
+// with dk and dv summed over the H / Hkv query heads of each kv head (the
+// VJP of the reference's repeated heads). Bound: operations. A visible
+// pair needs 10 D flops (q.k, dout.v, and the three products); at the
+// trained internlm2-1.8b layer (B2, H16, S4096, D128, causal) that is
+// 3.4e11 flops against 0.2 GB of inputs and gradients.
+//
+// Three launches, each deterministic (no float atomics): the delta
+// pre-pass (a warp a row); dQ, a block per (b, h, q tile) walking its
+// visible kv tiles; dK/dV, a block per (b, kv head, kv tile) walking the q
+// tiles of all its query heads that can see it, heads then tiles in
+// order, with dK and dV in registers, so the GQA sum happens in a fixed
+// order inside the block. Each recomputes the scores and dP it needs (14 D
+// flops a pair in all, FA-2's price for no atomics). Masks, windows and
+// invisible tiles are the forward's. Two routes by dtype, as the forward:
+//
+// * bfloat16 up to D 128 -> flash_bwd_dq_mma_kernel and
+//   flash_bwd_dkdv_mma_kernel on the tensor cores (the forward's
+//   ldmatrix / mma.sync fragments; 4 warps of 16 rows; S, dP, P and dS in
+//   float32 registers, P and dS rounded to bf16 as the A operand of the
+//   next product, as the forward rounds P; tiles loaded by cp.async, one
+//   stage). Past D 128 a warp's two 16 x D accumulators would not fit its
+//   registers, and bf16 runs the CUDA-core kernels on bf16 loads.
+// * float32 -> flash_bwd_dq_kernel and flash_bwd_dkdv_kernel on CUDA cores
+//   (the forward's float32 design: 256 threads, an R x R patch of the score
+//   tile each, K^T / V^T staged transposed and overwritten by dS, K rows),
+//   float32 throughout, within 1e-4 of the plain version.
+// Later work: a second cp.async stage, wgmma and TMA.
+
+// Tiles of the CUDA-core backward kernels: BM q rows and BM kv rows a tile, 256
+// threads as a 16 x 16 grid, each owning an R x R patch of the BM x BM
+// score tile and R rows x DMAX / 16 columns of an accumulator.
+template <int DMAX>
+struct BwdTile {
+  static constexpr int BM = DMAX <= 128 ? 64 : 32;
+  static constexpr int R = BM / 16;
+  static constexpr int NT = 256;
+  static constexpr int PS = BM + 4;          // row stride of P and dS
+  static constexpr int COLS = DMAX / 64;     // float4 column groups a thread
+  static constexpr int TILE = DMAX * BM;     // floats of a BM x DMAX tile
+  static constexpr int PT = BM * PS;         // floats of a BM x BM tile
+  // dQ: Q^T, dO^T, K^T (then dS), V^T (then K)
+  static constexpr int DQ_FLOATS = 3 * TILE + (TILE > PT ? TILE : PT);
+  // dK/dV: K^T, V^T, Q^T (then Q), dO^T (then dO), P^T, dS^T
+  static constexpr int DKV_FLOATS = 4 * TILE + 2 * PT;
+};
+
+// R consecutive floats of shared memory (16- or 8-byte aligned).
+template <int R>
+__device__ __forceinline__ void lds(float (&r)[R], const float* p) {
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x; r[1] = v.y;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void sts(float* p, const float (&r)[R]) {
+  if constexpr (R == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+}
+
+// Rows [row0, row0 + BM) of x (clipped to S) into dst[d][r], transposed;
+// zeros past S and past D.
+template <typename T, int DMAX>
+__device__ __forceinline__ void bwd_load_t(float* dst, const T* x,
+                                           long long s_stride, int row0,
+                                           int S, int D) {
+  using Tl = BwdTile<DMAX>;
+  for (int idx = threadIdx.x; idx < Tl::BM * (DMAX / 4); idx += Tl::NT) {
+    const int r = idx % Tl::BM, d4 = (idx / Tl::BM) * 4;
+    const int row = row0 + r;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row < S) {
+      const T* p = x + row * s_stride;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (d4 + u < D) v[u] = to_f32(p[d4 + u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dst[(d4 + u) * Tl::BM + r] = v[u];
+  }
+}
+
+// The same rows into dst[r][d], row-major.
+template <typename T, int DMAX>
+__device__ __forceinline__ void bwd_load_rows(float* dst, const T* x,
+                                              long long s_stride, int row0,
+                                              int S, int D) {
+  using Tl = BwdTile<DMAX>;
+  for (int idx = threadIdx.x; idx < Tl::BM * DMAX; idx += Tl::NT) {
+    const int r = idx / DMAX, d = idx % DMAX;
+    const int row = row0 + r;
+    dst[idx] = (row < S && d < D) ? to_f32(x[row * s_stride + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
+                                        int window) {
+  bool keep = qpos < S && kpos < S;
+  if (causal) keep = keep && kpos <= qpos;
+  if (window > 0) keep = keep && kpos > qpos - window;
+  return keep;
+}
+
+// delta[b, h, i] = sum_d dout[b, h, i, d] out[b, h, i, d]: one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, Strides os, Strides dos,
+                       int H, int S, int D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + warp, h = blockIdx.y, b = blockIdx.z;
+  if (row >= S) return;
+  const T* o = out + b * os.b + h * os.h + row * os.s;
+  const T* g = dout + b * dos.b + h * dos.h + row * dos.s;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(o[d]), to_f32(g[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[(static_cast<long long>(b) * H + h) * S + row] = acc;
+}
+
+// dQ of one (b, h, BM-row q tile) over its visible kv tiles:
+//   p = exp(scale q.k - lse), ds = p (dout.v - delta) scale, dq += ds k.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    Strides qs, Strides ks, Strides vs, Strides dos,
+                    Strides dqs, int H, int rep, int S, int D, float scale,
+                    int causal, int window) {
+  using Tl = BwdTile<DMAX>;
+  constexpr int BM = Tl::BM, R = Tl::R, PS = Tl::PS, COLS = Tl::COLS;
+  extern __shared__ float4 bwd_smem[];
+  float* Qt = reinterpret_cast<float*>(bwd_smem);  // [DMAX][BM]
+  float* dOt = Qt + Tl::TILE;                       // [DMAX][BM]
+  float* Vt = dOt + Tl::TILE;                       // [DMAX][BM], then K
+  float* Kt = Vt + Tl::TILE;                        // [DMAX][BM], then dS
+  float* Kr = Vt;                                   // [BM][DMAX]
+  float* dS = Kt;                                   // [BM][PS]
+
+  const int n_q = (S + BM - 1) / BM;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x);  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
+  const int q0 = qt * BM;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* dob = dout + b * dos.b + h * dos.h;
+  const T* kb = k + b * ks.b + g * ks.h;
+  const T* vb = v + b * vs.b + g * vs.h;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+
+  const int q_last = min(q0 + BM, S) - 1;
+  int t_lo = 0;
+  const int t_hi = causal ? q_last / BM + 1 : n_q;
+  if (window > 0) {
+    const int lo = q0 - window - BM + 2;
+    t_lo = lo <= 0 ? 0 : (lo + BM - 1) / BM;
+  }
+
+  bwd_load_t<T, DMAX>(Qt, qb, qs.s, q0, S, D);
+  bwd_load_t<T, DMAX>(dOt, dob, dos.s, q0, S, D);
+  float lse_r[R], dl_r[R], acc[R][COLS][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
+    lse_r[i] = row < S ? lse[rows + row] : 0.f;
+    dl_r[i] = row < S ? delta[rows + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][c][u] = 0.f;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BM;
+    bwd_load_t<T, DMAX>(Kt, kb, ks.s, k0, S, D);
+    bwd_load_t<T, DMAX>(Vt, vb, vs.s, k0, S, D);
+    __syncthreads();
+    float s[R][R], dp[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[R], c[R], e[R], f[R];
+      lds<R>(a, Qt + d * BM + ty * R);
+      lds<R>(c, Kt + d * BM + tx * R);
+      lds<R>(e, dOt + d * BM + ty * R);
+      lds<R>(f, Vt + d * BM + tx * R);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          s[i][j] = fmaf(a[i], c[j], s[i][j]);
+          dp[i][j] = fmaf(e[i], f[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool keep = visible(q0 + ty * R + i, k0 + tx * R + j, S, causal,
+                                  window);
+        const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        s[i][j] = p * (dp[i][j] - dl_r[i]) * scale;     // ds
+      }
+    __syncthreads();                         // every thread is done with K^T, V^T
+#pragma unroll
+    for (int i = 0; i < R; ++i) sts<R>(dS + (ty * R + i) * PS + tx * R, s[i]);
+    bwd_load_rows<T, DMAX>(Kr, kb, ks.s, k0, S, D);
+    __syncthreads();
+#pragma unroll 2
+    for (int c0 = 0; c0 < BM; c0 += R) {
+      float w[R][R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) lds<R>(w[i], dS + (ty * R + i) * PS + c0);
+#pragma unroll
+      for (int cc = 0; cc < R; ++cc)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              Kr + (c0 + cc) * DMAX + (tx + 16 * c) * 4);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            acc[i][c][0] = fmaf(w[i][cc], kk.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(w[i][cc], kk.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(w[i][cc], kk.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(w[i][cc], kk.w, acc[i][c][3]);
+          }
+        }
+    }
+    __syncthreads();                         // before the next tile's loads
+  }
+
+  T* gb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int d = (tx + 16 * c) * 4 + u;
+        if (d < D) gb[row * dqs.s + d] = from_f32<T>(acc[i][c][u]);
+      }
+  }
+}
+
+// dK and dV of one (b, kv head g, BM-row kv tile): every q tile of every
+// query head of g that can see the tile, heads then q tiles in order, with
+// dK and dV in registers (the GQA sum in a fixed order, no atomics):
+//   dv += p^T dout, dk += ds^T q.
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, Strides qs, Strides ks, Strides vs,
+                      Strides dos, Strides dks, Strides dvs, int H, int rep,
+                      int S, int D, float scale, int causal, int window) {
+  using Tl = BwdTile<DMAX>;
+  constexpr int BM = Tl::BM, R = Tl::R, PS = Tl::PS, COLS = Tl::COLS;
+  extern __shared__ float4 bwd_smem[];
+  float* Kt = reinterpret_cast<float*>(bwd_smem);   // [DMAX][BM]
+  float* Vt = Kt + Tl::TILE;                         // [DMAX][BM]
+  float* X1 = Vt + Tl::TILE;                         // Q^T, then Q [BM][DMAX]
+  float* X2 = X1 + Tl::TILE;                         // dO^T, then dO
+  float* Pt = X2 + Tl::TILE;                         // [BM kv][PS]
+  float* dSt = Pt + Tl::PT;                          // [BM kv][PS]
+
+  const int n_t = (S + BM - 1) / BM;
+  const int kt = blockIdx.x;             // tile 0 is the heaviest when causal
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * BM;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* kb = k + b * ks.b + g * ks.h;
+  const T* vb = v + b * vs.b + g * vs.h;
+
+  // q tiles that can see this kv tile
+  const int qt_lo = causal ? kt : 0;
+  int qt_hi = n_t;
+  if (window > 0) qt_hi = min(n_t, (k0 + BM + window - 2) / BM + 1);
+
+  bwd_load_t<T, DMAX>(Kt, kb, ks.s, k0, S, D);
+  bwd_load_t<T, DMAX>(Vt, vb, vs.s, k0, S, D);
+  float adk[R][COLS][4], adv[R][COLS][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) adk[i][c][u] = adv[i][c][u] = 0.f;
+
+  for (int h = g * rep; h < (g + 1) * rep; ++h) {
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* dob = dout + b * dos.b + h * dos.h;
+    const long long rows = (static_cast<long long>(b) * H + h) * S;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * BM;
+      bwd_load_t<T, DMAX>(X1, qb, qs.s, q0, S, D);
+      bwd_load_t<T, DMAX>(X2, dob, dos.s, q0, S, D);
+      float lse_c[R], dl_c[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int col = q0 + tx * R + j;
+        lse_c[j] = col < S ? lse[rows + col] : 0.f;
+        dl_c[j] = col < S ? delta[rows + col] : 0.f;
+      }
+      __syncthreads();
+      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+      float st[R][R], dpt[R][R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float a[R], c[R], e[R], f[R];
+        lds<R>(a, Kt + d * BM + ty * R);
+        lds<R>(c, X1 + d * BM + tx * R);
+        lds<R>(e, Vt + d * BM + ty * R);
+        lds<R>(f, X2 + d * BM + tx * R);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            st[i][j] = fmaf(a[i], c[j], st[i][j]);
+            dpt[i][j] = fmaf(e[i], f[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const bool keep = visible(q0 + tx * R + j, k0 + ty * R + i, S,
+                                    causal, window);
+          const float p = keep ? expf(st[i][j] * scale - lse_c[j]) : 0.f;
+          st[i][j] = p;
+          dpt[i][j] = p * (dpt[i][j] - dl_c[j]) * scale;   // ds^T
+        }
+      __syncthreads();                       // done with Q^T, dO^T
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        sts<R>(Pt + (ty * R + i) * PS + tx * R, st[i]);
+        sts<R>(dSt + (ty * R + i) * PS + tx * R, dpt[i]);
+      }
+      bwd_load_rows<T, DMAX>(X1, qb, qs.s, q0, S, D);
+      bwd_load_rows<T, DMAX>(X2, dob, dos.s, q0, S, D);
+      __syncthreads();
+#pragma unroll 2
+      for (int c0 = 0; c0 < BM; c0 += R) {
+        float pw[R][R], sw[R][R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          lds<R>(pw[i], Pt + (ty * R + i) * PS + c0);
+          lds<R>(sw[i], dSt + (ty * R + i) * PS + c0);
+        }
+#pragma unroll
+        for (int cc = 0; cc < R; ++cc)
+#pragma unroll
+          for (int c = 0; c < COLS; ++c) {
+            const int col = (tx + 16 * c) * 4;
+            const float4 oo = *reinterpret_cast<const float4*>(
+                X2 + (c0 + cc) * DMAX + col);
+            const float4 qq = *reinterpret_cast<const float4*>(
+                X1 + (c0 + cc) * DMAX + col);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              adv[i][c][0] = fmaf(pw[i][cc], oo.x, adv[i][c][0]);
+              adv[i][c][1] = fmaf(pw[i][cc], oo.y, adv[i][c][1]);
+              adv[i][c][2] = fmaf(pw[i][cc], oo.z, adv[i][c][2]);
+              adv[i][c][3] = fmaf(pw[i][cc], oo.w, adv[i][c][3]);
+              adk[i][c][0] = fmaf(sw[i][cc], qq.x, adk[i][c][0]);
+              adk[i][c][1] = fmaf(sw[i][cc], qq.y, adk[i][c][1]);
+              adk[i][c][2] = fmaf(sw[i][cc], qq.z, adk[i][c][2]);
+              adk[i][c][3] = fmaf(sw[i][cc], qq.w, adk[i][c][3]);
+            }
+          }
+      }
+      __syncthreads();                       // before the next q tile
+    }
+  }
+
+  T* dkb = dk + b * dks.b + g * dks.h;
+  T* dvb = dv + b * dvs.b + g * dvs.h;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = k0 + ty * R + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int d = (tx + 16 * c) * 4 + u;
+        if (d < D) {
+          dkb[row * dks.s + d] = from_f32<T>(adk[i][c][u]);
+          dvb[row * dvs.s + d] = from_f32<T>(adv[i][c][u]);
+        }
+      }
+  }
+}
+
+// ---- the backward on the tensor cores (bfloat16, D <= 128) -----------------
+
+// 4 warps of 16 rows each; tiles in shared memory as bf16 rows of LD = DP +
+// 8, MmaTile<DP>'s layout, so stage_rows loads them (cp.async, zero fill).
+template <int DP>
+struct BwdMma {
+  static constexpr int NT = 128;
+  static constexpr int BR = 64;        // rows a block owns, 16 a warp
+  static constexpr int BQ = 32;        // q rows a step of the dK/dV kernel
+  static constexpr int BK = 64;        // kv rows a step of the dQ kernel
+  static constexpr int LD = DP + 8;
+  // dK/dV: K, V [BR][LD] and Q, dO [BQ][LD] in bf16; lse2, delta [BQ]
+  static constexpr int DKV_BYTES = (2 * BR + 2 * BQ) * LD * 2 + 2 * BQ * 4;
+  // dQ: Q, dO [BR][LD] and K, V [BK][LD] in bf16
+  static constexpr int DQ_BYTES = (2 * BR + 2 * BK) * LD * 2;
+};
+
+// dK and dV of one (b, kv head g, 64-row kv tile), a warp's 16 keys each,
+// over every 32-row q tile of every query head of g that can see them:
+// S^T = K Q^T and dP^T = V dO^T on the tensor cores, P^T and dS^T in
+// float32 registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// rounded to bf16 as the A operand (as the forward rounds P for P.V).
+template <int DP>
+__global__ void __launch_bounds__(BwdMma<DP>::NT)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, Strides qs,
+                          Strides ks, Strides vs, Strides dos, Strides dks,
+                          Strides dvs, int H, int rep, int S, int D,
+                          float scale, float scale_log2, int causal,
+                          int window, int vec) {
+  using Tl = BwdMma<DP>;
+  constexpr int BR = Tl::BR, BQ = Tl::BQ, LD = Tl::LD;
+  constexpr int NQ = BQ / 8;       // n8 tiles of a warp's S^T
+  constexpr int ND = DP / 8;       // n8 tiles of its dK and dV
+  extern __shared__ uint4 bwd_mma_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bwd_mma_smem);
+  __nv_bfloat16* Vs = Ks + BR * LD;
+  __nv_bfloat16* Qs = Vs + BR * LD;
+  __nv_bfloat16* dOs = Qs + BQ * LD;
+  float* lse2_s = reinterpret_cast<float*>(dOs + BQ * LD);
+  float* dl_s = lse2_s + BQ;
+
+  const int n_q = (S + BQ - 1) / BQ;
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int k0 = static_cast<int>(blockIdx.x) * BR;  // tile 0 is the heaviest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw0 = k0 + warp * 16;                      // this warp's keys
+  const __nv_bfloat16* kb = k + b * ks.b + g * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
+
+  // q tiles that can see this kv tile
+  const int qt_lo = causal ? k0 / BQ : 0;
+  int qt_hi = n_q;
+  if (window > 0) qt_hi = min(n_q, (k0 + BR + window - 2) / BQ + 1);
+
+  stage_rows<BR, DP>(Ks, kb, ks.s, k0, S, D, vec);
+  stage_rows<BR, DP>(Vs, vb, vs.s, k0, S, D, vec);
+  tc::cp_async_commit();
+
+  float adk[ND][4], adv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+  const __nv_bfloat16* k_frag = Ks + (warp * 16 + lane % 16) * LD +
+                                (lane / 16) * 8;
+  const __nv_bfloat16* v_frag = Vs + (warp * 16 + lane % 16) * LD +
+                                (lane / 16) * 8;
+  // a B operand stored [n][k] (Q and dO as the "col" operand of S^T, dP^T)
+  const int col_off = (lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+  // a B operand stored [k][n], read transposed (Q and dO for dK and dV)
+  const int row_off = (lane % 8 + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+
+  for (int h = g * rep; h < (g + 1) * rep; ++h) {
+    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+    const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+    const long long rows = (static_cast<long long>(b) * H + h) * S;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();               // every warp is done with the last tile
+      stage_rows<BQ, DP>(Qs, qb, qs.s, q0, S, D, vec);
+      stage_rows<BQ, DP>(dOs, dob, dos.s, q0, S, D, vec);
+      tc::cp_async_commit();
+      for (int i = threadIdx.x; i < BQ; i += Tl::NT) {
+        const int row = q0 + i;
+        lse2_s[i] = row < S ? lse[rows + row] * 1.4426950408889634f : 0.f;
+        dl_s[i] = row < S ? delta[rows + row] : 0.f;
+      }
+      tc::cp_async_wait<0>();
+      __syncthreads();
+      // a warp none of whose keys the tile's queries can see skips it
+      const bool seen = kw0 < S && !(causal && kw0 > q0 + BQ - 1) &&
+                        !(window > 0 && kw0 + 15 <= q0 - window);
+      if (!seen) continue;
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        tc::ldmatrix_x4(ak, k_frag + kk * 16);
+        tc::ldmatrix_x4(av, v_frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bq[4], bo[4];
+          const int off = np * 16 * LD + col_off + kk * 16;
+          tc::ldmatrix_x4(bq, Qs + off);
+          tc::ldmatrix_x4(bo, dOs + off);
+          tc::mma_bf16(st[2 * np], ak, bq[0], bq[1]);
+          tc::mma_bf16(st[2 * np + 1], ak, bq[2], bq[3]);
+          tc::mma_bf16(dpt[2 * np], av, bo[0], bo[1]);
+          tc::mma_bf16(dpt[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P^T and dS^T: rows are this warp's keys, columns the tile's queries
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw0 + lane / 4 + (e / 2) * 8;
+          const int qi = j * 8 + (lane % 4) * 2 + (e % 2);
+          const bool keep = visible(q0 + qi, key, S, causal, window);
+          const float p =
+              keep ? exp2f(st[j][e] * scale_log2 - lse2_s[qi]) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dl_s[qi]) * scale;
+        }
+      // dV += P^T dO and dK += dS^T Q: the queries are the k dimension
+#pragma unroll
+      for (int kj = 0; kj < BQ / 16; ++kj) {
+        uint32_t ap[4], as[4];
+        ap[0] = tc::pack_bf16(st[2 * kj][0], st[2 * kj][1]);
+        ap[1] = tc::pack_bf16(st[2 * kj][2], st[2 * kj][3]);
+        ap[2] = tc::pack_bf16(st[2 * kj + 1][0], st[2 * kj + 1][1]);
+        ap[3] = tc::pack_bf16(st[2 * kj + 1][2], st[2 * kj + 1][3]);
+        as[0] = tc::pack_bf16(dpt[2 * kj][0], dpt[2 * kj][1]);
+        as[1] = tc::pack_bf16(dpt[2 * kj][2], dpt[2 * kj][3]);
+        as[2] = tc::pack_bf16(dpt[2 * kj + 1][0], dpt[2 * kj + 1][1]);
+        as[3] = tc::pack_bf16(dpt[2 * kj + 1][2], dpt[2 * kj + 1][3]);
+        const int off = kj * 16 * LD + row_off;
+#pragma unroll
+        for (int dn = 0; dn < DP / 16; ++dn) {
+          uint32_t bo[4], bq[4];
+          tc::ldmatrix_x4_trans(bo, dOs + off + dn * 16);
+          tc::ldmatrix_x4_trans(bq, Qs + off + dn * 16);
+          tc::mma_bf16(adv[2 * dn], ap, bo[0], bo[1]);
+          tc::mma_bf16(adv[2 * dn + 1], ap, bo[2], bo[3]);
+          tc::mma_bf16(adk[2 * dn], as, bq[0], bq[1]);
+          tc::mma_bf16(adk[2 * dn + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  tc::cp_async_wait<0>();             // K and V, when no q tile came
+  __nv_bfloat16* dkb = dk + b * dks.b + g * dks.h;
+  __nv_bfloat16* dvb = dv + b * dvs.b + g * dvs.h;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = kw0 + lane / 4 + (e / 2) * 8;
+      const int c = j * 8 + (lane % 4) * 2 + (e % 2);
+      if (row < S && c < D) {
+        dkb[row * dks.s + c] = __float2bfloat16_rn(adk[j][e]);
+        dvb[row * dvs.s + c] = __float2bfloat16_rn(adv[j][e]);
+      }
+    }
+}
+
+// dQ of one (b, h, 64-row q tile), a warp's 16 queries each, over its
+// visible 64-row kv tiles: S = Q K^T and dP = dO V^T on the tensor cores,
+// P and dS in float32 registers, dQ += dS K with dS rounded to bf16.
+template <int DP>
+__global__ void __launch_bounds__(BwdMma<DP>::NT)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, Strides qs,
+                        Strides ks, Strides vs, Strides dos, Strides dqs,
+                        int H, int rep, int S, int D, float scale,
+                        float scale_log2, int causal, int window, int vec) {
+  using Tl = BwdMma<DP>;
+  constexpr int BR = Tl::BR, BK = Tl::BK, LD = Tl::LD;
+  constexpr int NS = BK / 8;       // n8 tiles of a warp's S
+  constexpr int ND = DP / 8;       // n8 tiles of its dQ
+  extern __shared__ uint4 bwd_mma_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(bwd_mma_smem);
+  __nv_bfloat16* dOs = Qs + BR * LD;
+  __nv_bfloat16* Ks = dOs + BR * LD;
+  __nv_bfloat16* Vs = Ks + BK * LD;
+
+  const int n_q = (S + BR - 1) / BR;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x);  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
+  const int q0 = qt * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qw0 = q0 + warp * 16;                      // this warp's queries
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+  const __nv_bfloat16* kb = k + b * ks.b + g * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+
+  const int q_last = min(q0 + BR, S) - 1;
+  int t_lo = 0;
+  const int t_hi = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+  if (window > 0) {
+    const int lo = q0 - window - BK + 2;
+    t_lo = lo <= 0 ? 0 : (lo + BK - 1) / BK;
+  }
+
+  stage_rows<BR, DP>(Qs, qb, qs.s, q0, S, D, vec);
+  stage_rows<BR, DP>(dOs, dob, dos.s, q0, S, D, vec);
+  tc::cp_async_commit();
+  // this lane's rows qw0 + lane / 4 (fragment elements 0, 1) and + 8 (2, 3)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw0 + lane / 4 + 8 * r;
+    lse2[r] = row < S ? lse[rows + row] * 1.4426950408889634f : 0.f;
+    dl[r] = row < S ? delta[rows + row] : 0.f;
+  }
+  float adq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[j][e] = 0.f;
+  const __nv_bfloat16* q_frag = Qs + (warp * 16 + lane % 16) * LD +
+                                (lane / 16) * 8;
+  const __nv_bfloat16* do_frag = dOs + (warp * 16 + lane % 16) * LD +
+                                 (lane / 16) * 8;
+  const int col_off = (lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+  const int row_off = (lane % 8 + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();                 // every warp is done with the last tile
+    stage_rows<BK, DP>(Ks, kb, ks.s, k0, S, D, vec);
+    stage_rows<BK, DP>(Vs, vb, vs.s, k0, S, D, vec);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    const bool seen = qw0 < S && !(causal && k0 > qw0 + 15) &&
+                      !(window > 0 && k0 + BK - 1 <= qw0 - window);
+    if (!seen) continue;
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      tc::ldmatrix_x4(aq, q_frag + kk * 16);
+      tc::ldmatrix_x4(ao, do_frag + kk * 16);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        const int off = np * 16 * LD + col_off + kk * 16;
+        tc::ldmatrix_x4(bk, Ks + off);
+        tc::ldmatrix_x4(bv, Vs + off);
+        tc::mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        tc::mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        tc::mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
+        tc::mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = qw0 + lane / 4 + (e / 2) * 8;
+        const int key = k0 + j * 8 + (lane % 4) * 2 + (e % 2);
+        const bool keep = visible(row, key, S, causal, window);
+        const float p =
+            keep ? exp2f(s[j][e] * scale_log2 - lse2[e / 2]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e / 2]) * scale;     // ds
+      }
+    // dQ += dS K: the keys are the k dimension
+#pragma unroll
+    for (int kj = 0; kj < BK / 16; ++kj) {
+      uint32_t a[4];
+      a[0] = tc::pack_bf16(s[2 * kj][0], s[2 * kj][1]);
+      a[1] = tc::pack_bf16(s[2 * kj][2], s[2 * kj][3]);
+      a[2] = tc::pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]);
+      a[3] = tc::pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3]);
+      const int off = kj * 16 * LD + row_off;
+#pragma unroll
+      for (int dn = 0; dn < DP / 16; ++dn) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4_trans(bk, Ks + off + dn * 16);
+        tc::mma_bf16(adq[2 * dn], a, bk[0], bk[1]);
+        tc::mma_bf16(adq[2 * dn + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  __nv_bfloat16* gb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qw0 + lane / 4 + (e / 2) * 8;
+      const int c = j * 8 + (lane % 4) * 2 + (e % 2);
+      if (row < S && c < D) gb[row * dqs.s + c] = __float2bfloat16_rn(adq[j][e]);
+    }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *out, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  int B, H, Hkv, S, D;
+  float scale;
+  int causal, window;
+};
+
+template <typename T, int DMAX>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  using Tl = BwdTile<DMAX>;
+  const int rep = a.H / a.Hkv;
+  flash_bwd_delta_kernel<T><<<dim3((a.S + 7) / 8, a.H, a.B), 256, 0,
+                              stream>>>(
+      static_cast<const T*>(a.out), static_cast<const T*>(a.dout), a.delta,
+      a.os, a.dos, a.H, a.S, a.D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dq_bytes = Tl::DQ_FLOATS * static_cast<int>(sizeof(float));
+  auto dq_kern = flash_bwd_dq_kernel<T, DMAX>;
+  err = cudaFuncSetAttribute(
+      dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err != cudaSuccess) return err;
+  const int n_t = (a.S + Tl::BM - 1) / Tl::BM;
+  dq_kern<<<dim3(n_t, a.H, a.B), Tl::NT, dq_bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs, a.H,
+      rep, a.S, a.D, a.scale, a.causal, a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dkv_bytes = Tl::DKV_FLOATS * static_cast<int>(sizeof(float));
+  auto dkv_kern = flash_bwd_dkdv_kernel<T, DMAX>;
+  err = cudaFuncSetAttribute(
+      dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  dkv_kern<<<dim3(n_t, a.Hkv, a.B), Tl::NT, dkv_bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qs, a.ks,
+      a.vs, a.dos, a.dks, a.dvs, a.H, rep, a.S, a.D, a.scale, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch_bwd<T, 64>(a, stream);
+  if (a.D <= 128) return launch_bwd<T, 128>(a, stream);
+  return launch_bwd<T, 256>(a, stream);
+}
+
+template <int DP>
+cudaError_t launch_bwd_mma(const BwdArgs& a, int vec, cudaStream_t stream) {
+  using Tl = BwdMma<DP>;
+  const int rep = a.H / a.Hkv;
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  using bf = __nv_bfloat16;
+  flash_bwd_delta_kernel<bf><<<dim3((a.S + 7) / 8, a.H, a.B), 256, 0,
+                               stream>>>(
+      static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout), a.delta,
+      a.os, a.dos, a.H, a.S, a.D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dq_kern = flash_bwd_dq_mma_kernel<DP>;
+  err = cudaFuncSetAttribute(
+      dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::DQ_BYTES);
+  if (err != cudaSuccess) return err;
+  dq_kern<<<dim3((a.S + Tl::BR - 1) / Tl::BR, a.H, a.B), Tl::NT,
+            Tl::DQ_BYTES, stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs, a.H,
+      rep, a.S, a.D, a.scale, scale_log2, a.causal, a.window, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dkv_kern = flash_bwd_dkdv_mma_kernel<DP>;
+  err = cudaFuncSetAttribute(
+      dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::DKV_BYTES);
+  if (err != cudaSuccess) return err;
+  dkv_kern<<<dim3((a.S + Tl::BR - 1) / Tl::BR, a.Hkv, a.B), Tl::NT,
+             Tl::DKV_BYTES, stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.qs, a.ks,
+      a.vs, a.dos, a.dks, a.dvs, a.H, rep, a.S, a.D, a.scale, scale_log2,
+      a.causal, a.window, vec);
+  return cudaGetLastError();
+}
+
+// bfloat16: the tensor cores up to a head dim of 128 (DP the head dim
+// rounded up to 32, as the forward buckets it); past it, the CUDA-core
+// kernels on bf16 loads, whose registers hold a 256-wide row.
+cudaError_t dispatch_bwd_bf16(const BwdArgs& a, cudaStream_t stream) {
+  const int vec = a.D % 8 == 0 && on16(a.q) && on16(a.k) && on16(a.v) &&
+                  on16(a.dout) && strides8(a.qs) && strides8(a.ks) &&
+                  strides8(a.vs) && strides8(a.dos);
+  switch ((a.D + 31) / 32) {
+    case 1: return launch_bwd_mma<32>(a, vec, stream);
+    case 2: return launch_bwd_mma<64>(a, vec, stream);
+    case 3: return launch_bwd_mma<96>(a, vec, stream);
+    case 4: return launch_bwd_mma<128>(a, vec, stream);
+    default: return dispatch_bwd<__nv_bfloat16>(a, stream);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t) of `device`; returns the launch's
@@ -682,9 +1563,10 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // bfloat16 (the tensor-core kernel). Strides are
 // in elements, three per tensor: (batch, head, position); the head dim is
 // contiguous. window <= 0 means no window. H must be a multiple of Hkv;
-// 1 <= D <= 256; B and H at most 65535.
+// 1 <= D <= 256; B and H at most 65535. `lse` (contiguous [B, H, S]
+// float32) may be null; given, it receives each row's log-sum-exp.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, void* lse,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, int B, int H,
     int Hkv, int S, int D, float scale, int causal, int window, int dtype,
@@ -700,12 +1582,49 @@ extern "C" int repro_flash_attention(
   const Strides vs{v_strides[0], v_strides[1], v_strides[2]};
   const Strides os{o_strides[0], o_strides[1], o_strides[2]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    err = dispatch<float>(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D,
-                          scale, causal, window, st);
+    err = dispatch<float>(q, k, v, out, lse_f, qs, ks, vs, os, B, H, Hkv, S,
+                          D, scale, causal, window, st);
   else if (dtype == 1)
-    err = dispatch_mma(q, k, v, out, qs, ks, vs, os, B, H, Hkv, S, D, scale,
-                       causal, window, st);
+    err = dispatch_mma(q, k, v, out, lse_f, qs, ks, vs, os, B, H, Hkv, S, D,
+                       scale, causal, window, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+// The backward: dq [B, H, S, D], dk and dv [B, Hkv, S, D] from q, k, v, out,
+// dout and the forward's lse (contiguous [B, H, S] float32); `delta`
+// (contiguous [B, H, S] float32) is scratch. Three launches on `stream`:
+// the delta pre-pass, dQ, and dK/dV. Strides as for the forward; dtype 0
+// float32, 1 bfloat16 (every tensor in that dtype).
+extern "C" int repro_flash_attention_backward(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, const long long* o_strides,
+    const long long* do_strides, const long long* dq_strides,
+    const long long* dk_strides, const long long* dv_strides, int B, int H,
+    int Hkv, int S, int D, float scale, int causal, int window, int dtype,
+    int device, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return 0;
+  if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || B > 65535 ||
+      H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st3 = [](const long long* p) { return Strides{p[0], p[1], p[2]}; };
+  const BwdArgs a{q, k, v, out, dout, static_cast<const float*>(lse),
+                  static_cast<float*>(delta), dq, dk, dv, st3(q_strides),
+                  st3(k_strides), st3(v_strides), st3(o_strides),
+                  st3(do_strides), st3(dq_strides), st3(dk_strides),
+                  st3(dv_strides), B, H, Hkv, S, D, scale, causal, window};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    err = dispatch_bwd<float>(a, st);
+  else if (dtype == 1)
+    err = dispatch_bwd_bf16(a, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

@@ -28,7 +28,23 @@ attention). float16 and mixed inputs run the float32 kernel on float32
 copies, as the reference casts every input to float32 and returns
 ``q.dtype``. ``flash_attention_kernel.launches`` counts every launch,
 ``flash_attention_kernel.tensor_core_launches`` those of the tensor-core
-kernel.
+kernel. Given an ``lse`` tensor (``[B, H, S]`` float32), the forward also
+writes each row's log-sum-exp, ``m + log(max(l, 1e-30))`` in natural log,
+which is all its backward needs besides ``q, k, v, out``.
+
+The backward (``flash_attention_backward_kernel``) computes the
+reference's ``_flash_bwd`` (``repro/models/layers.py``, the custom VJP of
+``_flash``) from ``q, k, v, out, dout, lse``: ``delta = rowsum(dout * out)``,
+``p = exp(scale q k^T - lse)`` recomputed under the forward's mask, then
+``dv = p^T dout``, ``ds = p (dout v^T - delta) scale``, ``dq = ds k``,
+``dk = ds^T q``, with ``dk``/``dv`` summed over the ``H / Hkv`` query heads
+of each kv head (the VJP of the reference's repeated heads). It launches
+three kernels (the ``delta`` pre-pass, ``dK``/``dV`` and ``dQ``), each
+deterministic; ``flash_attention_backward_kernel.launches`` counts calls.
+All-bfloat16 inputs run on the tensor cores up to a head dim of 128 (bf16
+products with float32 sums, P and dS rounded to bf16 as operands; on CUDA
+cores with float32 arithmetic past it), any other mix on float32 copies on
+CUDA cores (see the source note).
 """
 from __future__ import annotations
 
@@ -66,18 +82,20 @@ def _check(q, k, v, window, out):
                          "and device")
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int | None = None,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version: dense float32 scores, masked with ``-1e30``, a float32
-    softmax and product (``repro.kernels.ref.attention_ref``). Writes into
-    ``out`` when given and returns the result."""
-    _check(q, k, v, window, out)
-    b, h, s, d = q.shape
-    rep = h // k.shape[1]
-    if rep != 1:
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
+def _check_lse(q, lse):
+    b, h, s, _ = q.shape
+    if lse is not None and (tuple(lse.shape) != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError("flash_attention: lse must be a contiguous float32 "
+                         f"[B, H, S] = {(b, h, s)} tensor on q's device")
+
+
+def _scores(q, k, causal, window):
+    """Dense float32 scores ``scale q k^T`` of ``q [B, H, S, D]`` against
+    ``k`` repeated to ``H`` heads, masked with ``-1e30``."""
+    s, d = q.shape[2], q.shape[3]
     scale = 1.0 / math.sqrt(d)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -87,11 +105,79 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    logits = logits.masked_fill_(~mask, NEG_INF)
-    res = torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
+    return logits.masked_fill_(~mask, NEG_INF)
+
+
+def _repeat(t, rep):
+    return t if rep == 1 else t.repeat_interleave(rep, dim=1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          out: torch.Tensor | None = None,
+                          lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version: dense float32 scores, masked with ``-1e30``, a float32
+    softmax and product (``repro.kernels.ref.attention_ref``). Writes into
+    ``out`` when given and returns the result; writes each row's
+    log-sum-exp into ``lse`` when given."""
+    _check(q, k, v, window, out)
+    _check_lse(q, lse)
+    rep = q.shape[1] // k.shape[1]
+    logits = _scores(q, _repeat(k, rep), causal, window)
+    if lse is not None:
+        lse.copy_(torch.logsumexp(logits, dim=-1))
+    res = torch.matmul(torch.softmax(logits, dim=-1),
+                       _repeat(v, rep).float()).to(q.dtype)
     if out is None:
         return res
     return out.copy_(res)
+
+
+def _check_backward(q, k, v, out, dout, lse, window, grads):
+    _check(q, k, v, window, out)
+    _check_lse(q, lse)
+    if lse is None:
+        raise ValueError("flash_attention_backward: lse is required")
+    if dout.shape != q.shape:
+        raise ValueError(f"flash_attention_backward: dout {tuple(dout.shape)}"
+                         f" must have q's shape {tuple(q.shape)}")
+    for name, g, like in zip(("dq", "dk", "dv"), grads, (q, k, v)):
+        if g is not None and (g.shape != like.shape or g.dtype != like.dtype
+                              or g.device != like.device):
+            raise ValueError(f"flash_attention_backward: {name} must match "
+                             "the shape, dtype and device of its input")
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, lse, *,
+                                   causal: bool = True,
+                                   window: int | None = None,
+                                   dq=None, dk=None, dv=None):
+    """Plain version of the backward: dense float32, the reference's
+    ``_flash_bwd`` over one q chunk that spans the sequence. Returns ``(dq,
+    dk, dv)`` in the dtypes of ``q``, ``k``, ``v`` (written into ``dq``,
+    ``dk``, ``dv`` when given)."""
+    _check_backward(q, k, v, out, dout, lse, window, (dq, dk, dv))
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = _repeat(k, rep).float(), _repeat(v, rep).float()
+    do32 = dout.float()
+    p = torch.exp(_scores(q, _repeat(k, rep), causal, window)
+                  - lse[..., None])
+    delta = (out.float() * do32).sum(-1)                 # rowsum(dO * O)
+    ds = p * (torch.matmul(do32, vf.transpose(-1, -2)) - delta[..., None])
+    ds = ds * scale
+    res = (torch.matmul(ds, kf),
+           torch.matmul(ds.transpose(-1, -2), q.float())
+           .reshape(b, hkv, rep, s, d).sum(2),
+           torch.matmul(p.transpose(-1, -2), do32)
+           .reshape(b, hkv, rep, s, d).sum(2))
+    outs = []
+    for r, g, like in zip(res, (dq, dk, dv), (q, k, v)):
+        r = r.to(like.dtype)
+        outs.append(r if g is None else g.copy_(r))
+    return tuple(outs)
 
 
 def _lib():
@@ -99,9 +185,13 @@ def _lib():
     fn = lib.repro_flash_attention
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
             ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return fn
+        bwd = lib.repro_flash_attention_backward
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib
 
 
 def _strides(t: torch.Tensor):
@@ -110,25 +200,29 @@ def _strides(t: torch.Tensor):
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True, window: int | None = None,
-                           out: torch.Tensor | None = None) -> torch.Tensor:
+                           out: torch.Tensor | None = None,
+                           lse: torch.Tensor | None = None) -> torch.Tensor:
     """Attention of ``q [B, H, S, D]`` over ``k``, ``v [B, Hkv, S, D]``, each
     float32, bfloat16 or float16, with a contiguous last dim (other strides
     are free); the result goes into ``out`` (``[B, H, S, D]`` in
     ``q.dtype``, any such strides) or a new contiguous tensor, in
     ``q.dtype`` as the reference returns it. All bfloat16 launches the
     tensor-core kernel; any other mix runs the float32 CUDA-core one on
-    float32 copies (exact) and rounds its result once to ``q.dtype``. CPU
+    float32 copies (exact) and rounds its result once to ``q.dtype``.
+    ``lse`` (contiguous ``[B, H, S]`` float32), when given, receives each
+    row's log-sum-exp; without it the kernels write nothing more. CPU
     tensors take the plain version."""
-    tensors = (q, k, v) if out is None else (q, k, v, out)
+    tensors = tuple(t for t in (q, k, v, out, lse) if t is not None)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     out=out)
+                                     out=out, lse=lse)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention_kernel: q, k, v (and out) must be "
                          "on one CUDA device (or all on the CPU), got "
                          f"{[str(t.device) for t in tensors]}")
     _check(q, k, v, window, out)
+    _check_lse(q, lse)
     if any(t.dtype not in FLOATS for t in (q, k, v)):
         raise TypeError("flash_attention_kernel: q, k and v must be "
                         "float32, bfloat16 or float16, got "
@@ -137,7 +231,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_kernel: head dim {d} > "
                          f"{MAX_HEAD_DIM}")
-    if any(t.stride(3) != 1 for t in tensors):
+    if any(t.stride(3) != 1 for t in tensors if t is not lse):
         raise ValueError("flash_attention_kernel: the head dim of q, k, v "
                          "and out must be contiguous (stride 1)")
     if max(b, h) > 65535 or s >= 2 ** 31:
@@ -154,11 +248,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (t.to(work) for t in (q, k, v))
     scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
-                _strides(q), _strides(k), _strides(v), _strides(res), b, h,
-                k.shape[1], s, d, scale, int(causal),
-                0 if window is None else int(window), _DTYPES[work],
-                dev.index or 0, stream)
+    rc = _lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
+        None if lse is None else lse.data_ptr(), _strides(q), _strides(k),
+        _strides(v), _strides(res), b, h, k.shape[1], s, d, scale,
+        int(causal), 0 if window is None else int(window), _DTYPES[work],
+        dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{rc}")
@@ -170,6 +265,76 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.tensor_core_launches = 0
+
+
+def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
+                                    causal: bool = True,
+                                    window: int | None = None,
+                                    dq=None, dk=None, dv=None):
+    """Gradients ``(dq, dk, dv)`` of the attention ``out`` of ``q [B, H, S,
+    D]`` over ``k``, ``v [B, Hkv, S, D]`` under the cotangent ``dout``, from
+    the forward's ``lse`` (``[B, H, S]`` float32, contiguous). Strides as
+    for the forward (a contiguous last dim); the results go into ``dq``,
+    ``dk``, ``dv`` when given (any such strides) or new contiguous tensors,
+    in the dtypes of ``q``, ``k``, ``v``. All bfloat16 runs the bf16 kernels;
+    any other mix the float32 ones on float32 copies. CPU tensors take the
+    plain version."""
+    grads = (dq, dk, dv)
+    tensors = tuple(t for t in (q, k, v, out, dout, lse) + grads
+                    if t is not None)
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                              causal=causal, window=window,
+                                              dq=dq, dk=dk, dv=dv)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("flash_attention_backward_kernel: every tensor must "
+                         "be on one CUDA device (or all on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    _check_backward(q, k, v, out, dout, lse, window, grads)
+    if any(t.dtype not in FLOATS for t in (q, k, v, out, dout)):
+        raise TypeError("flash_attention_backward_kernel: q, k, v, out and "
+                        "dout must be float32, bfloat16 or float16, got "
+                        f"{[t.dtype for t in (q, k, v, out, dout)]}")
+    b, h, s, d = q.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_backward_kernel: head dim {d} > "
+                         f"{MAX_HEAD_DIM}")
+    if any(t.stride(3) != 1 for t in (q, k, v, out, dout) + grads
+           if t is not None):
+        raise ValueError("flash_attention_backward_kernel: the head dim of "
+                         "every tensor must be contiguous (stride 1)")
+    if max(b, h) > 65535 or s >= 2 ** 31:
+        raise ValueError(f"flash_attention_backward_kernel: shape "
+                         f"{tuple(q.shape)} exceeds the launch grid")
+    work = working_dtype(q, k, v, out, dout)
+    like = (q, k, v)
+    res = [torch.empty(t.shape, dtype=t.dtype, device=dev) if g is None
+           else g for g, t in zip(grads, like)]
+    if q.numel() == 0:
+        return tuple(res)
+    # the kernels' own outputs: the results, or working-dtype copies
+    kout = [r if r.dtype == work else torch.empty(r.shape, dtype=work,
+                                                  device=dev) for r in res]
+    q, k, v, out, dout = (t.to(work) for t in (q, k, v, out, dout))
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().repro_flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in kout),
+        *(_strides(t) for t in (q, k, v, out, dout, *kout)), b, h,
+        k.shape[1], s, d, 1.0 / math.sqrt(d), int(causal),
+        0 if window is None else int(window), _DTYPES[work], dev.index or 0,
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention_backward_kernel.launches += 1
+    return tuple(r if r is kr else r.copy_(kr) for r, kr in zip(res, kout))
+
+
+flash_attention_backward_kernel.launches = 0
 
 
 def visible_pairs(s: int, causal: bool = True,

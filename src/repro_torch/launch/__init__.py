@@ -1,1 +1,1 @@
-"""Launchers (``repro.launch``): the token server so far."""
+"""Launchers (``repro.launch``): the token server and the training loop."""

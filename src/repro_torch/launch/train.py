@@ -1,0 +1,131 @@
+"""Training launcher (``repro.launch.train``): the end-to-end training loop.
+
+Runs a real training loop: the synthetic data pipeline, the train step
+(AdamW, global-norm clip, optional int8 error-feedback gradient
+compression), periodic async checkpoints and restart on relaunch (it resumes
+from the latest checkpoint in ``--ckpt-dir``). On the card, each layer's
+attention runs the flash kernel forward and the flash backward kernel::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+        --steps 6 --batch 2 --seq 4096                 # full width, one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+        --smoke --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir ckpt
+
+Weights are random, drawn from ``--seed``. The enc-dec family and a device
+mesh (``--mesh``) are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..checkpoint import store
+from ..configs.registry import get_config, get_smoke_config
+from ..data.pipeline import DataConfig, batch_for_step
+from ..device import resolve_device
+from ..models import lm
+from ..models.encdec import EncDecConfig
+from ..models.specs import materialize
+from ..train.optim import AdamWConfig
+from ..train.step import (TrainConfig, error_state_init, init_optimizer,
+                          make_train_step)
+
+
+def init_params(cfg, seed: int, device):
+    """The model's parameters drawn from ``seed`` on ``device``."""
+    return materialize(lm.lm_specs(cfg),
+                       torch.Generator(device=device).manual_seed(seed),
+                       device=device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8_ef"])
+    ap.add_argument("--mesh", default="", help="e.g. '2x4' data x model")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if isinstance(cfg, EncDecConfig):
+        raise NotImplementedError(
+            "training the enc-dec family is not ported to repro_torch yet "
+            "(ROADMAP queue 1 item 10)")
+    if args.mesh:
+        raise NotImplementedError(
+            "a device mesh is not ported to repro_torch yet (ROADMAP queue 1 "
+            "item 11)")
+    dev = resolve_device(args.device)
+
+    tcfg = TrainConfig(adam=AdamWConfig(lr=args.lr, grad_clip=1.0),
+                       grad_compression=args.grad_compression)
+    dcfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq,
+                      seed=args.seed)
+
+    def loss_fn(params, bt):
+        return lm.lm_loss(params, cfg, bt["tokens"], bt["labels"],
+                          bt.get("prefix"))
+
+    step_fn = make_train_step(loss_fn, tcfg)
+    compressed = tcfg.grad_compression == "int8_ef"
+
+    # ---- init or restore (restart-on-relaunch fault tolerance) ----
+    start_step = 0
+    params = init_params(cfg, args.seed, dev)
+    opt = init_optimizer(params, tcfg)
+    if args.ckpt_dir and store.latest_step(args.ckpt_dir) is not None:
+        restored, start_step, _ = store.restore(
+            args.ckpt_dir, {"params": params, "opt": opt})
+        params, opt = restored["params"], restored["opt"]
+        print(f"restored checkpoint at step {start_step}")
+    err_state = error_state_init(params) if compressed else None
+
+    def make_batch(i):
+        tokens, labels = batch_for_step(dcfg, i)
+        bt = {"tokens": torch.as_tensor(tokens, device=dev).long(),
+              "labels": torch.as_tensor(labels, device=dev).long()}
+        if cfg.prefix_len:
+            rng = np.random.default_rng(2000 + i)
+            bt["prefix"] = torch.as_tensor(
+                rng.normal(size=(args.batch, cfg.prefix_len, cfg.d_model))
+                .astype(np.float32), device=dev)
+            bt["tokens"] = bt["tokens"][:, : args.seq - cfg.prefix_len]
+            bt["labels"] = bt["labels"][:, : args.seq - cfg.prefix_len]
+        return bt
+
+    t0 = time.time()
+    for i in range(start_step, args.steps):
+        bt = make_batch(i)
+        if compressed:
+            params, opt, metrics, err_state = step_fn(params, opt, bt,
+                                                      err_state)
+        else:
+            params, opt, metrics = step_fn(params, opt, bt)
+        if i % 5 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss={float(metrics['loss']):.4f} "
+                  f"ce={float(metrics['ce']):.4f} "
+                  f"({time.time()-t0:.1f}s)")
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            store.save_async(args.ckpt_dir, i + 1,
+                             {"params": params, "opt": opt},
+                             extra={"data_step": i + 1})
+    store.wait()
+    print("done")
+    return params
+
+
+if __name__ == "__main__":
+    main()

@@ -4,20 +4,26 @@ Activation layout is BSHD (``[batch, seq, heads, head_dim]``), as in the
 reference; parameters are nested dicts of tensors under the reference's
 names (``wq [d, H, Dh]``, ``wo [H, Dh, d]``, ...).
 
-Attention has two routes, chosen by the arguments and by no switch. On a
-CUDA tensor, causal self-attention (``pos_offset == 0``, ``Skv == S``, with
-or without a window) that autograd needs no gradient of goes through the
-flash kernel (``kernels/flash_attention.py``), which computes the same
-function as the reference's blockwise online softmax. Everything else (CPU
-tensors, cross-attention, decode, and any q/k/v that requires grad while
-grad is enabled) runs the reference's algorithm in plain torch:
-``blockwise_attention``'s q chunks over static kv ranges, and
-``_flash_fwd_impl``'s online softmax over kv sub-chunks, which autograd
-differentiates, as the reference's training differentiates its plain
-attention (the kernel has no backward, in either package).
+Attention is the reference's flash attention with its custom VJP: the
+forward keeps only ``(q, k, v, out, lse)``, and the backward recomputes each
+kv block's scores from them, so no layer keeps its score blocks for
+autograd. Two ``torch.autograd.Function``s carry it, chosen by the arguments
+and by no switch:
 
-The reference's sharding constraints are identities on one card:
-``seq_shard_attn`` keeps only its effect of a single q chunk.
+* on a CUDA tensor, causal self-attention (``pos_offset == 0``,
+  ``Skv == S``, with or without a window) is :class:`_FlashAttention` over
+  the whole sequence: its forward is the flash kernel
+  (``kernels/flash_attention.py``, which also writes ``lse`` when a gradient
+  is needed), its backward the flash backward kernel;
+* everything else (CPU tensors, cross-attention, ``pos_offset != 0``) is
+  :class:`_Flash`, the reference's ``_flash`` over one q chunk:
+  ``blockwise_attention``'s q chunks over static kv ranges,
+  ``_flash_fwd_impl``'s online softmax over kv sub-chunks, and
+  ``_flash_bwd``'s backward in plain torch.
+
+Decode attends in plain torch. The reference's sharding constraints are
+identities on one card: ``seq_shard_attn`` keeps only its effect of a single
+q chunk.
 """
 from __future__ import annotations
 
@@ -29,9 +35,10 @@ from .specs import param
 
 NEG_INF = -1e30
 
-# the attention of the kernel route; a module attribute so that a check can
-# swap in the plain version on the card and compare the two
+# the attention of the kernel route, forward and backward; module attributes
+# so that a check can swap in the plain versions on the card and compare
 _flash_forward = _fa.flash_attention_kernel
+_flash_backward = _fa.flash_attention_backward_kernel
 
 
 # ---- norms -------------------------------------------------------------------
@@ -161,15 +168,108 @@ def _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal, k_chunk):
     return out_b, lse
 
 
-def _kernel_route(q, k, v, pos_offset: int, causal: bool) -> bool:
-    """Causal self-attention on CUDA tensors that autograd needs no gradient
-    of: the flash kernel's case. With a gradient to take, the plain loop
-    runs and autograd differentiates it, as the reference's training
-    differentiates its plain attention and never calls its kernel."""
-    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
-                                                 for t in (q, k, v))
+def _flash_bwd(qpos0, kpos0, window, causal, k_chunk, res, dout):
+    """The reference's backward of one q chunk: recompute each kv
+    sub-chunk's ``p = exp(s - lse)`` from the saved ``(q, k, v, out, lse)``
+    and accumulate ``dq``; ``dk``, ``dv`` per sub-chunk. Returns ``(dq, dk,
+    dv)`` in the dtypes of ``q``, ``k``, ``v``."""
+    q, k, v, out, lse = res
+    b, cq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / (d ** 0.5)
+    ck = min(k_chunk, skv)
+    if skv % ck:
+        ck = skv
+    qg = q.reshape(b, cq, hkv, rep, d).float()
+    og = out.reshape(b, cq, hkv, rep, d).float()
+    dog = dout.reshape(b, cq, hkv, rep, d).float()
+    qpos = qpos0 + torch.arange(cq, device=q.device)
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", og, dog)    # rowsum(dO*O)
+    dq = torch.zeros(b, cq, hkv, rep, d, device=q.device)
+    dks, dvs = [], []
+    for idx in range(skv // ck):
+        k_blk = k[:, idx * ck:(idx + 1) * ck].float()
+        v_blk = v[:, idx * ck:(idx + 1) * ck].float()
+        kpos = kpos0 + idx * ck + torch.arange(ck, device=q.device)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_blk)
+        s = _mask_scores(s * scale, qpos, kpos, window, causal)
+        p = torch.exp(s - lse[..., None])                 # exact softmax
+        dvs.append(torch.einsum("bgrqk,bqgrd->bkgd", p, dog))
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v_blk)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", ds, k_blk)
+        dks.append(torch.einsum("bgrqk,bqgrd->bkgd", ds, qg))
+    dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+    return (dq.reshape(b, cq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` (``jax.custom_vjp``) over one q chunk
+    ``[B, cq, H, D]`` and its static kv slice: the forward is
+    ``_flash_fwd_impl`` and saves ``(q, k, v, out, lse)``; the backward is
+    ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos0, kpos0, window, causal, k_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal,
+                                   k_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (qpos0, kpos0, window, causal, k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _flash_bwd(*ctx.args, ctx.saved_tensors, dout)
+        return grads + (None,) * 5
+
+
+def _bhsd(t):
+    return t.transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Causal self-attention of ``q [B, S, H, D]`` over ``k``, ``v [B, S,
+    Hkv, D]`` (GQA by the kernels' head map, no repeated heads) in one call
+    of ``_flash_forward``, which writes ``lse`` when an input needs a
+    gradient; the backward is one call of ``_flash_backward`` on the saved
+    ``(q, k, v, out, lse)``, whose ``dk``/``dv`` sum over each kv head's
+    query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        b, s, h, _ = q.shape
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+               if any(ctx.needs_input_grad[:3]) else None)
+        _flash_forward(_bhsd(q), _bhsd(k), _bhsd(v), causal=True,
+                       window=window, out=_bhsd(out), lse=lse)
+        if lse is not None:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v)]
+        _flash_backward(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out),
+                        _bhsd(dout), lse, causal=True, window=ctx.window,
+                        dq=_bhsd(grads[0]), dk=_bhsd(grads[1]),
+                        dv=_bhsd(grads[2]))
+        return grads[0], grads[1], grads[2], None
+
+
+def _kernel_route(q, k, pos_offset: int, causal: bool) -> bool:
+    """Causal self-attention on CUDA tensors: the flash kernels' case, with
+    or without a gradient to take (the kernels carry the reference's custom
+    VJP)."""
     return (q.device.type == "cuda" and causal and pos_offset == 0
-            and k.shape[1] == q.shape[1] and not needs_grad)
+            and k.shape[1] == q.shape[1])
 
 
 def blockwise_attention(q, k, v, *, window: int | None = None,
@@ -178,20 +278,17 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
     """Causal (optionally sliding-window) or bidirectional attention, BSHD.
 
     q [B,S,H,D], k/v [B,Skv,HKV,D] with Skv == S + pos_offset (self-attention:
-    pos_offset=0; cross-attention: causal=False, any Skv). On CUDA tensors
-    that need no gradient, causal self-attention is one flash-kernel launch;
-    otherwise a Python loop over q chunks with static kv ranges
-    (never-visible blocks skipped) and an online softmax over kv sub-chunks,
-    as in the reference, which autograd differentiates.
+    pos_offset=0; cross-attention: causal=False, any Skv). On CUDA tensors,
+    causal self-attention is one :class:`_FlashAttention` (one forward
+    kernel launch, one backward call); otherwise a Python loop over q chunks
+    with static kv ranges (never-visible blocks skipped), each a
+    :class:`_Flash` with an online softmax over kv sub-chunks, as in the
+    reference.
     """
     b, s, h, d = q.shape
     skv = k.shape[1]
-    if _kernel_route(q, k, v, pos_offset, causal):
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _flash_forward(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal=True, window=window,
-                       out=out.transpose(1, 2))
-        return out
+    if _kernel_route(q, k, pos_offset, causal):
+        return _FlashAttention.apply(q, k, v, window)
     cq = min(q_chunk, s)
     if s % cq:
         cq = s                       # small/odd seq: single chunk
@@ -208,10 +305,9 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
         # align the static slice to sub-chunk multiples
         n_sub = -(-(hi - lo) // ck)
         lo_al = max(0, hi - n_sub * ck)
-        out, _ = _flash_fwd_impl(q_blk, k[:, lo_al:hi], v[:, lo_al:hi],
+        outs.append(_Flash.apply(q_blk, k[:, lo_al:hi], v[:, lo_al:hi],
                                  pos_offset + qi * cq, lo_al, window, causal,
-                                 ck)
-        outs.append(out)
+                                 ck))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
@@ -272,7 +368,7 @@ def attention_block(p, x, positions, cfg, cache=None, pos=None):
         # an identity on one card)
         q_chunk = s if getattr(cfg, "seq_shard_attn", False) else cfg.q_chunk
         if (getattr(cfg, "repeat_kv", False)
-                and not _kernel_route(q, k, v, 0, True)):
+                and not _kernel_route(q, k, 0, True)):
             rep = q.shape[2] // k.shape[2]
             kk = kk.repeat_interleave(rep, dim=2)
             vv = vv.repeat_interleave(rep, dim=2)

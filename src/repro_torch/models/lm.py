@@ -1,5 +1,5 @@
-"""Generic decoder LM over block segments (``repro.models.lm``), the serving
-forward.
+"""Generic decoder LM over block segments (``repro.models.lm``): the
+serving forward and the training loss.
 
 A model is a tuple of :class:`Segment`s (block kind, mlp kind, count).
 Consecutive layers of a segment share structure, so their parameters are
@@ -11,23 +11,31 @@ Entry points:
 * ``forward``: logits over full sequences;
 * ``prefill``: last-position logits, filling the caches;
 * ``decode_step``: one token against the caches;
-* ``cache_specs``: the ParamSpec tree of the serving caches.
+* ``cache_specs``: the ParamSpec tree of the serving caches;
+* ``lm_loss``: the mean token cross-entropy, chunked over the sequence when
+  ``cfg.logit_chunk`` divides it, each chunk's head and CE under
+  ``torch.utils.checkpoint`` as the reference wraps them in
+  ``jax.checkpoint``.
+
+Layers are rematerialised as ``cfg.remat`` says (``_maybe_remat``): ``full``
+checkpoints each layer, ``dots`` saves only the outputs of matrix products
+with no batch dimension (the reference's
+``dots_with_no_batch_dims_saveable``).
 
 Ported so far: attention blocks with dense (SwiGLU) or no MLP, which covers
 internlm2, h2o-danube, phi3-medium and llava-next. MLA, MoE, Mamba2, xLSTM,
 the hybrid shared block and the MTP head raise ``NotImplementedError``
-naming their ROADMAP item; ``lm_loss`` and rematerialisation come with LM
-training. Caches are updated in place (the reference donates them) and the
-same dicts are returned.
+naming their ROADMAP item. Caches are updated in place (the reference
+donates them) and the same dicts are returned.
 """
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from . import layers as L
@@ -35,7 +43,7 @@ from . import mamba2 as M
 from . import xlstm as X
 from .mla import MLAConfig
 from .moe import MoEConfig
-from .specs import ParamSpec, is_spec, param, tree_map
+from .specs import ParamSpec, check_tree, is_spec, param, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,15 +168,54 @@ def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
     return x, new_cache
 
 
+def _save_unbatched_products(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of matrix products without a
+    batch dimension (``mm``, and ``bmm`` over a batch of 1, which is how
+    ``einsum`` runs an unbatched contraction); recompute the rest."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op == aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: LMConfig):
+    """``fn`` as ``cfg.remat`` rematerialises it when autograd records (with
+    grad disabled, as in serving, it runs as it is)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": lambda: _ckpt.create_selective_checkpoint_contexts(
+            _save_unbatched_products)}
+    else:
+        raise ValueError(cfg.remat)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return remat
+
+
 def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
                  cache=None, pos=None):
-    """The segment's stacked layers one after another. Returns ``(x,
-    cache)``; each layer writes its slice of the stacked cache in place. (No
-    ported block has an auxiliary loss: the reference's aux is the MoE's.)"""
+    """The segment's stacked layers one after another, each rematerialised
+    as ``cfg.remat`` says when there is no cache. Returns ``(x, cache)``;
+    each layer writes its slice of the stacked cache in place. (No ported
+    block has an auxiliary loss: the reference's aux is the MoE's.)"""
     for li in range(seg.count):
         p_layer = tree_map(lambda a: a[li], p_stack)
-        c_layer = None if cache is None else tree_map(lambda a: a[li], cache)
-        x, _ = _layer_fwd(p_layer, seg, cfg, x, positions, c_layer, pos)
+        if cache is None:
+            body = _maybe_remat(
+                lambda xx, pl=p_layer: _layer_fwd(pl, seg, cfg, xx,
+                                                  positions, None, pos)[0],
+                cfg)
+            x = body(x)
+        else:
+            c_layer = tree_map(lambda a: a[li], cache)
+            x, _ = _layer_fwd(p_layer, seg, cfg, x, positions, c_layer, pos)
     return x, cache
 
 
@@ -226,26 +273,57 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos: int):
     return _head(params, cfg, x), new_cache
 
 
+# ------------------------------------------------------------------- loss ----
+
+def _ce_sum(logits, labels):
+    """Summed CE (fp32) over the valid labels and their count. logits
+    [B,S,V], labels [B,S] (-1 = pad)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    valid = labels >= 0
+    return (torch.where(valid, lse - ll, torch.zeros_like(lse)).sum(),
+            valid.sum())
+
+
+def _token_ce(logits, labels):
+    """Mean CE over tokens (fp32). logits [B,S,V], labels [B,S] (-1 = pad)."""
+    total, count = _ce_sum(logits, labels)
+    return total / count.clamp(min=1)
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels, prefix_embeds=None):
+    """CE (+ the aux losses of blocks not ported yet, all 0 here). Uses
+    chunked CE when ``cfg.logit_chunk`` divides the (unprefixed) sequence:
+    the head and CE of each chunk run under ``torch.utils.checkpoint``, so
+    only one chunk's ``[B, C, V]`` float32 logits is alive at a time.
+    Returns ``(loss, {"ce", "aux", "mtp"})``."""
+    if cfg.mtp:
+        raise _not_ported("the multi-token prediction head")
+    hidden, aux = forward(params, cfg, tokens, prefix_embeds,
+                          return_hidden=True)
+    if cfg.prefix_len:
+        hidden = hidden[:, cfg.prefix_len:]
+    labels = torch.as_tensor(labels, device=hidden.device)
+    if cfg.logit_chunk and hidden.shape[1] % cfg.logit_chunk == 0:
+        c = cfg.logit_chunk
+        tot = torch.zeros((), device=hidden.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+        for i in range(hidden.shape[1] // c):
+            s, n = _ckpt.checkpoint(
+                lambda h, lab: _ce_sum(_head(params, cfg, h), lab),
+                hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+                use_reentrant=False)
+            tot, cnt = tot + s, cnt + n
+        ce = tot / cnt.clamp(min=1)
+    else:
+        ce = _token_ce(_head(params, cfg, hidden), labels)
+    mtp_loss = torch.zeros((), device=hidden.device)
+    loss = ce + aux + cfg.mtp_weight * mtp_loss
+    return loss, {"ce": ce, "aux": aux, "mtp": mtp_loss}
+
+
 # --------------------------------------------------- reference parameters ----
-
-def _check_tree(spec_tree, tree, path=()):
-    where = ".".join(path) or "params"
-    if not isinstance(tree, Mapping):
-        raise ValueError(f"{where}: expected a dict, got {type(tree)}")
-    missing = sorted(set(spec_tree) - set(tree))
-    surplus = sorted(set(tree) - set(spec_tree))
-    if missing or surplus:
-        raise ValueError(f"{where}: missing leaves {missing}, surplus leaves "
-                         f"{surplus}")
-    for k, v in spec_tree.items():
-        if is_spec(v):
-            shape = tuple(np.shape(tree[k]))
-            if shape != v.shape:
-                raise ValueError(f"{where}.{k}: shape {shape}, expected "
-                                 f"{v.shape}")
-        else:
-            _check_tree(v, tree[k], path + (k,))
-
 
 def from_reference_params(cfg: LMConfig, params, device=None):
     """The reference's LM parameters (nested dicts of numpy arrays under its
@@ -254,7 +332,7 @@ def from_reference_params(cfg: LMConfig, params, device=None):
     Raises on a missing or surplus leaf and on a wrong shape."""
     dev = resolve_device(device)
     specs = lm_specs(cfg)
-    _check_tree(specs, params)
+    check_tree(specs, params)
 
     def load(spec_tree, tree):
         return {k: (torch.tensor(np.asarray(tree[k], np.float32))

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 from typing import Any
+
+import numpy as np
 
 import torch
 
@@ -48,6 +51,27 @@ def param(shape, axes, dtype=torch.float32, init="normal",
 
 def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
+
+
+def check_tree(spec_tree, tree, path=()):
+    """Raise ``ValueError`` unless ``tree`` (nested dicts of arrays) has
+    exactly the leaves of ``spec_tree``, each of its spec's shape."""
+    where = ".".join(path) or "params"
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"{where}: expected a dict, got {type(tree)}")
+    missing = sorted(set(spec_tree) - set(tree))
+    surplus = sorted(set(tree) - set(spec_tree))
+    if missing or surplus:
+        raise ValueError(f"{where}: missing leaves {missing}, surplus leaves "
+                         f"{surplus}")
+    for k, v in spec_tree.items():
+        if is_spec(v):
+            shape = tuple(np.shape(tree[k]))
+            if shape != v.shape:
+                raise ValueError(f"{where}.{k}: shape {shape}, expected "
+                                 f"{v.shape}")
+        else:
+            check_tree(v, tree[k], path + (k,))
 
 
 def tree_map(fn, tree):

@@ -1,13 +1,26 @@
-"""AdamW in fp32 with the reference's update rule.
+"""Optimizers with the reference's update rule (``repro.train.optim``).
 
-``repro.train.optim.adamw_update``: decoupled weight decay on matrices only,
-bias correction, global-norm gradient clipping, and ``b2=0.95`` by default::
+``adamw_update``: decoupled weight decay on matrices only, bias correction,
+global-norm gradient clipping, and ``b2=0.95`` by default::
 
     m = b1 m + (1 - b1) g
     v = b2 v + (1 - b2) g²
     p -= lr ((m / c1) / (sqrt(v / c2) + eps) + wd p)     c_i = 1 - b_i^step
 
-The bf16 and int8 moment modes of the reference are not ported yet.
+The moments are stored in float32 (default), bfloat16, or **int8
+channel-quantized** (``state_dtype="int8"``): codes of the parameter's shape
+with per-channel absmax scales over the last axis, ``v`` quantized as
+``sqrt(v)`` and dequantized by squaring, as in the reference.
+
+State is a nested dict ``{"step", "m", "v"}`` mirroring the parameters, as
+the reference's ``adamw_init`` builds it. The reference donates params and
+state to a new copy each step; the port updates every leaf **in place** and
+returns the same trees (at 1.9 B parameters a second set of float32 moments
+would cost 15 GB). ``step`` is a 0-dim int32 tensor on the CPU: the bias
+corrections are host floats computed in float32, as the reference computes
+them. The :class:`AdamW` class (a fixed list of float32 parameters, used by
+the SNN trainer, PPO and the policy baseline) shares the bias corrections and
+the parameter step; its moment update keeps its own rounding order.
 """
 from __future__ import annotations
 
@@ -15,6 +28,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
+from ..models.specs import (ParamSpec, check_tree, is_spec, tree_leaves,
+                             tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +42,220 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip: float = 0.0          # global-norm clip; 0 disables
+    state_dtype: str = "fp32"       # fp32 | bf16 | int8
+
+
+# ---- moment storage ------------------------------------------------------------
+
+def _q8(x, sqrt_domain: bool = False):
+    """Per-channel (last axis) absmax int8. Returns ``(codes, scale)``."""
+    if sqrt_domain:
+        x = torch.sqrt(torch.clamp(x, min=0.0))
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale.float()
+
+
+def _dq8(codes, scale, sqrt_domain: bool = False):
+    x = codes.float() * scale
+    if sqrt_domain:
+        x = torch.square(x)
+    return x
+
+
+def _zeros_state(p, tag: str):
+    if tag == "int8":
+        return {"codes": torch.zeros(p.shape, dtype=torch.int8,
+                                     device=p.device),
+                "scale": torch.ones(p.shape[:-1] + (1,) if p.dim() else (1,),
+                                    dtype=torch.float32, device=p.device)}
+    dt = torch.bfloat16 if tag == "bf16" else torch.float32
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
+def _read_state(s, tag: str, sqrt_domain: bool = False):
+    if tag == "int8":
+        return _dq8(s["codes"], s["scale"], sqrt_domain)
+    return s.float()
+
+
+def _write_state(s, val, tag: str, sqrt_domain: bool = False) -> None:
+    """Store ``val`` (float32) into the moment ``s`` in place."""
+    if tag == "int8":
+        codes, scale = _q8(val, sqrt_domain)
+        s["codes"].copy_(codes)
+        s["scale"].copy_(scale)
+    else:
+        s.copy_(val)
+
+
+def at_path(tree, path):
+    """The node of a nested dict at ``path`` (an int8 moment's node is its
+    ``{"codes", "scale"}`` dict)."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+# ---- the functional API --------------------------------------------------------
+
+def adamw_init(params, cfg: AdamWConfig):
+    """Zero moments beside each parameter (on its device), step 0."""
+    return {
+        "step": torch.zeros((), dtype=torch.int32),
+        "m": tree_map(lambda p: _zeros_state(p, cfg.state_dtype), params),
+        "v": tree_map(lambda p: _zeros_state(p, cfg.state_dtype), params),
+    }
+
+
+def opt_state_specs(param_specs, cfg: AdamWConfig):
+    """ParamSpec tree mirroring :func:`adamw_init`."""
+    def moment(s: ParamSpec):
+        if cfg.state_dtype == "int8":
+            return {
+                "codes": ParamSpec(s.shape, torch.int8, s.axes, "zeros"),
+                "scale": ParamSpec(s.shape[:-1] + (1,) if s.shape else (1,),
+                                   torch.float32,
+                                   s.axes[:-1] + (None,) if s.axes
+                                   else (None,), "zeros"),
+            }
+        dt = torch.bfloat16 if cfg.state_dtype == "bf16" else torch.float32
+        return ParamSpec(s.shape, dt, s.axes, "zeros")
+
+    def walk(tree):
+        if is_spec(tree):
+            return moment(tree)
+        return {k: walk(v) for k, v in tree.items()}
+
+    tm = walk(param_specs)
+    return {"step": ParamSpec((), torch.int32, (), "zeros"), "m": tm,
+            "v": tm}
+
+
+def opt_state_from_reference(param_specs, state, cfg: AdamWConfig,
+                             device=None):
+    """The reference's AdamW state ``{"step", "m", "v"}`` of the parameters
+    ``param_specs`` describes (numpy leaves under its pytree paths; an int8
+    moment is ``{"codes", "scale"}``), as the port's: each moment leaf on
+    ``device`` (``None``: the card) in the dtype :func:`opt_state_specs`
+    gives it for ``cfg``, ``step`` a CPU int32 scalar. bfloat16 moments
+    arrive as any float array holding bfloat16 values and are carried
+    exactly. Raises on a missing or surplus leaf and on a wrong shape."""
+    dev = resolve_device(device)
+    specs = opt_state_specs(param_specs, cfg)
+    check_tree(specs, state)
+
+    def leaf(x, spec):
+        a = (np.asarray(x, np.float32) if spec.dtype.is_floating_point
+             else np.asarray(x))
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=spec.dtype)
+
+    def load(spec_tree, tree):
+        return {k: leaf(tree[k], v) if is_spec(v) else load(v, tree[k])
+                for k, v in spec_tree.items()}
+
+    moments = load({"m": specs["m"], "v": specs["v"]}, state)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32), **moments}
+
+
+def opt_state_to_reference(state):
+    """The port's AdamW state as nested dicts of numpy arrays under the
+    reference's pytree paths: float moments in float32 (numpy has no
+    bfloat16; bfloat16 values are exact there), int8 codes as int8, the
+    step as an int32 scalar."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+    return {"step": np.int32(int(state["step"])),
+            "m": tree_map(host, state["m"]), "v": tree_map(host, state["v"])}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every leaf, in float32, leaves summed in
+    sorted path order."""
+    total = None
+    for _, x in tree_leaves(tree):
+        sq = torch.sum(torch.square(x.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _bias_corrections(step: int, cfg: AdamWConfig):
+    """``1 - b_i^step`` in float32 on the host, as the reference computes
+    them on the device."""
+    s = np.float32(step)
+    return (float(np.float32(1.0) - np.float32(cfg.b1) ** s),
+            float(np.float32(1.0) - np.float32(cfg.b2) ** s))
+
+
+def _adam_moments(g32, m, v, cfg: AdamWConfig):
+    """The new float32 moments from a float32 gradient."""
+    m = cfg.b1 * m + (1 - cfg.b1) * g32
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+    return m, v
+
+
+def _adam_param(p32, m, v, c1: float, c2: float, lr: float, decay: bool,
+                cfg: AdamWConfig):
+    """The new float32 parameter from the new moments."""
+    delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+    if cfg.weight_decay and decay:             # decay matrices only
+        delta = delta + cfg.weight_decay * p32
+    return p32 - lr * delta
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a stacked leaf (``i`` None: the leaf itself); an int8
+    moment ``{"codes", "scale"}`` is cut leaf by leaf."""
+    if i is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: t[i] for k, t in tree.items()}
+    return tree[i]
+
+
+@torch.no_grad()
+def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
+    """One AdamW step, in place. Returns ``(params, state)``: the same
+    trees, updated. The arithmetic is elementwise in float32; a stacked leaf
+    (three or more axes, the layers first) is updated one layer at a time,
+    which gives the same numbers with a layer's worth of temporaries."""
+    step = int(state["step"]) + 1
+    state["step"].fill_(step)
+    tag = cfg.state_dtype
+    scale = None
+    if cfg.grad_clip > 0:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    c1, c2 = _bias_corrections(step, cfg)
+    lr = cfg.lr * lr_scale
+    for path, p in tree_leaves(params):
+        g, m_s, v_s = (at_path(t, path) for t in (grads, state["m"],
+                                                  state["v"]))
+        for i in range(p.shape[0]) if p.dim() >= 3 else (None,):
+            pi = _layer(p, i)
+            g32 = _layer(g, i).float()
+            if scale is not None:
+                g32 = g32 * scale
+            mi, vi = _layer(m_s, i), _layer(v_s, i)
+            m, v = _adam_moments(g32, _read_state(mi, tag),
+                                 _read_state(vi, tag, True), cfg)
+            pi.copy_(_adam_param(pi.float(), m, v, c1, c2, lr, p.dim() >= 2,
+                                 cfg))
+            _write_state(mi, m, tag)
+            _write_state(vi, v, tag, True)
+    return params, state
+
+
+@torch.no_grad()
+def sgd_update(grads, params, lr: float):
+    """``p - lr g`` in float32, cast back to each parameter's dtype; in
+    place, returns ``params``."""
+    for path, p in tree_leaves(params):
+        p.copy_(p.float() - lr * at_path(grads, path).float())
+    return params
 
 
 class AdamW:
@@ -47,15 +278,12 @@ class AdamW:
             gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             grads = [g * scale for g in grads]
-        # bias corrections in float32, as the reference computes them
-        step = np.float32(self.step)
-        c1 = float(np.float32(1.0) - np.float32(cfg.b1) ** step)
-        c2 = float(np.float32(1.0) - np.float32(cfg.b2) ** step)
+        c1, c2 = _bias_corrections(self.step, cfg)
         lr = cfg.lr * lr_scale
         for p, g, m, v in zip(self.params, grads, self.m, self.v):
+            # (1 - b2) g g, rounded after each product: this class's own
+            # order, kept so that its results stay bit for bit; the
+            # functional update squares first, as the reference does
             m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-            delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-            if cfg.weight_decay and p.dim() >= 2:      # decay matrices only
-                delta = delta + cfg.weight_decay * p
-            p.copy_(p - lr * delta)
+            p.copy_(_adam_param(p, m, v, c1, c2, lr, p.dim() >= 2, cfg))

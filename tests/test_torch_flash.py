@@ -9,6 +9,13 @@ float32 softmax; the sums run in another order); bfloat16 within
 atol=rtol=1e-2 of the reference's bfloat16 output (about two roundings of a
 value near 1 at bfloat16's 2^-8 relative step). The CUDA kernel itself is
 held against the plain version on the card (``test_torch_kernels_gpu.py``).
+
+The backward: ``flash_attention_backward_plain``, the model's CPU route
+(``layers._Flash``, the reference's custom VJP per q chunk) and the
+whole-sequence ``layers._FlashAttention`` on CPU tensors are held against
+``jax.vjp`` of the reference's ``blockwise_attention`` (which runs its own
+custom VJP) within rtol 1e-4 / atol 1e-6 (float32), and the plain lse
+against the reference's ``_flash_fwd_impl`` within 2e-5.
 """
 import os
 
@@ -17,13 +24,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as r_ops  # noqa: E402
+from repro.models import layers as r_layers  # noqa: E402
 from repro.kernels import ref as r_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as p_fa  # noqa: E402
 from repro_torch.kernels import ops as p_ops  # noqa: E402
 from repro_torch.kernels import ref as p_ref  # noqa: E402
+from repro_torch.models import layers as p_layers  # noqa: E402
 
 
 def _qkv(seed, b, h, hkv, s, d):
@@ -154,3 +164,88 @@ def test_flash_attention_takes_reference_keywords_and_dtypes(dtypes, kw):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
+
+
+# ---- the backward (the reference's custom VJP) ----------------------------------
+
+def _bshd_inputs(seed, s, h, hkv, d=16):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((2, s, h, d)) * 0.4).astype(np.float32)
+    k = (rng.standard_normal((2, s, hkv, d)) * 0.4).astype(np.float32)
+    v = rng.standard_normal((2, s, hkv, d)).astype(np.float32)
+    g = rng.standard_normal((2, s, h, d)).astype(np.float32)
+    return q, k, v, g
+
+
+def _reference_vjp(q, k, v, g, window):
+    @jax.jit
+    def f(q, k, v, g):
+        out, vjp = jax.vjp(lambda *a: r_layers.blockwise_attention(
+            *a, window=window, q_chunk=64, k_chunk=32), q, k, v)
+        return (out,) + vjp(g)
+    return [np.asarray(x) for x in f(*(jnp.asarray(a) for a in (q, k, v, g)))]
+
+
+@pytest.mark.parametrize("s", [17, 64, 160])
+@pytest.mark.parametrize("window", [None, 23])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4)])
+def test_backward_matches_reference_vjp(s, window, h, hkv):
+    """The plain backward, the CPU Function of the model (q chunks of 64,
+    kv sub-chunks of 32) and the whole-sequence Function on CPU tensors,
+    each against ``jax.vjp`` of the reference's blockwise attention."""
+    q, k, v, g = _bshd_inputs(s + h + hkv, s, h, hkv)
+    want = _reference_vjp(q, k, v, g, window)
+
+    def check(got):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(np.asarray(a), b, rtol=1e-4,
+                                       atol=1e-6)
+
+    bhsd = [torch.tensor(a).transpose(1, 2) for a in (q, k, v, g)]
+    lse = torch.empty(2, h, s)
+    out = p_fa.flash_attention_plain(*bhsd[:3], window=window, lse=lse)
+    grads = p_fa.flash_attention_backward_plain(*bhsd[:3], out, bhsd[3], lse,
+                                                window=window)
+    check([t.transpose(1, 2).numpy() for t in (out,) + grads])
+    for fn in (lambda *t: p_layers.blockwise_attention(
+                   *t, window=window, q_chunk=64, k_chunk=32),
+               lambda *t: p_layers._FlashAttention.apply(*t, window)):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, torch.tensor(g))
+        check([out.detach().numpy()] + [t.numpy() for t in grads])
+
+
+@pytest.mark.parametrize("s,window", [(40, None), (77, 24)])
+def test_plain_lse_matches_reference(s, window):
+    q, k, v, _ = _bshd_inputs(s, s, 4, 2)
+    _, want = r_layers._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), 0, 0, window, True, s)
+    lse = torch.empty(2, 4, s)
+    p_fa.flash_attention_plain(*(torch.tensor(a).transpose(1, 2)
+                                 for a in (q, k, v)), window=window, lse=lse)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want).reshape(2, 4, s), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("route", ["chunks", "whole"])
+def test_attention_saves_only_the_custom_vjp_residuals(route):
+    """Under autograd the attention keeps ``(q, k, v, out, lse)`` (k and v
+    as the kv slices of each q chunk) and no score block: the memory of the
+    reference's custom VJP, not of differentiating the online-softmax
+    loop."""
+    s, h, hkv, d = 96, 4, 2, 16
+    q, k, v, _ = _bshd_inputs(0, s, h, hkv, d)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+        if route == "chunks":
+            p_layers.blockwise_attention(*leaves, q_chunk=32, k_chunk=32)
+        else:
+            p_layers._FlashAttention.apply(*leaves, None)
+    allowed = {(2, c, n, d) for c in range(1, s + 1) for n in (h, hkv)}
+    allowed |= {(2, hkv, h // hkv, 32), (2, h, s)}          # lse
+    assert saved and set(saved) <= allowed, set(saved) - allowed
+    assert len(saved) == 5 * (3 if route == "chunks" else 1)

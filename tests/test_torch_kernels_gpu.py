@@ -27,8 +27,13 @@ results repeat bit for bit. A full-width Spike-VGG16 training step
 through the LIF kernel is bit-identical to the same step through the plain
 version, with deterministic cuDNN. The flash-attention kernel agrees with
 its plain version within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, and
-a smoke-size model served on the card goes through it; attention gradients
-on the card (the plain route) match the CPU's within 1e-4. The annealing
+a smoke-size model served on the card goes through it; its lse matches the
+plain version's within 1e-5 (float32). The flash backward kernel agrees with
+its plain version within 1e-4 of each gradient's largest magnitude in
+float32 and relative L2 2e-2 in bfloat16 (the tensor cores up to D 128),
+and repeats bit for bit; attention gradients on the card (through both
+kernels) match the CPU's within 1e-4, as do a smoke-size model's loss and
+gradients under remat. The annealing
 kernel ``sa_chains`` is bit-identical to the plain loop that launches
 ``delta_cost`` once a step: best slots, best costs and the whole
 trajectory. float16 and mixed inputs of the compute kernels run in float32
@@ -52,6 +57,7 @@ from repro_torch.kernels.delta_cost import (delta_cost,  # noqa: E402
                                             delta_cost_plain, sa_chains,
                                             sa_chains_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward_kernel, flash_attention_backward_plain,
     flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.lif import (  # noqa: E402
     lif_backward_kernel, lif_backward_plain, lif_step_kernel, lif_step_plain)
@@ -1071,10 +1077,11 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda):
 
 @pytest.mark.parametrize("window", [None, 37])
 def test_attention_gradients_on_the_card_match_the_cpu(cuda, window):
-    """q/k/v that require grad take the plain route on the card (no flash
-    launch), and autograd's gradients there match the CPU's within
-    rtol=atol=1e-4 (float32, sums in another order); without grad the same
-    call launches the kernel."""
+    """q/k/v that require grad take the kernel route on the card: one flash
+    forward launch (writing lse) and one backward call; the gradients match
+    the CPU's (the reference's custom VJP in plain torch) within
+    rtol=atol=1e-4 (float32, sums in another order). Without grad the same
+    call launches only the forward kernel."""
     from repro_torch.models import layers
     q, k, v = (t.transpose(1, 2).contiguous()
                for t in _flash_inputs(cuda, 2, 8, 4, 96, 32, torch.float32))
@@ -1083,22 +1090,191 @@ def test_attention_gradients_on_the_card_match_the_cpu(cuda, window):
     grads = {}
     for dev in (cuda, torch.device("cpu")):
         leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
-        before = flash_attention_kernel.launches
+        before = (flash_attention_kernel.launches,
+                  flash_attention_backward_kernel.launches)
         out = layers.blockwise_attention(*leaves, window=window, q_chunk=32,
                                          k_chunk=32)
         (out * g.to(dev)).sum().backward()
-        assert flash_attention_kernel.launches == before
+        on_card = int(dev.type == "cuda")
+        assert (flash_attention_kernel.launches,
+                flash_attention_backward_kernel.launches) == (
+                    before[0] + on_card, before[1] + on_card)
         grads[dev.type] = [out.detach().cpu()] + [t.grad.cpu()
                                                   for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    before = flash_attention_kernel.launches
+    before = (flash_attention_kernel.launches,
+              flash_attention_backward_kernel.launches)
     with torch.no_grad():
         out = layers.blockwise_attention(q.requires_grad_(), k, v,
                                          window=window)
-    assert flash_attention_kernel.launches == before + 1
+    assert (flash_attention_kernel.launches,
+            flash_attention_backward_kernel.launches) == (before[0] + 1,
+                                                          before[1])
     torch.testing.assert_close(out.cpu(), grads["cpu"][0], rtol=1e-4,
                                atol=1e-4)
+
+
+# (b, h, hkv, s, d, window, dtype, causal): the trained internlm2 layer's
+# heads at a shorter S, h2o-danube's D 80 and window, the smoke configs'
+# float32 shape, odd S and D, D 256, GQA 1/2/4 and non-causal input
+FLASH_BWD_CASES = [
+    (2, 16, 8, 512, 128, None, torch.bfloat16, True),
+    (1, 8, 2, 300, 80, 100, torch.bfloat16, True),
+    (2, 4, 2, 40, 16, None, torch.float32, True),
+    (2, 4, 2, 40, 16, 24, torch.float32, True),
+    (1, 4, 1, 77, 20, None, torch.float32, True),
+    (1, 4, 4, 77, 20, 5, torch.bfloat16, True),
+    (2, 4, 2, 130, 48, None, torch.float32, False),
+    (1, 4, 2, 100, 256, 37, torch.float32, True),
+    (1, 2, 1, 65, 256, None, torch.bfloat16, True),
+    (2, 8, 2, 1, 64, None, torch.float32, True),
+]
+
+
+def _bwd_inputs(dev, b, h, hkv, s, d, window, dtype, causal, seed=0):
+    q, k, v = _flash_inputs(dev, b, h, hkv, s, d, dtype, seed)
+    lse = torch.empty(b, h, s, device=dev)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                 lse=lse)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                       .manual_seed(seed + 1), device=dev).to(dtype)
+    return q, k, v, out, dout, lse
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window,dtype,causal", FLASH_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(cuda, b, h, hkv, s, d,
+                                                       window, dtype, causal):
+    """float32 within 1e-4 of each gradient's largest magnitude (float32
+    sums in another order), plus 1e-5 absolute where a gradient is zero up
+    to rounding (S = 1: ds = p (dp - delta) cancels exactly, leaving
+    float32 noise of the size eps |dp| scale); bfloat16 within relative L2
+    2e-2 per gradient (float32 arithmetic on bfloat16 inputs, one rounding
+    of each result)."""
+    args = _bwd_inputs(cuda, b, h, hkv, s, d, window, dtype, causal)
+    before = flash_attention_backward_kernel.launches
+    got = flash_attention_backward_kernel(*args, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_backward_kernel.launches == before + 1
+    want = flash_attention_backward_plain(*args, causal=causal,
+                                          window=window)
+    for g, w, like in zip(got, want, args[:3]):
+        assert g.dtype == like.dtype and g.shape == like.shape
+        assert bool(torch.isfinite(g.float()).all())
+        if dtype == torch.float32:
+            bound = 1e-4 * w.abs().max().item() + 1e-5
+            assert (g - w).abs().max().item() <= bound
+        else:
+            assert _rel_l2(g, w) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_forward_lse_matches_plain(cuda, dtype):
+    """The forward's lse within 1e-5 of the plain version's in float32 and
+    1e-4 in bfloat16 (the tensor-core kernel keeps m in log2 units); with
+    and without lse the output is bit-identical."""
+    for b, h, hkv, s, d, window in [(2, 4, 2, 200, 80, 50),
+                                    (1, 16, 8, 512, 128, None),
+                                    (1, 3, 1, 77, 20, 5)]:
+        q, k, v = _flash_inputs(cuda, b, h, hkv, s, d, dtype)
+        lse = torch.full((b, h, s), float("nan"), device=cuda)
+        out = flash_attention_kernel(q, k, v, window=window, lse=lse)
+        plain = torch.empty_like(lse)
+        flash_attention_plain(q, k, v, window=window, lse=plain)
+        tol = 1e-5 if dtype == torch.float32 else 1e-4
+        torch.testing.assert_close(lse, plain, rtol=tol, atol=tol)
+        assert torch.equal(out, flash_attention_kernel(q, k, v,
+                                                       window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype):
+    """BSHD views in and out, as the model's Function hands them over; two
+    calls give bit-identical gradients (no atomics)."""
+    def view(t):
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+    *tensors, lse = _bwd_inputs(cuda, 2, 8, 2, 150, 64, 40, dtype, True)
+    args = [view(t) for t in tensors]
+    assert not args[0].is_contiguous()
+    grads = [view(torch.zeros_like(t)) for t in args[:3]]
+    got = flash_attention_backward_kernel(*args, lse, window=40, dq=grads[0],
+                                          dk=grads[1], dv=grads[2])
+    assert all(a is b for a, b in zip(got, grads))
+    again = flash_attention_backward_kernel(*args, lse, window=40)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_backward_plain(*(t.contiguous() for t in args),
+                                          lse, window=40)
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_flash_attention_backward_kernel_rejects_bad_inputs(cuda):
+    q, k, v, out, dout, lse = _bwd_inputs(cuda, 1, 4, 2, 64, 32, None,
+                                          torch.float32, True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_kernel(q, k, v, out, dout, None)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_backward_kernel(q, k, v, out, dout, lse.double())
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_backward_kernel(q, k, v, out, dout[:, :2], lse)
+    with pytest.raises(TypeError):
+        flash_attention_backward_kernel(q.double(), k, v, out.double(),
+                                        dout, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_backward_kernel(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v, out, dout,
+            lse)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_backward_kernel(q, k.cpu(), v, out, dout, lse)
+    with pytest.raises(ValueError, match="dk"):
+        flash_attention_backward_kernel(q, k, v, out, dout, lse,
+                                        dk=torch.empty_like(q))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b"])
+def test_lm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """A smoke-size model's loss and every gradient leaf on the card
+    (remat "full", chunked CE; each layer's attention through the flash
+    forward and backward kernels, float32) against the same model on the
+    CPU (the reference's custom VJP in plain torch): loss within rtol 1e-5,
+    gradients within rtol 1e-4 / atol 1e-6 of float32 sums in another
+    order."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize, tree_leaves, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), remat="full",
+                              logit_chunk=8)
+    cpu = materialize(lm.lm_specs(cfg), torch.Generator().manual_seed(0),
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 48)))
+    labels = torch.as_tensor(rng.integers(-1, cfg.vocab, (2, 48)))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(), cpu)
+        leaves = [t for _, t in tree_leaves(params)]
+        before = (flash_attention_kernel.launches,
+                  flash_attention_backward_kernel.launches)
+        loss, _ = lm.lm_loss(params, cfg, toks.to(dev), labels.to(dev))
+        grads = torch.autograd.grad(loss, leaves)
+        on_card = int(dev.type == "cuda")
+        assert (flash_attention_kernel.launches,
+                flash_attention_backward_kernel.launches) == (
+                    before[0] + 2 * cfg.n_layers * on_card,
+                    before[1] + cfg.n_layers * on_card)
+        res[dev.type] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 # float16 and mixed inputs: (u, s, current) dtypes for LIF, (spikes, w) for

@@ -1,0 +1,442 @@
+"""The port's LM training against the JAX package's, on the CPU.
+
+Inputs are made with numpy and handed to both packages; the reference's
+weights are carried across with ``lm.from_reference_params``. Tolerances
+(float32): losses within rtol 1e-5, gradients within rtol 1e-4 / atol 1e-6
+(the same sums in another order, through two layers); AdamW with float32
+moments within 1e-6; bfloat16 moments within one bfloat16 step (the
+float32 moments they round from differ in the last bits); int8 moments
+with codes equal except at rounding ties (within one code) and dequantised
+moments within one code step; train steps and the launcher's losses within
+1e-4 over their steps.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.launch.train as r_launch  # noqa: E402
+import repro_torch.launch.train as p_launch  # noqa: E402
+from repro.configs import registry as r_reg  # noqa: E402
+from repro.models import lm as r_lm  # noqa: E402
+from repro.models import specs as r_specs  # noqa: E402
+from repro.train import optim as r_optim  # noqa: E402
+from repro.train import step as r_step  # noqa: E402
+from repro_torch.configs import registry as p_reg  # noqa: E402
+from repro_torch.models import lm as p_lm  # noqa: E402
+from repro_torch.models import specs as p_specs  # noqa: E402
+from repro_torch.train import optim as p_optim  # noqa: E402
+from repro_torch.train import step as p_step  # noqa: E402
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k],
+                                                          path + (k,))]
+    return [(path, tree)]
+
+
+def _to_torch(tree):
+    return {k: _to_torch(v) if isinstance(v, dict)
+            else torch.tensor(np.asarray(v, np.float32)).to(
+                torch.bfloat16 if v.dtype == jnp.bfloat16 else
+                torch.float32)
+            for k, v in tree.items()}
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+# ---- optimizer -----------------------------------------------------------------
+
+def _opt_inputs(seed):
+    """A float32 matrix, a bfloat16 matrix, a stacked 3-axis leaf (updated
+    layer by layer in the port) and a vector (no weight decay)."""
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.standard_normal((6, 8)).astype(np.float32),
+              "h": rng.standard_normal((4, 16)).astype(np.float32),
+              "stack": {"k": rng.standard_normal((3, 4, 5))
+                        .astype(np.float32)},
+              "b": rng.standard_normal(7).astype(np.float32)}
+    grads = [{k: (rng.standard_normal(np.shape(v)) * 3).astype(np.float32)
+              if not isinstance(v, dict) else
+              {"k": (rng.standard_normal((3, 4, 5)) * 3).astype(np.float32)}
+              for k, v in params.items()} for _ in range(3)]
+    rp = {k: jnp.asarray(v) if not isinstance(v, dict) else
+          {"k": jnp.asarray(v["k"])} for k, v in params.items()}
+    rp["h"] = rp["h"].astype(jnp.bfloat16)
+    return rp, grads
+
+
+def _bf16_step(x):
+    """One bfloat16 step (ulp) at each element of ``x``."""
+    x = np.abs(np.asarray(x, np.float64))
+    e = np.floor(np.log2(np.maximum(x, 1e-38)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
+def test_adamw_update_matches_reference(state_dtype):
+    cfg_kw = dict(lr=1e-2, weight_decay=0.1, grad_clip=1.0,
+                  state_dtype=state_dtype)
+    rcfg = r_optim.AdamWConfig(**cfg_kw)
+    pcfg = p_optim.AdamWConfig(**cfg_kw)
+    rp, grads = _opt_inputs(0)
+    pp = _to_torch(rp)
+    ro, po = r_optim.adamw_init(rp, rcfg), p_optim.adamw_init(pp, pcfg)
+    for g in grads:
+        rg = jax.tree_util.tree_map(jnp.asarray, g)
+        rp, ro = r_optim.adamw_update(rg, ro, rp, rcfg)
+        out = p_optim.adamw_update(_to_torch(g), po, pp, pcfg)
+        assert out[0] is pp and out[1] is po            # in place
+    assert int(po["step"]) == int(ro["step"]) == 3
+    for (path, a), (_, b) in zip(_leaves(pp), _leaves(_np_tree(rp))):
+        assert a.dtype == (torch.bfloat16 if path == ("h",) else
+                           torch.float32)
+        if state_dtype == "fp32" or path != ("h",):
+            np.testing.assert_allclose(_f32(a), _f32(b), rtol=1e-5,
+                                       atol=1e-5 if state_dtype == "int8"
+                                       else 1e-6, err_msg=str(path))
+    for which in ("m", "v"):
+        if state_dtype == "int8":
+            for path, leaf in _leaves(po[which]):
+                if path[-1] != "codes":
+                    continue
+                ref = ro[which]
+                for k in path:
+                    ref = ref[k]
+                scale = _leaves(po[which])[[p for p, _ in
+                                            _leaves(po[which])].index(
+                    path[:-1] + ("scale",))][1]
+                diff = np.abs(leaf.numpy().astype(int)
+                              - np.asarray(ref).astype(int))
+                assert diff.max() <= 1, path       # rounding ties only
+                ref_s = ro[which]
+                for k in path[:-1] + ("scale",):
+                    ref_s = ref_s[k]
+                deq_p = leaf.float() * scale
+                deq_r = np.asarray(ref, np.float32) * np.asarray(ref_s)
+                assert np.all(np.abs(deq_p.numpy() - deq_r)
+                              <= 1.01 * np.asarray(ref_s)), path
+        else:
+            for (path, a), (_, b) in zip(_leaves(po[which]),
+                                         _leaves(_np_tree(ro[which]))):
+                if state_dtype == "fp32":
+                    np.testing.assert_allclose(a.numpy(), b, rtol=1e-6,
+                                               atol=1e-6, err_msg=str(path))
+                else:
+                    assert a.dtype == torch.bfloat16
+                    assert np.all(np.abs(_f32(a) - _f32(b))
+                                  <= _bf16_step(_f32(b))), path
+
+
+def test_adamw_first_step_is_lr_signed():
+    """After bias correction, |first update| == lr for any grad scale (the
+    reference's test)."""
+    cfg = p_optim.AdamWConfig(lr=0.01, eps=1e-12)
+    params = {"w": torch.ones(4)}
+    opt = p_optim.adamw_init(params, cfg)
+    g = torch.tensor([1.0, -3.0, 0.5, -0.1])
+    p_optim.adamw_update({"w": g}, opt, params, cfg)
+    np.testing.assert_allclose((1 - params["w"]).numpy(),
+                               0.01 * np.sign(g.numpy()), rtol=1e-4)
+
+
+@pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
+def test_opt_state_specs_mirror_init(state_dtype):
+    cfg = p_optim.AdamWConfig(state_dtype=state_dtype)
+    specs = {"a": p_specs.param((8, 16), ("embed", "mlp")),
+             "b": p_specs.param((4,), ("embed",)),
+             "c": {"d": p_specs.param((2, 3, 5), ("layers", "embed", "mlp"),
+                                      dtype=torch.bfloat16)}}
+    params = p_specs.materialize(specs, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    live = [(p, (tuple(t.shape), t.dtype))
+            for p, t in _leaves(p_optim.adamw_init(params, cfg))]
+    spec = [(p, (tuple(s.shape), s.dtype))
+            for p, s in _leaves(p_optim.opt_state_specs(specs, cfg))]
+    assert live == spec
+    r_specs_tree = {"a": r_specs.param((8, 16), ("embed", "mlp")),
+                    "b": r_specs.param((4,), ("embed",)),
+                    "c": {"d": r_specs.param((2, 3, 5),
+                                             ("layers", "embed", "mlp"),
+                                             dtype=jnp.bfloat16)}}
+    r_spec = r_optim.opt_state_specs(
+        r_specs_tree, r_optim.AdamWConfig(state_dtype=state_dtype))
+    flat = jax.tree_util.tree_flatten_with_path(
+        r_spec, is_leaf=lambda x: isinstance(x, r_specs.ParamSpec))[0]
+    assert [(tuple(str(getattr(k, "key", k)) for k in path), s.shape,
+             s.axes) for path, s in flat] == [
+        (p, s.shape, s.axes)
+        for p, s in _leaves(p_optim.opt_state_specs(specs, cfg))]
+
+
+def test_global_norm_and_sgd_match_reference():
+    rp, grads = _opt_inputs(1)
+    g = grads[0]
+    want = r_optim.global_norm(jax.tree_util.tree_map(jnp.asarray, g))
+    got = p_optim.global_norm(_to_torch(g))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    pp = _to_torch(rp)
+    out = p_optim.sgd_update(_to_torch(g), pp, 0.05)
+    assert out is pp
+    ref = r_optim.sgd_update(jax.tree_util.tree_map(jnp.asarray, g), rp,
+                             0.05)
+    for (path, a), (_, b) in zip(_leaves(pp), _leaves(_np_tree(ref))):
+        assert a.dtype == (torch.bfloat16 if path == ("h",) else
+                           torch.float32)
+        np.testing.assert_array_equal(_f32(a), _f32(b))
+
+
+# ---- train step ------------------------------------------------------------------
+
+def _linear_loss(lib):
+    def loss_fn(params, batch):
+        pred = batch["x"] @ params["w"]
+        l = ((pred - batch["y"]) ** 2).mean()
+        return l, {"ce": l, "scale": l * 2}
+    return loss_fn
+
+
+@pytest.mark.parametrize("accum,compression", [(1, "none"), (2, "none"),
+                                               (1, "int8_ef"),
+                                               (2, "int8_ef")])
+def test_make_train_step_matches_reference(accum, compression):
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((8, 3)).astype(np.float32)
+    batches = [{"x": rng.standard_normal((16, 8)).astype(np.float32),
+                "y": rng.standard_normal((16, 3)).astype(np.float32)}
+               for _ in range(3)]
+    kw = dict(adam=dict(lr=1e-2, grad_clip=1.0), accum_steps=accum,
+              grad_compression=compression)
+    rt = r_step.TrainConfig(adam=r_optim.AdamWConfig(**kw["adam"]),
+                            accum_steps=accum, grad_compression=compression)
+    pt = p_step.TrainConfig(adam=p_optim.AdamWConfig(**kw["adam"]),
+                            accum_steps=accum, grad_compression=compression)
+    r_fn = r_step.make_train_step(_linear_loss(jnp), rt)
+    p_fn = p_step.make_train_step(_linear_loss(torch), pt)
+    rp, pp = {"w": jnp.asarray(w)}, {"w": torch.tensor(w)}
+    ro, po = r_step.init_optimizer(rp, rt), p_step.init_optimizer(pp, pt)
+    re, pe = r_step.error_state_init(rp), p_step.error_state_init(pp)
+    for bt in batches:
+        rb = {k: jnp.asarray(v) for k, v in bt.items()}
+        pb = {k: torch.tensor(v) for k, v in bt.items()}
+        if compression == "int8_ef":
+            rp, ro, rm, re = r_fn(rp, ro, rb, re)
+            pp, po, pm, pe = p_fn(pp, po, pb, pe)
+            np.testing.assert_allclose(pe["w"].numpy(), np.asarray(re["w"]),
+                                       atol=1e-5)
+        else:
+            rp, ro, rm = r_fn(rp, ro, rb)
+            pp, po, pm = p_fn(pp, po, pb)
+        assert set(pm) == set(rm) == {"ce", "scale", "loss"}
+        for k in rm:
+            np.testing.assert_allclose(float(pm[k]), float(rm[k]), rtol=1e-5)
+    np.testing.assert_allclose(pp["w"].detach().numpy(), np.asarray(rp["w"]),
+                               atol=1e-4)
+
+
+def test_compression_error_feedback_preserves_sum():
+    g = {"w": torch.randn(32, 64, generator=torch.Generator().manual_seed(1))
+         * 3.0}
+    err = p_step.error_state_init(g)
+    sent, resid = p_step.compress_grads(g, err)
+    assert resid is err
+    np.testing.assert_allclose((sent["w"] + resid["w"]).numpy(),
+                               g["w"].numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---- lm_loss -----------------------------------------------------------------------
+
+S = 32
+LOSS_CASES = ([("internlm2-1.8b", chunk, remat) for chunk in (0, 8)
+               for remat in ("none", "full", "dots")]
+              + [("h2o-danube-1.8b", 8, "none"),
+                 ("llava-next-34b", 8, "none")])
+
+
+def _loss_inputs(arch, chunk, remat):
+    rcfg = dataclasses.replace(r_reg.get_smoke_config(arch),
+                               logit_chunk=chunk, remat=remat)
+    pcfg = dataclasses.replace(p_reg.get_smoke_config(arch),
+                               logit_chunk=chunk, remat=remat)
+    rng = np.random.default_rng(3)
+    s = S - rcfg.prefix_len
+    tokens = rng.integers(0, rcfg.vocab, (2, s)).astype(np.int32)
+    labels = rng.integers(-1, rcfg.vocab, (2, s)).astype(np.int32)
+    prefix = ((rng.standard_normal((2, rcfg.prefix_len, rcfg.d_model)) * 0.5)
+              .astype(np.float32) if rcfg.prefix_len else None)
+    params = r_specs.materialize(jax.random.PRNGKey(4), r_lm.lm_specs(rcfg))
+    return rcfg, pcfg, tokens, labels, prefix, params
+
+
+@pytest.mark.parametrize("arch,chunk,remat", LOSS_CASES)
+def test_lm_loss_and_grads_match_reference(arch, chunk, remat):
+    rcfg, pcfg, tokens, labels, prefix, rp = _loss_inputs(arch, chunk, remat)
+
+    def r_loss(p):
+        return r_lm.lm_loss(p, rcfg, jnp.asarray(tokens), jnp.asarray(labels),
+                            None if prefix is None else jnp.asarray(prefix))
+
+    (r_l, r_m), r_g = jax.jit(jax.value_and_grad(r_loss, has_aux=True))(rp)
+    pp = p_lm.from_reference_params(pcfg, _np_tree(rp), device="cpu")
+    leaves = [t.requires_grad_() for _, t in _leaves(pp)]
+    p_l, p_m = p_lm.lm_loss(pp, pcfg, torch.tensor(tokens),
+                            torch.tensor(labels),
+                            None if prefix is None else torch.tensor(prefix))
+    p_g = torch.autograd.grad(p_l, leaves)
+    np.testing.assert_allclose(float(p_l.detach()), float(r_l), rtol=1e-5)
+    for k in ("ce", "aux", "mtp"):
+        np.testing.assert_allclose(float(p_m[k].detach()), float(r_m[k]),
+                                   rtol=1e-5,
+                                   atol=1e-7)
+    for (path, want), got in zip(_leaves(_np_tree(r_g)), p_g):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6,
+                                   err_msg=str(path))
+
+
+def test_lm_loss_refuses_what_is_not_ported():
+    cfg = dataclasses.replace(p_reg.get_smoke_config("internlm2-1.8b"),
+                              remat="bogus")
+    params = p_specs.materialize(p_lm.lm_specs(cfg),
+                                 torch.Generator().manual_seed(0),
+                                 device="cpu")
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="bogus"):
+        p_lm.lm_loss(params, cfg, toks, toks)
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        p_lm.lm_loss(params, dataclasses.replace(cfg, mtp=True), toks, toks)
+
+
+# ---- the launcher -------------------------------------------------------------------
+
+def _record_losses(monkeypatch, module, sink, traced):
+    """Wrap ``module.make_train_step`` so that every step's loss lands in
+    ``sink`` (through a debug callback where the step is traced by jit)."""
+    real = module.make_train_step
+
+    def wrapped(loss_fn, tcfg):
+        step = real(loss_fn, tcfg)
+
+        def recorded(*args):
+            out = step(*args)
+            if traced:
+                jax.debug.callback(lambda l: sink.append(float(l)),
+                                   out[2]["loss"], ordered=True)
+            else:
+                sink.append(float(out[2]["loss"]))
+            return out
+        return recorded
+    monkeypatch.setattr(module, "make_train_step", wrapped)
+
+
+def _reference_init(monkeypatch):
+    """The port's launcher starts from the reference's seeded weights."""
+    def init(cfg, seed, device):
+        rcfg = r_reg.get_smoke_config(cfg.name[:-len("-smoke")])
+        rp = r_specs.materialize(jax.random.PRNGKey(seed),
+                                 r_lm.lm_specs(rcfg))
+        return p_lm.from_reference_params(cfg, _np_tree(rp), device=device)
+    monkeypatch.setattr(p_launch, "init_params", init)
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("internlm2-1.8b", []), ("llava-next-34b", []),
+    ("internlm2-1.8b", ["--grad-compression", "int8_ef"])])
+def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra):
+    ref, port = [], []
+    _record_losses(monkeypatch, r_launch, ref, traced=True)
+    _record_losses(monkeypatch, p_launch, port, traced=False)
+    _reference_init(monkeypatch)
+    argv = ["--arch", arch, "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "32"] + extra
+    r_launch.main(argv)
+    p_launch.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("done") == 2 and out.count("step    5 loss=") == 2
+    assert len(ref) == len(port) == 6
+    np.testing.assert_allclose(port, ref, rtol=0, atol=1e-4)
+
+
+def test_launcher_restarts_from_its_checkpoint(tmp_path, capsys):
+    """3 steps, a checkpoint, a relaunch to 6: the parameters equal 6
+    straight steps' bit for bit."""
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--batch", "2", "--seq",
+            "32", "--device", "cpu"]
+    ckpt = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "3"]
+    p_launch.main(argv + ["--steps", "3"] + ckpt)
+    resumed = p_launch.main(argv + ["--steps", "6"] + ckpt)
+    assert "restored checkpoint at step 3" in capsys.readouterr().out
+    straight = p_launch.main(argv + ["--steps", "6"])
+    for (path, a), (_, b) in zip(_leaves(resumed), _leaves(straight)):
+        assert torch.equal(a, b), path
+    assert sorted(os.listdir(tmp_path)) == ["step_3", "step_6"]
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--arch", "seamless-m4t-medium"], "item 10"),
+    (["--arch", "internlm2-1.8b", "--mesh", "2x4"], "item 11")])
+def test_launcher_refuses_what_is_not_ported(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        p_launch.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
+def test_optimizer_state_carries_across_packages(state_dtype):
+    """The reference trains the smoke internlm2 two steps; its parameters and
+    AdamW state (int8 codes and scales included) carry into the port
+    exactly and back, and one more train step in each package from that
+    same state agrees (loss within rtol 1e-5, parameters within 1e-5)."""
+    rcfg = r_reg.get_smoke_config("internlm2-1.8b")
+    pcfg = p_reg.get_smoke_config("internlm2-1.8b")
+    kw = dict(lr=1e-2, grad_clip=1.0, state_dtype=state_dtype)
+    rt = r_step.TrainConfig(adam=r_optim.AdamWConfig(**kw))
+    pt = p_step.TrainConfig(adam=p_optim.AdamWConfig(**kw))
+    rng = np.random.default_rng(5)
+    batches = [{"tokens": rng.integers(0, rcfg.vocab, (2, 16)),
+                "labels": rng.integers(0, rcfg.vocab, (2, 16))}
+               for _ in range(3)]
+
+    def r_loss(p, bt):
+        return r_lm.lm_loss(p, rcfg, bt["tokens"], bt["labels"])
+
+    def p_loss(p, bt):
+        return p_lm.lm_loss(p, pcfg, bt["tokens"], bt["labels"])
+
+    r_fn = jax.jit(r_step.make_train_step(r_loss, rt))
+    rp = r_specs.materialize(jax.random.PRNGKey(6), r_lm.lm_specs(rcfg))
+    ro = r_step.init_optimizer(rp, rt)
+    for bt in batches[:2]:
+        rp, ro, _ = r_fn(rp, ro, {k: jnp.asarray(v, jnp.int32)
+                                  for k, v in bt.items()})
+    pp = p_lm.from_reference_params(pcfg, _np_tree(rp), device="cpu")
+    po = p_optim.opt_state_from_reference(p_lm.lm_specs(pcfg), _np_tree(ro),
+                                          pt.adam, device="cpu")
+    assert int(po["step"]) == 2
+    back = p_optim.opt_state_to_reference(po)
+    for (path, a), (_, b) in zip(_leaves(back),
+                                 _leaves(_np_tree(ro))):
+        np.testing.assert_array_equal(a, np.asarray(b, a.dtype),
+                                      err_msg=str(path))
+    rp, ro, rm = r_fn(rp, ro, {k: jnp.asarray(v, jnp.int32)
+                               for k, v in batches[2].items()})
+    pp, po, pm = p_step.make_train_step(p_loss, pt)(
+        pp, po, {k: torch.tensor(v) for k, v in batches[2].items()})
+    np.testing.assert_allclose(float(pm["loss"]), float(rm["loss"]),
+                               rtol=1e-5)
+    for (path, a), (_, b) in zip(_leaves(pp), _leaves(_np_tree(rp))):
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=1e-5,
+                                   atol=1e-5, err_msg=str(path))
