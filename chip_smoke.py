@@ -179,7 +179,25 @@ Phases, each of which fails the run loudly:
     6 steps straight against 3, a checkpoint and a relaunch to 6, under
     deterministic algorithms: the step-6 checkpoints bit-identical (in a
     child process, ``--train-restart``, which alone gets
-    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``);
+13. serve the MLA and MoE families: first the bf16 flash kernel at the
+    three served prefill shapes (minicpm3's D 96 with H = Hkv 40, qwen3's
+    D 128 with 32/4 heads, deepseek's D 192 with H = Hkv 128; B4, S2048,
+    causal) against its plain version (1e-2) and timed like phase 9's row
+    (its ``served_shapes`` entries); then, through
+    ``launch.serve.generate`` at batch 4, 2048-token prompts, 32 greedy
+    tokens, seeded bf16 weights and the published capacity factor (1.25):
+    ``minicpm3-4b`` (62 MLA + dense layers) and ``qwen3-moe-30b-a3b`` (48
+    attention + MoE layers, 61 GB of weights drawn in chunks) at full
+    width and depth, ``deepseek-v3-671b`` at full width with its depth cut
+    61 -> 4 (3 dense MLA layers, 1 MoE layer; its MTP weights drawn).
+    Each as phase 10 (one tensor-core flash launch per layer, kernel vs
+    plain prefill within relative L2 5e-2, time to first token, decode per
+    token, profiled prefill and decode step), and two ``generate`` calls
+    must give equal tokens; decode against ``forward`` runs on a dropless
+    copy of the MoE configs (capacity factor E/k) at batch 1; the share of
+    the prefill's assignments dropped at 1.25; each model's peak device
+    memory below the card's; one ``[families]`` JSON line a model.
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
@@ -1646,6 +1664,9 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # decode vs forward): relative L2 error, since 24 layers of bf16 rounding
 # (unit roundoff 2^-9) in other places random-walk to about 1e-2
 LOGITS_REL_TOL = 5e-2
+# one layer's attention, kernel vs plain on the model's own q, k, v: relative
+# L2 of bf16 outputs from float32 sums (a few roundings at 2^-9)
+ATTN_REL_TOL = 1e-2
 
 
 def _check_flash(dev):
@@ -1730,31 +1751,200 @@ def _rel_err(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
-    """Phase 10: serve ``cfg`` at full width through ``launch.serve.generate``
-    (seeded bf16 weights, greedy), with the flash kernel's launches; time to
-    first token and decode per token from the pieces ``generate`` runs;
-    one profiled prefill and decode step; prefill through the plain version
-    of the attention against the kernel's; decode against ``forward``.
-    Returns (flash launches of the main run, kernel-vs-plain rel. error)."""
-    import numpy as np
+def _prefill_last(params, cfg, prompts, attention=None):
+    """The last position's prefill logits ``[B, V]`` of ``prompts``, the
+    attention through ``attention`` where given (else the model's own)."""
     import torch
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize
+    with (_attention_route(attention) if attention is not None
+          else contextlib.nullcontext()):
+        cache = materialize(lm.cache_specs(cfg, *prompts.shape),
+                            device=prompts.device)
+        logits, _ = lm.prefill(params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+    return logits[:, -1]
+
+
+@contextlib.contextmanager
+def _recording_routes(sink):
+    """Within the scope, every MoE routing appends its top-k ids ``[T, k]``
+    to ``sink``, in call order."""
+    from repro_torch.models import moe
+    real = moe._route
+
+    def route(p, xf, cfg):
+        out = real(p, xf, cfg)
+        sink.append(out[1])
+        return out
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+@contextlib.contextmanager
+def _pinned_routes(pick):
+    """Within the scope, the i-th MoE routing call takes the top-k ids
+    ``pick(i)`` instead of its own: the gates are its own softmax at those
+    ids, renormalised as ``moe._route`` does, and so are density and mean
+    probability. Top-k routing is discontinuous: where two experts' router
+    probabilities nearly tie, a bf16 difference anywhere upstream swaps a
+    token's expert and with it about 1/k of its MLP output. A comparison of
+    two routes through a MoE model pins the routing to one of them, so that
+    it measures the arithmetic the two routes share."""
+    import torch
+    from repro_torch.models import moe
+    real = moe._route
+    calls = []
+
+    def route(p, xf, cfg):
+        ids = pick(len(calls))
+        calls.append(ids)
+        probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+        top_p = probs.gather(1, ids)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        density = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts
+                                 ).float() / ids.numel()
+        return top_p, ids, density, probs.mean(dim=0)
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def _layerwise_attention(params, cfg, prompts):
+    """One prefill of ``prompts`` through the flash kernel; at every layer
+    the plain version also runs on the same q, k, v. Returns each layer's
+    relative L2 error of the kernel's output against the plain one's."""
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_plain)
+    errs = []
+
+    def both(q, k, v, *, causal, window, out, lse):
+        flash_attention_kernel(q, k, v, causal=causal, window=window,
+                               out=out, lse=lse)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        errs.append(_rel_err(out, want))
+        return out
+    _prefill_last(params, cfg, prompts, both)
+    return errs
+
+
+def _noisy_embedding(params, seed: int = 5):
+    """``params`` with the embedding table times ``1 + 2^-8 z`` (z standard
+    normal, seeded), rounded back to its dtype: one rounding's worth of
+    noise in the model's input."""
+    import torch
+    table = params["embed"]["table"]
+    gen = torch.Generator(device=table.device).manual_seed(seed)
+    noise = torch.randn(table.shape, generator=gen, device=table.device)
+    noisy = (table.float() * noise.mul_(2 ** -8).add_(1)).to(table.dtype)
+    return {**params, "embed": {"table": noisy}}
+
+
+def _dropped(routes, moe_cfg) -> int:
+    """Assignments past their expert's capacity over recorded routings
+    (each ``[T, k]`` top-k ids): sum over experts of ``count - capacity``
+    where positive, as ``moe._dispatch`` drops them."""
+    import torch
+    from repro_torch.models.moe import _capacity
+    return sum(int((torch.bincount(ids.reshape(-1),
+                                   minlength=moe_cfg.n_experts)
+                    - _capacity(ids.shape[0], moe_cfg)).clamp_min(0).sum())
+               for ids in routes)
+
+
+def _routes_differ(a, b) -> float:
+    """Share of (layer, token) top-k id sets that differ between two
+    recordings of the same calls."""
+    n = sum(x.shape[0] for x in a)
+    d = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b))
+    return d / max(n, 1)
+
+
+def _decode_vs_forward(params, cfg, toks, prompt_len):
+    """Prefill over ``toks[:, :prompt_len]`` and one decode step a token
+    after it, each position's logits against ``forward``'s over all of
+    ``toks``: relative L2 errors, one a position. A MoE model (at batch 1)
+    routes prefill and decode by the ids ``forward`` chose for the same
+    positions (``_pinned_routes``)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize
+    b, total = toks.shape
+    ids = []
+    with _recording_routes(ids):
+        full, _ = lm.forward(params, cfg, toks)
+    n_moe = len(ids)
+    if n_moe and b != 1:
+        raise ValueError("pinned routes need batch 1 (positions = rows)")
+
+    def pick(i):
+        layer, step = i % n_moe, i // n_moe
+        lo = 0 if step == 0 else prompt_len + step - 1
+        return ids[layer][lo:prompt_len + step]
+    with (_pinned_routes(pick) if n_moe else contextlib.nullcontext()):
+        cache = materialize(lm.cache_specs(cfg, b, total), device=toks.device)
+        logits, cache = lm.prefill(params, cfg, toks[:, :prompt_len], cache)
+        seen = [logits[:, -1].clone()]
+        for i in range(prompt_len, total - 1):
+            logits, cache = lm.decode_step(params, cfg, cache,
+                                           toks[:, i:i + 1], i)
+            seen.append(logits[:, -1].clone())
+    del cache
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t.float()).all()) for t in seen):
+        raise AssertionError(f"{cfg.name}: logits are not finite")
+    return [_rel_err(got, full[:, prompt_len - 1 + i])
+            for i, got in enumerate(seen)]
+
+
+def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
+                check_cfg=None, check_batch=None, strict=False):
+    """Phases 10 and 13: serve ``cfg`` at full width through
+    ``launch.serve.generate`` (seeded bf16 weights, greedy), with the flash
+    kernel's launches; time to first token and decode per token from the
+    pieces ``generate`` runs; one profiled prefill and decode step; prefill
+    through the plain version of the attention against the kernel's (a MoE
+    model's routes pinned to the kernel prefill's, its free-running
+    difference printed); prefill + decode against ``forward`` on the first
+    ``check_batch`` rows of the generated tokens, under ``check_cfg``
+    (default: ``cfg`` and the whole batch; a MoE model's routes pinned to
+    ``forward``'s). With ``strict``, two ``generate`` calls must give equal
+    tokens. A MoE model's share of dropped assignments is read from the
+    second call. Returns a dict of the results (``flash`` is the main
+    run's flash launches, ``rel`` the kernel-vs-plain error)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.launch.serve import generate
     from repro_torch.models import lm
     from repro_torch.models.specs import materialize, n_params, param_bytes
     specs = lm.lm_specs(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
-    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+    out = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
+           "prompt_len": prompt_len, "gen_len": gen_len,
+           "parameters": n_params(specs), "param_bytes": param_bytes(specs),
+           "materialize_s": time.perf_counter() - t0,
+           "materialize_peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers "
+          f"{[(g.kind, g.mlp, g.count) for g in cfg.segments]}, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}, kv heads {cfg.n_kv_heads}, "
           f"d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
-          f"{cfg.window}; {n_params(specs)} parameters, {param_bytes(specs)} "
-          f"bytes ({cfg.param_dtype}), drawn on the card in "
-          f"{time.perf_counter() - t0!r} s")
+          f"{cfg.window}, mla {cfg.mla}, moe {cfg.moe}, mtp {cfg.mtp}; "
+          f"{out['parameters']} parameters, {out['param_bytes']} bytes "
+          f"({cfg.param_dtype}), drawn on the card in "
+          f"{out['materialize_s']!r} s, peak device memory while drawing "
+          f"{out['materialize_peak_bytes']} bytes")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab,
                                                 (batch, prompt_len))
     n_new = batch * gen_len
@@ -1770,10 +1960,10 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
     launches = _counts(kernels)
     flash = launches["flash_attention_kernel"]
     tensor_core = launches["flash_attention_kernel.tensor_core"]
+    out["generate_peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[{label}] generate batch {batch}, prompt {prompt_len}, {gen_len} "
           f"greedy tokens: wall {wall_first!r} s (first call); peak device "
-          f"memory {torch.cuda.max_memory_allocated()} bytes; launches "
-          f"{launches}")
+          f"memory {out['generate_peak_bytes']} bytes; launches {launches}")
     if flash != cfg.n_layers or tensor_core != cfg.n_layers:
         raise AssertionError(f"{label}: {flash} flash launches, "
                              f"{tensor_core} on the tensor cores, not one "
@@ -1783,14 +1973,32 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
                                torch.as_tensor(prompts))
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab):
         raise AssertionError(f"{label}: generate returned bad tokens")
+    routes = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks2 = generate(params, cfg, prompts, gen_len, device=dev)
+    with _recording_routes(routes):
+        toks2 = generate(params, cfg, prompts, gen_len, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    out["repeat_equal"] = torch.equal(toks, toks2)
     print(f"[{label}] generate again: wall {wall!r} s, {n_new / wall!r} "
           f"new tokens/s end to end (prefill included); tokens equal to the "
-          f"first call's: {torch.equal(toks, toks2)}")
+          f"first call's: {out['repeat_equal']}")
+    if strict and not out["repeat_equal"]:
+        raise AssertionError(f"{label}: two generate calls gave different "
+                             f"tokens")
+    if cfg.moe is not None:
+        pre = [ids for ids in routes if ids.shape[0] == batch * prompt_len]
+        dec = [ids for ids in routes if ids.shape[0] == batch]
+        total = sum(ids.numel() for ids in pre)
+        out["prefill_dropped_share"] = _dropped(pre, cfg.moe) / total
+        out["decode_dropped"] = _dropped(dec, cfg.moe)
+        print(f"[{label}] MoE at capacity factor "
+              f"{cfg.moe.capacity_factor}: prefill dropped "
+              f"{_dropped(pre, cfg.moe)} of {total} assignments "
+              f"({out['prefill_dropped_share']!r}) over {len(pre)} MoE "
+              f"layers; decode dropped {out['decode_dropped']} over "
+              f"{len(dec)} layer steps")
 
     # time to first token and decode per token: the steps generate takes
     pt = torch.as_tensor(prompts, device=dev)
@@ -1804,7 +2012,6 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
         first = torch.argmax(logits[:, -1], dim=-1)
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
-        seen = [logits[:, -1].clone()]
         steps = []
         for i in range(gen_len):
             t0 = time.perf_counter()
@@ -1814,8 +2021,8 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
             torch.argmax(logits[:, -1], dim=-1)
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
-            seen.append(logits[:, -1].clone())
         step_s = sum(steps[1:]) / max(len(steps) - 1, 1)
+        out.update(ttft_s=ttft, decode_ms=step_s * 1e3)
         print(f"[{label}] time to first token (prefill of {batch} x "
               f"{prompt_len} and the argmax) {ttft!r} s; decode "
               f"{step_s * 1e3!r} ms per token step (mean after the first; "
@@ -1823,32 +2030,83 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
               f"at batch {batch}; first token equal to generate's: "
               f"{torch.equal(first, gen_toks[:, 0])}")
 
-        _profile_step(lambda: lm.prefill(params, cfg, pt, cache),
-                      f"{label}-prefill", "flash_fwd_mma_kernel")
-        _profile_step(lambda: lm.decode_step(params, cfg, cache,
-                                             gen_toks[:, -1:],
-                                             prompt_len + gen_len - 1),
-                      f"{label}-decode", "flash_fwd_mma_kernel")
+        for part, step in (
+                ("prefill", lambda: lm.prefill(params, cfg, pt, cache)),
+                ("decode", lambda: lm.decode_step(
+                    params, cfg, cache, gen_toks[:, -1:],
+                    prompt_len + gen_len - 1))):
+            prof = _profile_step(step, f"{label}-{part}",
+                                 "flash_fwd_mma_kernel")
+            out[f"{part}_busy"] = None if prof is None else prof["busy"]
+            out[f"{part}_kernels"] = None if prof is None else prof["kernels"]
+        del cache
 
-        # the same prefill with the attention's plain version
-        with _attention_route(flash_attention_plain):
-            plain_cache = materialize(
-                lm.cache_specs(cfg, batch, prompt_len + gen_len), device=dev)
-            plain_logits, _ = lm.prefill(params, cfg, pt, plain_cache)
-            torch.cuda.synchronize()
-        kernel_logits = seen[0]
-        rel = _rel_err(kernel_logits, plain_logits[:, -1])
-        mx = (kernel_logits.float() - plain_logits[:, -1].float()).abs().max()
+        # the kernel against its plain version on the model's own q, k, v
+        # at every layer of the prefill (each layer's input from the kernel
+        # route)
+        layer_errs = _layerwise_attention(params, cfg, pt)
+        out["attention_rel_max"] = max(layer_errs)
+        print(f"[{label}] each prefill layer's attention, kernel vs plain "
+              f"on the same q, k, v: relative L2 max "
+              f"{max(layer_errs)!r}, mean "
+              f"{sum(layer_errs) / len(layer_errs)!r} over "
+              f"{len(layer_errs)} layers (tolerance {ATTN_REL_TOL})")
+        if not max(layer_errs) <= ATTN_REL_TOL:
+            raise AssertionError(f"{label}: the flash kernel disagrees with "
+                                 f"its plain version on the model's q, k, v")
+
+        # the whole prefill through the plain attention; a MoE model's
+        # routes pinned to the kernel prefill's
+        kernel_ids, plain_ids = [], []
+        with _recording_routes(kernel_ids):
+            kernel_logits = _prefill_last(params, cfg, pt)
+
+        def pinned():
+            return (_pinned_routes(lambda i: kernel_ids[i]) if kernel_ids
+                    else contextlib.nullcontext())
+        if cfg.moe is not None:
+            with _recording_routes(plain_ids):
+                free = _prefill_last(params, cfg, pt, flash_attention_plain)
+            out["routes_differ"] = _routes_differ(kernel_ids, plain_ids)
+            out["kernel_vs_plain_rel_unpinned"] = _rel_err(kernel_logits,
+                                                           free)
+            print(f"[{label}] prefill through the plain attention with its "
+                  f"own routing: {out['routes_differ']!r} of the (layer, "
+                  f"token) top-{cfg.moe.top_k} sets differ from the kernel "
+                  f"prefill's; last-position logits relative L2 "
+                  f"{out['kernel_vs_plain_rel_unpinned']!r} (not gated: "
+                  f"top-k routing is discontinuous)")
+            del free
+        with pinned():
+            plain_logits = _prefill_last(params, cfg, pt,
+                                         flash_attention_plain)
+        # the model's own response to one bf16 rounding of its input: the
+        # plain prefill again with the embedding table perturbed by 2^-8
+        # relative noise, rounded to bf16
+        with pinned():
+            noisy_logits = _prefill_last(_noisy_embedding(params), cfg, pt,
+                                         flash_attention_plain)
+        del kernel_ids, plain_ids
+        out["input_rounding_rel"] = _rel_err(noisy_logits, plain_logits)
+        tol = max(LOGITS_REL_TOL, out["input_rounding_rel"])
+        out["logits_tol"] = tol
+        rel = _rel_err(kernel_logits, plain_logits)
+        mx = (kernel_logits.float() - plain_logits.float()).abs().max()
         same_tok = torch.equal(kernel_logits.argmax(-1),
-                               plain_logits[:, -1].argmax(-1))
+                               plain_logits.argmax(-1))
+        out["kernel_vs_plain_rel"] = rel
         print(f"[{label}] prefill last-position logits, kernel vs plain "
-              f"attention: relative L2 error {rel!r} (tolerance "
-              f"{LOGITS_REL_TOL}), max abs {mx.item()!r} (logits up to "
-              f"{plain_logits.float().abs().max().item()!r}); greedy first "
-              f"token equal: {same_tok}")
-        if not rel <= LOGITS_REL_TOL:
+              f"attention{'' if cfg.moe is None else ' (routes pinned)'}: "
+              f"relative L2 error {rel!r}, max abs {mx.item()!r} (logits up "
+              f"to {plain_logits.float().abs().max().item()!r}); greedy "
+              f"first token equal: {same_tok}; the plain prefill with one "
+              f"bf16 rounding of noise in the embedding moves them by "
+              f"{out['input_rounding_rel']!r}; tolerance {tol!r} (the "
+              f"larger of {LOGITS_REL_TOL} and that)")
+        if not rel <= tol:
             raise AssertionError(f"{label}: kernel and plain prefill logits "
                                  f"differ by {rel!r}")
+        del noisy_logits
         with _attention_route(flash_attention_plain):
             plain_toks = generate(params, cfg, prompts, gen_len, device=dev)
         agree = (plain_toks[:, prompt_len:] == gen_toks).float().mean()
@@ -1856,22 +2114,28 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels):
               f"the kernel path's: {agree.item()!r} of {n_new} (not gated: "
               f"random-weight bf16 logits tie)")
 
-        # decode against forward on the same tokens
-        full, _ = lm.forward(params, cfg, toks)
-        torch.cuda.synchronize()
-        errs = [_rel_err(got, full[:, prompt_len - 1 + i])
-                for i, got in enumerate(seen)]
+        # prefill + decode against forward on the same tokens
+        ccfg = check_cfg or cfg
+        cb = check_batch or batch
+        errs = _decode_vs_forward(params, ccfg, toks[:cb], prompt_len)
+        out["decode_vs_forward_rel"] = max(errs)
+        how = ("" if ccfg is cfg else
+               f" under a dropless copy of the config (capacity factor "
+               f"{ccfg.moe.capacity_factor}), batch {cb}, routed by "
+               f"forward's ids (the main run's capacity drops assignments "
+               f"in prefill and forward but none in decode)")
         print(f"[{label}] prefill + decode logits vs forward over the "
-              f"{prompt_len + gen_len} tokens: relative L2 error max "
+              f"{prompt_len + gen_len} tokens{how}: relative L2 error max "
               f"{max(errs)!r}, mean {sum(errs) / len(errs)!r} over "
-              f"{len(errs)} positions (tolerance {LOGITS_REL_TOL})")
-        if not max(errs) <= LOGITS_REL_TOL:
+              f"{len(errs)} positions (tolerance {tol!r})")
+        if not max(errs) <= tol:
             raise AssertionError(f"{label}: decode disagrees with forward")
-        if not all(bool(torch.isfinite(t.float()).all()) for t in seen):
-            raise AssertionError(f"{label}: logits are not finite")
-    del params, cache, plain_cache, full
+    out["phase_peak_bytes"] = max(torch.cuda.max_memory_allocated(),
+                                  out["materialize_peak_bytes"])
+    out.update(flash=flash, rel=rel)
+    del params
     torch.cuda.empty_cache()
-    return flash, rel
+    return out
 
 
 def _time_flash(dev, card, launches, err):
@@ -1997,6 +2261,126 @@ def _time_flash_danube(dev, card):
           f"{dev_ms[2]!r} ms; bound {bound!r} ms ({n_ops} flops); kernel "
           f"{n_ops / dev_ms[0] / 1e9!r} TFLOP/s, {dev_ms[0] / dev_ms[2]!r}x "
           f"the library call; card {card}")
+
+
+# ---- the MLA and MoE serving slice: minicpm3, qwen3-moe, deepseek-v3 -----------
+
+FAMILIES = dict(batch=4, prompt_len=2048, gen_len=32)
+# deepseek-v3-671b's depth cut 61 -> 4 for one card (671e9 parameters do
+# not fit 80 GB): its 3 dense MLA layers and 1 of its 58 MoE layers
+DEEPSEEK_DEPTH = ((3, "dense"), (1, "moe"))
+# (model, B, H, Hkv, S, D) of each served model's prefill attention: MLA's
+# q/k head dim (nope + rope) with V padded to it, and qwen3's GQA
+FAMILY_FLASH_SHAPES = [("minicpm3-4b", 4, 40, 40, 2048, 96),
+                       ("qwen3-moe-30b-a3b", 4, 32, 4, 2048, 128),
+                       ("deepseek-v3-671b", 4, 128, 128, 2048, 192)]
+
+
+def _flash_at(dev, card, model, b, h, hkv, s, d):
+    """The bf16 flash kernel at one served prefill shape (causal): held
+    against its plain version (1e-2), one tensor-core launch; then timed
+    beside its bound, the plain version and
+    ``F.scaled_dot_product_attention`` (eager per call and CUDA-graph
+    device time). Returns its entry of the ``flash_attention`` row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain,
+                                                     visible_pairs)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = (torch.randn(b, h, s, d, generator=gen, device=dev) * 0.5).bfloat16()
+    k = (torch.randn(b, hkv, s, d, generator=gen, device=dev) * 0.5
+         ).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
+    tc = flash_attention_kernel.tensor_core_launches
+    got = flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    tc = flash_attention_kernel.tensor_core_launches - tc
+    want = flash_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = FLASH_TOL["bfloat16"]
+    shape = f"B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal"
+    ok = (tc == 1 and bool(torch.isfinite(got.float()).all())
+          and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+    print(f"[kernel] flash_attention {model} prefill {shape}: max_abs_err="
+          f"{err!r} (rtol=atol={tol}); tensor-core launches {tc} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {model}'s prefill shape")
+    del got, want
+    fns = (lambda: flash_attention_kernel(q, k, v),
+           lambda: flash_attention_plain(q, k, v),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True))
+    dev_ms = [_graph_ms(f, reps=3, replays=3) for f in fns]
+    ms = [_time_ms(f, reps=5, warmup=2) for f in fns]
+    pairs = visible_pairs(s) * b * h
+    n_ops = 4 * d * pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = n_ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    entry = {"model": model, "shape": shape, "max_abs_err": err,
+             "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+             "device_ms": dev_ms[0], "plain_device_ms": dev_ms[1],
+             "library_device_ms": dev_ms[2],
+             "bound_ms": max(t_ops, t_bytes) * 1e3,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "achieved_tflops": n_ops / dev_ms[0] / 1e9,
+             "vs_library": dev_ms[0] / dev_ms[2]}
+    print(f"[time] flash_attention {model} prefill {shape}: kernel "
+          f"{ms[0]!r} ms, plain {ms[1]!r} ms, scaled_dot_product_attention "
+          f"{ms[2]!r} ms (per call); device {dev_ms[0]!r}, {dev_ms[1]!r}, "
+          f"{dev_ms[2]!r} ms; bound {entry['bound_ms']!r} ms ({n_ops} flops "
+          f"over {pairs} visible pairs; {n_bytes} bytes); kernel "
+          f"{entry['achieved_tflops']!r} TFLOP/s, {entry['vs_library']!r}x "
+          f"SDPA's device time; card {card}")
+    return entry
+
+
+def _serve_families(dev, card, kernels, flash_row):
+    """Phase 13: the flash kernel at the three served prefill shapes (added
+    to ``flash_row``), then minicpm3-4b and qwen3-moe-30b-a3b at full width
+    and depth and deepseek-v3-671b at full width, depth 4, served through
+    ``launch.serve.generate`` at batch 4, 2048-token prompts, 32 greedy
+    tokens, seeded bf16 weights and the published capacity factor; the MoE
+    models' decode against ``forward`` on a dropless copy at batch 1."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Segment
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[families] device memory at the start: {free} bytes free of "
+          f"{total}, {torch.cuda.memory_allocated()} allocated by torch")
+    flash_row["served_shapes"] = [_flash_at(dev, card, *shape)
+                                  for shape in FAMILY_FLASH_SHAPES]
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = get_config("deepseek-v3-671b")
+    deepseek = dataclasses.replace(deepseek, segments=tuple(
+        Segment("mla", mlp, n) for n, mlp in DEEPSEEK_DEPTH))
+    results = []
+    for cfg, label in ((get_config("minicpm3-4b"), "serve-minicpm3"),
+                       (get_config("qwen3-moe-30b-a3b"), "serve-qwen3-moe"),
+                       (deepseek, "serve-deepseek")):
+        check = check_batch = None
+        if cfg.moe is not None:
+            check = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            check_batch = 1
+        res = _serve_path(cfg, label, FAMILIES["batch"],
+                          FAMILIES["prompt_len"], FAMILIES["gen_len"], dev,
+                          kernels, check, check_batch, strict=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if res["phase_peak_bytes"] >= total:
+            raise AssertionError(f"{label}: peak {res['phase_peak_bytes']} "
+                                 f"bytes, not below the card's {total}")
+        res["card"] = card
+        print(f"[families] {json.dumps(res)}")
+        results.append(res)
+    return results
 
 
 def _wrapper_host_times(dev, card) -> None:
@@ -3190,15 +3574,16 @@ def main() -> int:
     # ---- phase 10: the LM token server at full width ---------------------------
     from repro_torch.configs import get_config
     from repro_torch.models.lm import Segment
-    flash_launches, _ = _serve_path(get_config("internlm2-1.8b"), "serve",
-                                    SERVED["batch"], SERVED["prompt_len"],
-                                    SERVED["gen_len"], dev, kernels)
+    flash_launches = _serve_path(get_config("internlm2-1.8b"), "serve",
+                                 SERVED["batch"], SERVED["prompt_len"],
+                                 SERVED["gen_len"], dev, kernels)["flash"]
     danube = get_config("h2o-danube-1.8b")
     danube = dataclasses.replace(danube, segments=(
         Segment("attn", "dense", DANUBE["layers"]),))
     _serve_path(danube, "serve-danube", DANUBE["batch"],
                 DANUBE["prompt_len"], DANUBE["gen_len"], dev, kernels)
-    rows.append(_time_flash(dev, card, flash_launches, flash_err))
+    flash_row = _time_flash(dev, card, flash_launches, flash_err)
+    rows.append(flash_row)
 
     # ---- phase 11: the placement front end on the card --------------------------
     _placement_front_end(vgg, noc, kernels, plan, phases)
@@ -3213,6 +3598,11 @@ def main() -> int:
     _train_kernel_vs_plain(dev)
     _train_restart_in_child()
     print(f"[train-lm] phase 12 in {time.perf_counter() - t0!r} s")
+
+    # ---- phase 13: the MLA and MoE families served at full width ---------------
+    t0 = time.perf_counter()
+    _serve_families(dev, card, kernels, flash_row)
+    print(f"[families] phase 13 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

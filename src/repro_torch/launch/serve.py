@@ -6,11 +6,15 @@ batch of prompts, greedy or with temperature sampling::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --batch 4 --prompt-len 2048 --gen-len 32      # full width, one card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 2048 --gen-len 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --smoke --device cpu --batch 2 --prompt-len 16 --gen-len 4
 
-On the card, prefill's attention runs through the flash kernel
-(``models.layers``). Weights are random, drawn from ``--seed``.
+Attention (GQA, sliding window) and MLA models with dense or MoE MLPs
+serve; their caches come from ``lm.cache_specs`` (K/V, or MLA's latent
+``ckv``/``kr``). On the card, prefill's attention runs through the flash
+kernel (``models.layers``). Weights are random, drawn from ``--seed``.
 
 :class:`MicroBatchQueue` is the reusable continuous-batching front: a
 thread-safe submit/drain queue that coalesces requests arriving within a

@@ -22,11 +22,14 @@ checkpoints each layer, ``dots`` saves only the outputs of matrix products
 with no batch dimension (the reference's
 ``dots_with_no_batch_dims_saveable``).
 
-Ported so far: attention blocks with dense (SwiGLU) or no MLP, which covers
-internlm2, h2o-danube, phi3-medium and llava-next. MLA, MoE, Mamba2, xLSTM,
-the hybrid shared block and the MTP head raise ``NotImplementedError``
-naming their ROADMAP item. Caches are updated in place (the reference
-donates them) and the same dicts are returned.
+Ported so far: attention and MLA blocks with a dense (SwiGLU), MoE or no
+MLP, which covers internlm2, h2o-danube, phi3-medium, llava-next,
+minicpm3, qwen3-moe and deepseek-v3. ``lm_specs`` builds DeepSeek's MTP
+subtree, so its weights carry across whole, but the MTP loss is not ported:
+``lm_loss`` raises for ``cfg.mtp``. Mamba2, xLSTM and the hybrid shared
+block raise ``NotImplementedError`` naming their ROADMAP item. Caches are
+updated in place (the reference donates them) and the same dicts are
+returned.
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ from ..device import resolve_device
 from . import layers as L
 from . import mamba2 as M
 from . import xlstm as X
-from .mla import MLAConfig
-from .moe import MoEConfig
+from .mla import MLAConfig, mla_block, mla_specs
+from .moe import MoEConfig, moe_apply, moe_specs
 from .specs import ParamSpec, check_tree, is_spec, param, tree_map
 
 
@@ -104,27 +107,29 @@ def _stack(specs, count: int):
 
 
 def _check_supported(cfg: LMConfig, seg: Segment) -> None:
-    if seg.kind != "attn":
+    if seg.kind not in ("attn", "mla"):
         raise (_not_ported(f"the {seg.kind} block")
-               if seg.kind in ("mla", "mamba2", "mlstm", "slstm")
+               if seg.kind in ("mamba2", "mlstm", "slstm")
                else ValueError(seg.kind))
-    if seg.mlp == "moe":
-        raise _not_ported("the MoE layer")
     if cfg.hybrid_period:
         raise _not_ported("the hybrid shared attention block")
-    if cfg.mtp:
-        raise _not_ported("the multi-token prediction head")
 
 
 def _layer_specs(cfg: LMConfig, seg: Segment):
     _check_supported(cfg, seg)
     d, dt = cfg.d_model, cfg.param_dtype
-    out = {"norm1": L.rmsnorm_specs(d),
-           "attn": L.attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                                dt)}
+    out = {"norm1": L.rmsnorm_specs(d)}
+    if seg.kind == "attn":
+        out["attn"] = L.attn_specs(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.d_head, dt)
+    else:
+        out["attn"] = mla_specs(d, cfg.n_heads, cfg.mla, dt)
     if seg.mlp == "dense":
         out["norm2"] = L.rmsnorm_specs(d)
         out["mlp"] = L.mlp_specs(d, cfg.d_ff, dt)
+    elif seg.mlp == "moe":
+        out["norm2"] = L.rmsnorm_specs(d)
+        out["mlp"] = moe_specs(d, cfg.moe, dt)
     return out
 
 
@@ -136,6 +141,15 @@ def lm_specs(cfg: LMConfig):
     if not cfg.tie_embeddings:
         out["head"] = param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                             dtype=cfg.param_dtype, scale=0.02)
+    if cfg.mtp:
+        out["mtp"] = {
+            "norm_h": L.rmsnorm_specs(cfg.d_model),
+            "norm_e": L.rmsnorm_specs(cfg.d_model),
+            "proj": param((2 * cfg.d_model, cfg.d_model), ("mlp", "embed"),
+                          dtype=cfg.param_dtype),
+            "layer": _layer_specs(cfg, Segment(
+                "mla" if cfg.mla else "attn", "dense", 1)),
+        }
     return out
 
 
@@ -144,6 +158,16 @@ def lm_specs(cfg: LMConfig):
 def _layer_cache_specs(cfg: LMConfig, seg: Segment, batch: int,
                        max_len: int):
     _check_supported(cfg, seg)
+    if seg.kind == "mla":
+        m = cfg.mla
+        return {
+            "ckv": ParamSpec((batch, max_len, m.kv_lora_rank), cfg.dtype,
+                             ("cache_batch", "cache_seq", "kv_lora"),
+                             "zeros"),
+            "kr": ParamSpec((batch, max_len, m.qk_rope_dim), cfg.dtype,
+                            ("cache_batch", "cache_seq", "head_dim"),
+                            "zeros"),
+        }
     shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     axes = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
     return {"k": ParamSpec(shp, cfg.dtype, axes, "zeros"),
@@ -159,13 +183,20 @@ def cache_specs(cfg: LMConfig, batch: int, max_len: int):
 # ---------------------------------------------------------------- forward ----
 
 def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
+    """One layer: ``(x, aux, cache)``, aux the MoE's load-balance loss
+    (float32; None for other MLPs, whose aux is 0)."""
     _check_supported(cfg, seg)
     h = L.rmsnorm(p["norm1"], x)
-    y, new_cache = L.attention_block(p["attn"], h, positions, cfg, cache, pos)
+    block = L.attention_block if seg.kind == "attn" else mla_block
+    y, new_cache = block(p["attn"], h, positions, cfg, cache, pos)
     x = x + y
+    aux = None
     if seg.mlp == "dense":
         x = x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
-    return x, new_cache
+    elif seg.mlp == "moe":
+        y, aux = moe_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.moe)
+        x = x + y
+    return x, aux, new_cache
 
 
 def _save_unbatched_products(ctx, op, *args, **kwargs):
@@ -202,21 +233,26 @@ def _maybe_remat(fn, cfg: LMConfig):
 def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
                  cache=None, pos=None):
     """The segment's stacked layers one after another, each rematerialised
-    as ``cfg.remat`` says when there is no cache. Returns ``(x, cache)``;
-    each layer writes its slice of the stacked cache in place. (No ported
-    block has an auxiliary loss: the reference's aux is the MoE's.)"""
+    as ``cfg.remat`` says when there is no cache. Returns ``(x, aux,
+    cache)``, aux the sum of the layers' auxiliary losses (None where no
+    layer has one); each layer writes its slice of the stacked cache in
+    place."""
+    aux = None
     for li in range(seg.count):
         p_layer = tree_map(lambda a: a[li], p_stack)
         if cache is None:
             body = _maybe_remat(
                 lambda xx, pl=p_layer: _layer_fwd(pl, seg, cfg, xx,
-                                                  positions, None, pos)[0],
+                                                  positions, None, pos)[:2],
                 cfg)
-            x = body(x)
+            x, a = body(x)
         else:
             c_layer = tree_map(lambda a: a[li], cache)
-            x, _ = _layer_fwd(p_layer, seg, cfg, x, positions, c_layer, pos)
-    return x, cache
+            x, a, _ = _layer_fwd(p_layer, seg, cfg, x, positions, c_layer,
+                                 pos)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux, cache
 
 
 def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds=None):
@@ -237,9 +273,11 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     """Full-sequence logits. tokens [B,S] int. Returns ``(logits, aux)``."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i, seg in enumerate(cfg.segments):
-        x, _ = _run_segment(params[f"seg{i}"], seg, cfg, x, positions)
     aux_total = torch.zeros((), device=x.device)
+    for i, seg in enumerate(cfg.segments):
+        x, aux, _ = _run_segment(params[f"seg{i}"], seg, cfg, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
     if return_hidden:
         return x, aux_total
@@ -253,7 +291,7 @@ def prefill(params, cfg: LMConfig, tokens, cache, prefix_embeds=None):
     positions = torch.arange(x.shape[1], device=x.device)
     new_cache = {}
     for i, seg in enumerate(cfg.segments):
-        x, new_cache[f"seg{i}"] = _run_segment(
+        x, _, new_cache[f"seg{i}"] = _run_segment(
             params[f"seg{i}"], seg, cfg, x, positions, cache=cache[f"seg{i}"])
     x = L.rmsnorm(params["final_norm"], x)
     return _head(params, cfg, x[:, -1:]), new_cache
@@ -266,7 +304,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos: int):
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     new_cache = {}
     for i, seg in enumerate(cfg.segments):
-        x, new_cache[f"seg{i}"] = _run_segment(
+        x, _, new_cache[f"seg{i}"] = _run_segment(
             params[f"seg{i}"], seg, cfg, x, positions, cache=cache[f"seg{i}"],
             pos=pos)
     x = L.rmsnorm(params["final_norm"], x)
@@ -293,7 +331,8 @@ def _token_ce(logits, labels):
 
 
 def lm_loss(params, cfg: LMConfig, tokens, labels, prefix_embeds=None):
-    """CE (+ the aux losses of blocks not ported yet, all 0 here). Uses
+    """CE + the MoE auxiliary loss (the MTP loss is not ported yet: a
+    config with ``mtp`` raises). Uses
     chunked CE when ``cfg.logit_chunk`` divides the (unprefixed) sequence:
     the head and CE of each chunk run under ``torch.utils.checkpoint``, so
     only one chunk's ``[B, C, V]`` float32 logits is alive at a time.
@@ -319,7 +358,7 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, prefix_embeds=None):
     else:
         ce = _token_ce(_head(params, cfg, hidden), labels)
     mtp_loss = torch.zeros((), device=hidden.device)
-    loss = ce + aux + cfg.mtp_weight * mtp_loss
+    loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "mtp": mtp_loss}
 
 

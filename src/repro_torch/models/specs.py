@@ -124,6 +124,21 @@ def init_std(s: ParamSpec) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
+# the most elements one float32 draw may hold (1 GiB): a larger leaf is drawn
+# in chunks of whole rows along its leading axes
+MAX_DRAW = 2 ** 28
+
+
+def _draw_blocks(shape, max_draw: int):
+    """``(rows, block)``: the leaf seen as ``[rows, *block]``, where
+    ``block`` is the longest trailing part of ``shape`` of at most
+    ``max_draw`` elements (the last axis alone if none is that small)."""
+    k = len(shape) - 1 if shape else 0
+    while k > 0 and math.prod(shape[k - 1:]) <= max_draw:
+        k -= 1
+    return math.prod(shape[:k]), tuple(shape[k:])
+
+
 def _init_one(s: ParamSpec, generator: torch.Generator | None, device):
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
@@ -131,25 +146,36 @@ def _init_one(s: ParamSpec, generator: torch.Generator | None, device):
         return torch.ones(s.shape, dtype=s.dtype, device=device)
     if generator is None:
         raise ValueError(f"init {s.init!r} draws numbers: pass a generator")
-    gen_dev = generator.device
-    if s.init == "normal":
-        x = torch.randn(s.shape, generator=generator, device=gen_dev)
-        x.mul_(init_std(s))
-    elif s.init == "uniform_scaled":
-        lim = s.scale if s.scale is not None else 0.05
-        x = torch.rand(s.shape, generator=generator, device=gen_dev)
-        x.mul_(2 * lim).sub_(lim)
-    else:
+    if s.init not in ("normal", "uniform_scaled"):
         raise ValueError(f"unknown init {s.init}")
-    return x.to(device=device, dtype=s.dtype)
+    gen_dev = generator.device
+    rows, block = _draw_blocks(s.shape, MAX_DRAW)
+    out = torch.empty(s.shape, dtype=s.dtype, device=device)
+    flat = out.view(rows, *block)
+    step = max(1, MAX_DRAW // max(math.prod(block), 1))
+    for r0 in range(0, rows, step):
+        shape = (min(step, rows - r0),) + block
+        if s.init == "normal":
+            x = torch.randn(shape, generator=generator, device=gen_dev)
+            x.mul_(init_std(s))
+        else:
+            lim = s.scale if s.scale is not None else 0.05
+            x = torch.rand(shape, generator=generator, device=gen_dev)
+            x.mul_(2 * lim).sub_(lim)
+        flat[r0:r0 + shape[0]].copy_(x)
+    return out
 
 
 def materialize(specs, generator: torch.Generator | None = None,
                 device=None):
     """Real parameters for ``specs`` on ``device`` (``None``: the card).
     Float32 draws come from ``generator`` on its own device, leaf by leaf in
-    sorted path order, and are cast once to each leaf's dtype; ``zeros`` and
-    ``ones`` leaves draw nothing (a cache needs no generator)."""
+    sorted path order, and are cast to each leaf's dtype as they are copied
+    in; ``zeros`` and ``ones`` leaves draw nothing (a cache needs no
+    generator). A leaf of more than ``MAX_DRAW`` elements is drawn in
+    chunks, each of as many whole rows along its leading axes as fit in
+    ``MAX_DRAW`` elements, in row order, so no float32 temporary exceeds
+    ``MAX_DRAW`` elements (a leaf of at most ``MAX_DRAW`` is one draw)."""
     dev = resolve_device(device)
     out: dict = {}
     for path, s in tree_leaves(specs):

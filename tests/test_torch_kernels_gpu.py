@@ -43,6 +43,7 @@ scores through the fused link-traffic kernel, the collision resolver is
 exact against numpy, and fused service searches equal serial ones bit for
 bit.
 """
+import os
 import subprocess
 import sys
 import textwrap
@@ -996,6 +997,11 @@ FLASH_CASES = [(2, h, hkv, s, d, w, torch.float32, True)
     (1, 4, 1, 4608, 128, 4096, torch.bfloat16, True),
     (1, 2, 1, 77, 20, None, torch.bfloat16, True),
     (2, 4, 2, 130, 64, 20, torch.bfloat16, False),
+    # the served MLA and MoE prefills: minicpm3-4b (q/k head dim 96, MHA),
+    # qwen3-moe-30b-a3b (D 128, 32/4 heads), deepseek-v3-671b (D 192, MHA)
+    (4, 40, 40, 2048, 96, None, torch.bfloat16, True),
+    (4, 32, 4, 2048, 128, None, torch.bfloat16, True),
+    (4, 128, 128, 2048, 192, None, torch.bfloat16, True),
 ]
 
 
@@ -1352,7 +1358,9 @@ def test_flash_attention_kernel_mixed_dtypes_match_plain(cuda, dtypes):
                                    atol=tol)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b",
+                                  "minicpm3-4b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_smoke_generate_on_the_card_goes_through_the_kernel(cuda, arch,
                                                             monkeypatch):
     """A smoke-size model served on the card: one flash launch per layer of
@@ -1394,3 +1402,65 @@ def test_smoke_generate_on_the_card_goes_through_the_kernel(cuda, arch,
         lg, cache = lm.decode_step(params, cfg, cache, toks[:, i:i + 1], i)
         errs.append((lg[:, 0] - full[:, i]).abs().max().item())
     assert max(errs) < 2e-4, errs
+
+
+@pytest.mark.parametrize("dn,dr,dv", [(64, 32, 64), (128, 64, 128)])
+def test_flash_attention_kernel_on_mla_padded_values(cuda, dn, dr, dv):
+    """MLA's prefill (minicpm3-4b, deepseek-v3-671b head dims): q and k are
+    ``cat(nope, rope)`` with the rope key shared by every head, v is padded
+    with zeros from ``dv`` to ``dn + dr``, all as BSHD views. The padded
+    columns come out exactly 0, the rest within 1e-2 of the plain version
+    (bf16)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h = 2, 300, 8
+    q = torch.randn(b, s, h, dn + dr, generator=gen, device=cuda) * 0.5
+    k_nope = torch.randn(b, s, h, dn, generator=gen, device=cuda) * 0.5
+    k_rope = torch.randn(b, s, 1, dr, generator=gen, device=cuda) * 0.5
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    v = torch.nn.functional.pad(
+        torch.randn(b, s, h, dv, generator=gen, device=cuda), (0, dn + dr - dv))
+    q, k, v = (t.bfloat16().transpose(1, 2) for t in (q, k, v))
+    got = flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v)
+    assert torch.count_nonzero(got[..., dv:]) == 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_moe_combine_repeats_bit_for_bit_on_the_card(cuda):
+    """One qwen3-moe-30b-a3b MoE layer at full width (128 experts, top-8,
+    d_ff 768, bf16 weights, float32 router) over 4 x 256 tokens at the
+    published capacity factor 1.25: two calls give bit-identical outputs
+    and aux, and so do two more under ``torch.use_deterministic_algorithms``
+    (each in a process of its own: cuBLAS reads its workspace setting once
+    per process); the combine takes no atomics."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.moe import moe_apply, moe_specs
+        from repro_torch.models.specs import materialize
+        cfg = get_config("qwen3-moe-30b-a3b")
+        params = materialize(moe_specs(cfg.d_model, cfg.moe),
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(4, 256, cfg.d_model, generator=gen,
+                        device="cuda").bfloat16()
+        if sys.argv[1] == "deterministic":
+            torch.use_deterministic_algorithms(True)
+        outs = [moe_apply(params, x, cfg.moe) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0][0], outs[1][0]), "outputs differ"
+        assert torch.equal(outs[0][1], outs[1][1]), "aux differs"
+        assert bool(torch.isfinite(outs[0][0].float()).all())
+    """)
+    for mode in ("default", "deterministic"):
+        env = dict(os.environ)
+        if mode == "deterministic":
+            env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        proc = subprocess.run([sys.executable, "-c", code, mode],
+                              capture_output=True, text=True, timeout=600,
+                              env=env)
+        assert proc.returncode == 0, (mode, proc.stderr[-3000:])

@@ -6,8 +6,8 @@ weights are carried across with ``lm.from_reference_params``. Tolerances:
 the attention functions, rope and rmsnorm within atol 2e-5 (float32, the
 reference's own ``test_attention.py`` bound against its dense oracle); the
 smoke models' logits within atol 1e-4 (float32 through two layers of
-matmuls summed in another order); configs, parameter counts, cells and
-``transformer_graph`` exactly.
+matmuls summed in another order) and their MoE aux within 1e-6; configs,
+parameter counts, cells and ``transformer_graph`` exactly.
 """
 import dataclasses
 import os
@@ -32,9 +32,9 @@ from repro_torch.models import lm as p_lm  # noqa: E402
 from repro_torch.models import specs as p_specs  # noqa: E402
 
 SERVED_ARCHS = ["internlm2-1.8b", "h2o-danube-1.8b", "phi3-medium-14b",
-                "llava-next-34b"]
-UNPORTED_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v3-671b", "xlstm-125m",
-                  "zamba2-2.7b", "minicpm3-4b"]
+                "llava-next-34b", "minicpm3-4b", "qwen3-moe-30b-a3b",
+                "deepseek-v3-671b"]
+UNPORTED_ARCHS = ["xlstm-125m", "zamba2-2.7b"]
 ATOL = 2e-5
 MODEL_ATOL = 1e-4
 
@@ -162,10 +162,12 @@ def test_forward_prefill_decode_match_reference(arch):
               .astype(np.float32) if rcfg.prefix_len else None)
     jpre = None if prefix is None else jnp.asarray(prefix)
     tpre = None if prefix is None else _t(prefix)
-    want, _ = r_lm.forward(rp, rcfg, jnp.asarray(toks), jpre)
+    want, r_aux = r_lm.forward(rp, rcfg, jnp.asarray(toks), jpre)
     got, aux = p_lm.forward(pp, pcfg, _t(toks), tpre)
     assert got.shape == (2, s + pcfg.prefix_len, pcfg.vocab)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(r_aux), atol=1e-6)
+    assert (float(aux) > 0) == (pcfg.moe is not None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=MODEL_ATOL)
 
@@ -192,7 +194,9 @@ def test_forward_prefill_decode_match_reference(arch):
                                    atol=MODEL_ATOL)
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b",
+                                  "minicpm3-4b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_decode_matches_forward(arch):
     """The reference's ``test_models.py`` property, in the port alone: prefill
     and decode logits equal full-sequence logits (atol 2e-4)."""
@@ -210,25 +214,75 @@ def test_decode_matches_forward(arch):
     assert max(errs) < 2e-4, errs
 
 
-def test_reference_params_round_trip_and_errors():
-    rcfg, pcfg, rp, pp = _model_pair("internlm2-1.8b")
+def _without(tree, path):
+    """``tree`` with the leaf at ``path`` removed (copies along the path)."""
+    out = dict(tree)
+    if len(path) == 1:
+        del out[path[0]]
+    else:
+        out[path[0]] = _without(tree[path[0]], path[1:])
+    return out
+
+
+def _with(tree, path, leaf):
+    out = dict(tree)
+    out[path[0]] = leaf if len(path) == 1 else _with(tree[path[0]], path[1:],
+                                                     leaf)
+    return out
+
+
+# a leaf of each block kind, and (deepseek) the MTP subtree's
+_LEAVES = {"internlm2-1.8b": ("seg0", "attn", "wq"),
+           "minicpm3-4b": ("seg0", "attn", "w_uk"),
+           "qwen3-moe-30b-a3b": ("seg0", "mlp", "w_gate"),
+           "deepseek-v3-671b": ("mtp", "layer", "attn", "w_uv")}
+
+
+@pytest.mark.parametrize("arch", sorted(_LEAVES))
+def test_reference_params_round_trip_and_errors(arch):
+    """Every leaf carries across exactly (bf16 leaves as bf16, the router
+    in float32), and back; a missing, surplus or misshapen leaf raises."""
+    rcfg = dataclasses.replace(r_reg.get_smoke_config(arch),
+                               param_dtype=jnp.bfloat16)
+    pcfg = dataclasses.replace(p_reg.get_smoke_config(arch),
+                               param_dtype=torch.bfloat16)
+    rp = r_specs.materialize(jax.random.PRNGKey(0), r_lm.lm_specs(rcfg))
+    ref = {k: _np_tree(v) if isinstance(v, dict) else np.asarray(v)
+           for k, v in rp.items()}
+    pp = p_lm.from_reference_params(pcfg, ref, device="cpu")
     back = p_lm.to_reference_params(pp)
-    ref = _np_tree(rp)
     flat_a = p_specs.tree_leaves(back)
     flat_b = p_specs.tree_leaves(ref)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
-    for (_, a), (_, b) in zip(flat_a, flat_b):
-        assert np.array_equal(a, b)
-    missing = dict(ref)
-    del missing["head"]
+    for (path, a), (_, b) in zip(flat_a, flat_b):
+        assert np.array_equal(a, np.asarray(b, np.float32)), path
+    for (path, t), (_, s) in zip(p_specs.tree_leaves(pp), p_specs.tree_leaves(
+            p_lm.lm_specs(pcfg))):
+        assert t.dtype == s.dtype, path
+        want = (torch.float32 if path[-1] in ("router", "scale")
+                else torch.bfloat16)
+        assert t.dtype == want, path
+    assert ("mtp" in ref) == pcfg.mtp
+    leaf = _LEAVES[arch]
     with pytest.raises(ValueError, match="missing"):
-        p_lm.from_reference_params(pcfg, missing, device="cpu")
+        p_lm.from_reference_params(pcfg, _without(ref, ("head",)),
+                                   device="cpu")
+    with pytest.raises(ValueError, match="missing"):
+        p_lm.from_reference_params(pcfg, _without(ref, leaf), device="cpu")
     with pytest.raises(ValueError, match="surplus"):
         p_lm.from_reference_params(pcfg, {**ref, "extra": np.zeros(1)},
                                    device="cpu")
-    bad = {**ref, "final_norm": {"scale": np.zeros(3)}}
+    with pytest.raises(ValueError, match="surplus"):
+        p_lm.from_reference_params(
+            pcfg, _with(ref, leaf[:-1] + ("extra",), np.zeros(1)),
+            device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        p_lm.from_reference_params(pcfg, bad, device="cpu")
+        p_lm.from_reference_params(
+            pcfg, {**ref, "final_norm": {"scale": np.zeros(3)}},
+            device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        p_lm.from_reference_params(pcfg, _with(ref, leaf, np.zeros(3)),
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("arch", UNPORTED_ARCHS)
@@ -270,6 +324,56 @@ def test_materialize_draws_the_reference_distributions():
                zip(p_specs.tree_leaves(params), p_specs.tree_leaves(again)))
     with pytest.raises(ValueError, match="generator"):
         p_specs.materialize(specs, device="cpu")
+
+
+def test_materialize_draws_large_leaves_in_chunks(monkeypatch):
+    """A leaf past ``MAX_DRAW`` elements is drawn in chunks of whole rows
+    along its leading axes, in row order, from the one generator: each chunk
+    equals a draw of that chunk's shape in turn. A stacked bf16 MoE leaf
+    drawn so still holds the std band of the test above; a leaf within
+    ``MAX_DRAW`` is one draw, as before."""
+    cfg = dataclasses.replace(p_reg.get_smoke_config("qwen3-moe-30b-a3b"),
+                              param_dtype=torch.bfloat16)
+    specs = p_lm.lm_specs(cfg)
+    leaf = specs["seg0"]["mlp"]["w_gate"]          # [2, 8, 64, 32]
+    assert leaf.shape == (2, 8, 64, 32)
+    # within the bound: one draw, the values of an unchunked draw
+    small = p_specs.materialize({"w": leaf}, torch.Generator().manual_seed(5),
+                                device="cpu")["w"]
+    gen = torch.Generator().manual_seed(5)
+    std = p_specs.init_std(leaf)
+    assert torch.equal(small, (torch.randn(leaf.shape, generator=gen) * std)
+                       .to(torch.bfloat16))
+    # a chunk bound of 3 expert matrices: one layer's 8 in chunks of 3, 3, 2
+    monkeypatch.setattr(p_specs, "MAX_DRAW", 3 * 64 * 32)
+    got = p_specs.materialize({"w": leaf}, torch.Generator().manual_seed(5),
+                              device="cpu")["w"]
+    gen = torch.Generator().manual_seed(5)
+    want = torch.cat([torch.randn((n, 64, 32), generator=gen) * std
+                      for _ in range(2) for n in (3, 3, 2)])
+    assert torch.equal(got, want.reshape(leaf.shape).to(torch.bfloat16))
+    # rows of the last axis when one row is past the bound: 3-row chunks
+    emb = specs["embed"]["table"]                 # [512, 64]
+    monkeypatch.setattr(p_specs, "MAX_DRAW", 200)
+    got = p_specs.materialize({"t": emb}, torch.Generator().manual_seed(6),
+                              device="cpu")["t"]
+    gen = torch.Generator().manual_seed(6)
+    rows = [torch.randn((min(3, 512 - r), 64), generator=gen) * 0.02
+            for r in range(0, 512, 3)]
+    assert torch.equal(got, torch.cat(rows).to(torch.bfloat16))
+    # the bands, with every leaf of the model in chunks of at most 1024
+    monkeypatch.setattr(p_specs, "MAX_DRAW", 1024)
+    params = p_specs.materialize(specs, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    checked = 0
+    for (path, s), (_, x) in zip(p_specs.tree_leaves(specs),
+                                 p_specs.tree_leaves(params)):
+        assert x.shape == s.shape and x.dtype == s.dtype, path
+        if s.init == "normal" and x.numel() >= 4096:
+            std = x.float().std().item()
+            assert abs(std / p_specs.init_std(s) - 1) < 0.05, (path, std)
+            checked += 1
+    assert checked >= 8
 
 
 @pytest.mark.parametrize("arch", SERVED_ARCHS)

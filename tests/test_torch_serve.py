@@ -54,7 +54,10 @@ def _reference_margins(rp, rcfg, tokens, p):
 
 
 @pytest.mark.parametrize("arch,seed", [("internlm2-1.8b", 0),
-                                       ("h2o-danube-1.8b", 0)])
+                                       ("h2o-danube-1.8b", 0),
+                                       ("minicpm3-4b", 0),
+                                       ("qwen3-moe-30b-a3b", 0),
+                                       ("deepseek-v3-671b", 0)])
 def test_generate_greedy_tokens_match_reference(arch, seed):
     """Batch 2, a 30-token prompt (past h2o-danube's smoke window of 24, so
     decode reads a windowed cache), 6 greedy tokens."""
@@ -97,8 +100,18 @@ def test_main_serves_a_smoke_config_and_rejects_encdec(capsys):
         p_serve.main(["--arch", "seamless-m4t-medium", "--smoke", "--device",
                       "cpu"])
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        p_serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device",
+        p_serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device",
                       "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
+def test_main_serves_the_mla_and_moe_families(arch, capsys):
+    toks = p_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", "9", "--gen-len",
+                         "4"])
+    assert toks.shape == (2, 13) and toks.dtype == torch.int64
+    assert "generated 8 tokens" in capsys.readouterr().out
 
 
 # ---- MicroBatchQueue (tests/test_service.py's cases) ---------------------------
