@@ -197,7 +197,36 @@ Phases, each of which fails the run loudly:
     must give equal tokens; decode against ``forward`` runs on a dropless
     copy of the MoE configs (capacity factor E/k) at batch 1; the share of
     the prefill's assignments dropped at 1.25; each model's peak device
-    memory below the card's; one ``[families]`` JSON line a model.
+    memory below the card's; one ``[families]`` JSON line a model;
+14. serve and train the recurrent families: the bf16 flash kernel at
+    zamba2-2.7b's shared-block prefill shape (B4, H = Hkv 32, S2048, D 160)
+    against its plain version (1e-2) and timed as phase 13's shapes; then
+    zamba2-2.7b (54 Mamba2 layers and 9 applications of the shared
+    attention + MLP block, bf16) and xlstm-125m (12 mLSTM/sLSTM layers,
+    float32) at full width and depth through ``launch.serve.generate`` at
+    batch 4, 2048-token prompts, 32 greedy tokens, each as phase 13
+    (zamba2: one tensor-core flash launch per application, 9 a prefill,
+    kernel vs plain on every application's q, k, v and on the logits;
+    decode vs ``forward`` over the first 2048 tokens after a 1920-token
+    prefill, since the SSD scan takes whole 128-token chunks; xlstm: no
+    attention, decode vs ``forward`` within 1e-3 over 2048 tokens in whole
+    64-token mLSTM chunks, and printed, not held, after a 2020-token
+    prefill, which runs as one chunk), two ``generate`` calls
+    equal; then ``launch.train.main`` for 4 steps of each, zamba2 at 2 x
+    4096 tokens (``train_4k``, batch cut 256 -> 2), xlstm at 2 x 1024 (its
+    host-bound sLSTM loop): losses finite and falling, zamba2
+    with 18 forward (9 recomputed under ``remat="full"``) and 9 backward
+    flash calls a step, its last step profiled; zamba2's gradients at 12
+    Mamba2 layers and 2 applications, 2 x 4096 tokens: with float32
+    weights, the kernel route against the plain attention (every leaf
+    within relative L2 5e-2); in bf16, each application's flash backward,
+    kernel vs plain on the q, k, v, out, dO and lse it got in the kernel
+    route (1e-2), beside how far dq, dk, dv move when out and lse come from
+    the plain forward, and the model's bf16 kernel-vs-plain gradients
+    (printed, not held); the flash backward at D 160 (B2, H32,
+    S4096, the CUDA-core route past D 128) timed against SDPA's backward
+    (``trained_shapes`` of its row). Phases 2 and 12a hold the kernels at
+    those D 160 shapes against their plain versions.
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
@@ -1727,6 +1756,8 @@ def _check_flash(dev):
          bf16)
     case("tensor cores D=20 (element-wise loads)", 1, 2, 1, 77, 20, None,
          bf16)
+    case("zamba2 shared block prefill D=160", *ZAMBA2_PREFILL_ATTN[1:], None,
+         bf16)
     return case("served internlm2 prefill", SERVED["batch"], 16, 8,
                 SERVED["prompt_len"], 128, None, torch.bfloat16)
 
@@ -1903,24 +1934,38 @@ def _decode_vs_forward(params, cfg, toks, prompt_len):
             for i, got in enumerate(seen)]
 
 
+def _attention_layers(cfg) -> int:
+    """Causal self-attentions one forward of ``cfg`` runs: its attention and
+    MLA layers, and each application of a hybrid model's shared block."""
+    n = sum(s.count for s in cfg.segments if s.kind in ("attn", "mla"))
+    return n + (cfg.n_layers // cfg.hybrid_period if cfg.hybrid_period
+                else 0)
+
+
 def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
-                check_cfg=None, check_batch=None, strict=False):
-    """Phases 10 and 13: serve ``cfg`` at full width through
-    ``launch.serve.generate`` (seeded bf16 weights, greedy), with the flash
-    kernel's launches; time to first token and decode per token from the
+                check_cfg=None, check_batch=None, strict=False,
+                check_tokens=None, decode_tol=None, read_tokens=None):
+    """Phases 10, 13 and 14: serve ``cfg`` at full width through
+    ``launch.serve.generate`` (seeded weights in the config's dtype,
+    greedy), with the flash kernel's launches (one a causal self-attention
+    of the prefill); time to first token and decode per token from the
     pieces ``generate`` runs; one profiled prefill and decode step; prefill
     through the plain version of the attention against the kernel's (a MoE
     model's routes pinned to the kernel prefill's, its free-running
-    difference printed); prefill + decode against ``forward`` on the first
-    ``check_batch`` rows of the generated tokens, under ``check_cfg``
-    (default: ``cfg`` and the whole batch; a MoE model's routes pinned to
-    ``forward``'s). With ``strict``, two ``generate`` calls must give equal
+    difference printed; skipped for a model without attention); prefill +
+    decode against ``forward`` on the first ``check_batch`` rows of the
+    generated tokens, under ``check_cfg`` (default: ``cfg`` and the whole
+    batch; a MoE model's routes pinned to ``forward``'s), or on their first
+    ``total`` tokens with a ``prompt``-token prefill where ``check_tokens =
+    (total, prompt)`` is given (Mamba2's chunked scan needs lengths in whole
+    chunks), within ``decode_tol`` where given (else the kernel-vs-plain
+    tolerance), and printed, not held, at ``read_tokens = (total, prompt)``
+    where given. With ``strict``, two ``generate`` calls must give equal
     tokens. A MoE model's share of dropped assignments is read from the
     second call. Returns a dict of the results (``flash`` is the main
     run's flash launches, ``rel`` the kernel-vs-plain error)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.launch.serve import generate
     from repro_torch.models import lm
     from repro_torch.models.specs import materialize, n_params, param_bytes
@@ -1960,14 +2005,15 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
     launches = _counts(kernels)
     flash = launches["flash_attention_kernel"]
     tensor_core = launches["flash_attention_kernel.tensor_core"]
+    n_attn = _attention_layers(cfg)
     out["generate_peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[{label}] generate batch {batch}, prompt {prompt_len}, {gen_len} "
           f"greedy tokens: wall {wall_first!r} s (first call); peak device "
           f"memory {out['generate_peak_bytes']} bytes; launches {launches}")
-    if flash != cfg.n_layers or tensor_core != cfg.n_layers:
+    if flash != n_attn or tensor_core != n_attn:
         raise AssertionError(f"{label}: {flash} flash launches, "
                              f"{tensor_core} on the tensor cores, not one "
-                             f"per layer of the prefill ({cfg.n_layers})")
+                             f"per attention of the prefill ({n_attn})")
     if (tuple(toks.shape) != (batch, prompt_len + gen_len)
             or not torch.equal(toks[:, :prompt_len].cpu(),
                                torch.as_tensor(prompts))
@@ -2041,101 +2087,134 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
             out[f"{part}_kernels"] = None if prof is None else prof["kernels"]
         del cache
 
-        # the kernel against its plain version on the model's own q, k, v
-        # at every layer of the prefill (each layer's input from the kernel
-        # route)
-        layer_errs = _layerwise_attention(params, cfg, pt)
-        out["attention_rel_max"] = max(layer_errs)
-        print(f"[{label}] each prefill layer's attention, kernel vs plain "
-              f"on the same q, k, v: relative L2 max "
-              f"{max(layer_errs)!r}, mean "
-              f"{sum(layer_errs) / len(layer_errs)!r} over "
-              f"{len(layer_errs)} layers (tolerance {ATTN_REL_TOL})")
-        if not max(layer_errs) <= ATTN_REL_TOL:
-            raise AssertionError(f"{label}: the flash kernel disagrees with "
-                                 f"its plain version on the model's q, k, v")
-
-        # the whole prefill through the plain attention; a MoE model's
-        # routes pinned to the kernel prefill's
-        kernel_ids, plain_ids = [], []
-        with _recording_routes(kernel_ids):
-            kernel_logits = _prefill_last(params, cfg, pt)
-
-        def pinned():
-            return (_pinned_routes(lambda i: kernel_ids[i]) if kernel_ids
-                    else contextlib.nullcontext())
-        if cfg.moe is not None:
-            with _recording_routes(plain_ids):
-                free = _prefill_last(params, cfg, pt, flash_attention_plain)
-            out["routes_differ"] = _routes_differ(kernel_ids, plain_ids)
-            out["kernel_vs_plain_rel_unpinned"] = _rel_err(kernel_logits,
-                                                           free)
-            print(f"[{label}] prefill through the plain attention with its "
-                  f"own routing: {out['routes_differ']!r} of the (layer, "
-                  f"token) top-{cfg.moe.top_k} sets differ from the kernel "
-                  f"prefill's; last-position logits relative L2 "
-                  f"{out['kernel_vs_plain_rel_unpinned']!r} (not gated: "
-                  f"top-k routing is discontinuous)")
-            del free
-        with pinned():
-            plain_logits = _prefill_last(params, cfg, pt,
-                                         flash_attention_plain)
-        # the model's own response to one bf16 rounding of its input: the
-        # plain prefill again with the embedding table perturbed by 2^-8
-        # relative noise, rounded to bf16
-        with pinned():
-            noisy_logits = _prefill_last(_noisy_embedding(params), cfg, pt,
-                                         flash_attention_plain)
-        del kernel_ids, plain_ids
-        out["input_rounding_rel"] = _rel_err(noisy_logits, plain_logits)
-        tol = max(LOGITS_REL_TOL, out["input_rounding_rel"])
-        out["logits_tol"] = tol
-        rel = _rel_err(kernel_logits, plain_logits)
-        mx = (kernel_logits.float() - plain_logits.float()).abs().max()
-        same_tok = torch.equal(kernel_logits.argmax(-1),
-                               plain_logits.argmax(-1))
-        out["kernel_vs_plain_rel"] = rel
-        print(f"[{label}] prefill last-position logits, kernel vs plain "
-              f"attention{'' if cfg.moe is None else ' (routes pinned)'}: "
-              f"relative L2 error {rel!r}, max abs {mx.item()!r} (logits up "
-              f"to {plain_logits.float().abs().max().item()!r}); greedy "
-              f"first token equal: {same_tok}; the plain prefill with one "
-              f"bf16 rounding of noise in the embedding moves them by "
-              f"{out['input_rounding_rel']!r}; tolerance {tol!r} (the "
-              f"larger of {LOGITS_REL_TOL} and that)")
-        if not rel <= tol:
-            raise AssertionError(f"{label}: kernel and plain prefill logits "
-                                 f"differ by {rel!r}")
-        del noisy_logits
-        with _attention_route(flash_attention_plain):
-            plain_toks = generate(params, cfg, prompts, gen_len, device=dev)
-        agree = (plain_toks[:, prompt_len:] == gen_toks).float().mean()
-        print(f"[{label}] greedy tokens through the plain attention equal to "
-              f"the kernel path's: {agree.item()!r} of {n_new} (not gated: "
-              f"random-weight bf16 logits tie)")
+        rel = tol = None
+        if n_attn:
+            rel, tol = _attention_routes_agree(params, cfg, label, pt,
+                                               prompts, gen_len, gen_toks,
+                                               out, dev)
 
         # prefill + decode against forward on the same tokens
         ccfg = check_cfg or cfg
         cb = check_batch or batch
-        errs = _decode_vs_forward(params, ccfg, toks[:cb], prompt_len)
+        total, check_prompt = check_tokens or (toks.shape[1], prompt_len)
+        tol = decode_tol or tol
+        errs = _decode_vs_forward(params, ccfg, toks[:cb, :total],
+                                  check_prompt)
         out["decode_vs_forward_rel"] = max(errs)
         how = ("" if ccfg is cfg else
                f" under a dropless copy of the config (capacity factor "
                f"{ccfg.moe.capacity_factor}), batch {cb}, routed by "
                f"forward's ids (the main run's capacity drops assignments "
                f"in prefill and forward but none in decode)")
-        print(f"[{label}] prefill + decode logits vs forward over the "
-              f"{prompt_len + gen_len} tokens{how}: relative L2 error max "
+        print(f"[{label}] prefill of {check_prompt} + decode logits vs "
+              f"forward over {total} tokens{how}: relative L2 error max "
               f"{max(errs)!r}, mean {sum(errs) / len(errs)!r} over "
               f"{len(errs)} positions (tolerance {tol!r})")
         if not max(errs) <= tol:
             raise AssertionError(f"{label}: decode disagrees with forward")
+        if read_tokens:
+            total, check_prompt = read_tokens
+            errs = _decode_vs_forward(params, ccfg, toks[:cb, :total],
+                                      check_prompt)
+            out["decode_vs_forward_read"] = [check_prompt, total, max(errs)]
+            print(f"[{label}] prefill of {check_prompt} + decode logits vs "
+                  f"forward over {total} tokens: relative L2 error max "
+                  f"{max(errs)!r}, mean {sum(errs) / len(errs)!r} over "
+                  f"{len(errs)} positions (printed, not held)")
     out["phase_peak_bytes"] = max(torch.cuda.max_memory_allocated(),
                                   out["materialize_peak_bytes"])
     out.update(flash=flash, rel=rel)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _attention_routes_agree(params, cfg, label, pt, prompts, gen_len,
+                            gen_toks, out, dev):
+    """``_serve_path``'s attention checks: each prefill attention's kernel
+    output against the plain version on the same q, k, v, and the prefill's
+    last-position logits through the kernel against the plain attention,
+    within the larger of ``LOGITS_REL_TOL`` and the model's own response
+    to one bf16 rounding of noise in its embedding. Returns ``(rel,
+    tol)``."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch.serve import generate
+    prompt_len = prompts.shape[1]
+    n_new = prompts.shape[0] * gen_len
+    # the kernel against its plain version on the model's own q, k, v
+    # at every layer of the prefill (each layer's input from the kernel
+    # route)
+    layer_errs = _layerwise_attention(params, cfg, pt)
+    out["attention_rel_max"] = max(layer_errs)
+    print(f"[{label}] each prefill layer's attention, kernel vs plain "
+          f"on the same q, k, v: relative L2 max "
+          f"{max(layer_errs)!r}, mean "
+          f"{sum(layer_errs) / len(layer_errs)!r} over "
+          f"{len(layer_errs)} layers (tolerance {ATTN_REL_TOL})")
+    if not max(layer_errs) <= ATTN_REL_TOL:
+        raise AssertionError(f"{label}: the flash kernel disagrees with "
+                             f"its plain version on the model's q, k, v")
+
+    # the whole prefill through the plain attention; a MoE model's
+    # routes pinned to the kernel prefill's
+    kernel_ids, plain_ids = [], []
+    with _recording_routes(kernel_ids):
+        kernel_logits = _prefill_last(params, cfg, pt)
+
+    def pinned():
+        return (_pinned_routes(lambda i: kernel_ids[i]) if kernel_ids
+                else contextlib.nullcontext())
+    if cfg.moe is not None:
+        with _recording_routes(plain_ids):
+            free = _prefill_last(params, cfg, pt, flash_attention_plain)
+        out["routes_differ"] = _routes_differ(kernel_ids, plain_ids)
+        out["kernel_vs_plain_rel_unpinned"] = _rel_err(kernel_logits,
+                                                       free)
+        print(f"[{label}] prefill through the plain attention with its "
+              f"own routing: {out['routes_differ']!r} of the (layer, "
+              f"token) top-{cfg.moe.top_k} sets differ from the kernel "
+              f"prefill's; last-position logits relative L2 "
+              f"{out['kernel_vs_plain_rel_unpinned']!r} (not gated: "
+              f"top-k routing is discontinuous)")
+        del free
+    with pinned():
+        plain_logits = _prefill_last(params, cfg, pt,
+                                     flash_attention_plain)
+    # the model's own response to one bf16 rounding of its input: the
+    # plain prefill again with the embedding table perturbed by 2^-8
+    # relative noise, rounded to bf16
+    with pinned():
+        noisy_logits = _prefill_last(_noisy_embedding(params), cfg, pt,
+                                     flash_attention_plain)
+    del kernel_ids, plain_ids
+    out["input_rounding_rel"] = _rel_err(noisy_logits, plain_logits)
+    tol = max(LOGITS_REL_TOL, out["input_rounding_rel"])
+    out["logits_tol"] = tol
+    rel = _rel_err(kernel_logits, plain_logits)
+    mx = (kernel_logits.float() - plain_logits.float()).abs().max()
+    same_tok = torch.equal(kernel_logits.argmax(-1),
+                           plain_logits.argmax(-1))
+    out["kernel_vs_plain_rel"] = rel
+    print(f"[{label}] prefill last-position logits, kernel vs plain "
+          f"attention{'' if cfg.moe is None else ' (routes pinned)'}: "
+          f"relative L2 error {rel!r}, max abs {mx.item()!r} (logits up "
+          f"to {plain_logits.float().abs().max().item()!r}); greedy "
+          f"first token equal: {same_tok}; the plain prefill with one "
+          f"bf16 rounding of noise in the embedding moves them by "
+          f"{out['input_rounding_rel']!r}; tolerance {tol!r} (the "
+          f"larger of {LOGITS_REL_TOL} and that)")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: kernel and plain prefill logits "
+                             f"differ by {rel!r}")
+    del noisy_logits
+    with _attention_route(flash_attention_plain):
+        plain_toks = generate(params, cfg, prompts, gen_len, device=dev)
+    agree = (plain_toks[:, prompt_len:] == gen_toks).float().mean()
+    print(f"[{label}] greedy tokens through the plain attention equal to "
+          f"the kernel path's: {agree.item()!r} of {n_new} (not gated: "
+          f"random-weight bf16 logits tie)")
+    return rel, tol
 
 
 def _time_flash(dev, card, launches, err):
@@ -2381,6 +2460,158 @@ def _serve_families(dev, card, kernels, flash_row):
         print(f"[families] {json.dumps(res)}")
         results.append(res)
     return results
+
+
+# ---- the recurrent families: zamba2-2.7b (Mamba2 + shared attention) and
+# xlstm-125m ---------------------------------------------------------------
+
+RECURRENT = dict(batch=4, prompt_len=2048, gen_len=32)
+# zamba2's decode against forward: forward's SSD needs S % 128 == 0, so a
+# 1920-token prefill and 127 decode steps over the first 2048 tokens
+ZAMBA2_CHECK = (2048, 1920)
+# xlstm-125m is float32 throughout: decode vs forward within 1e-3 (relative
+# L2), the same sums in another order through 12 recurrent layers. The
+# mLSTM's parallel form runs a length that is not a multiple of its chunk
+# (64) as one chunk, whose cumulative log-gates over ~2000 steps lose
+# float32 digits in their differences (2080 tokens: 2.2e-3), so forward
+# runs 2048 tokens in whole chunks, after a 1984-token prefill; a
+# 2020-token prefill (one chunk) against that forward is printed
+XLSTM_CHECK = (2048, 1984)
+XLSTM_READ = (2048, 2020)
+XLSTM_DECODE_TOL = 1e-3
+# zamba2's shared block attention: head dim 5120 / 32 = 160, H = Hkv 32;
+# (model, B, H, Hkv, S, D) of the served prefill, (B, H, Hkv, S, D) trained
+ZAMBA2_PREFILL_ATTN = ("zamba2-2.7b", 4, 32, 32, 2048, 160)
+ZAMBA2_TRAINED = (2, 32, 32, 4096, 160)
+# train_4k with the batch cut 256 -> 2, as internlm2's run; xlstm-125m's
+# sequence also cut 4096 -> 1024: its sLSTM runs one step at a time from
+# the host, 34.6 s a step at 2 x 4096 on an H100 80GB HBM3 at 700 W
+TRAIN_ZAMBA2 = dict(arch="zamba2-2.7b", steps=4, batch=2, seq=4096)
+TRAIN_XLSTM = dict(arch="xlstm-125m", steps=4, batch=2, seq=1024)
+# the kernel-vs-plain gradients at a depth cut: 12 Mamba2 layers and 2
+# applications of the shared block
+ZAMBA2_GRAD_LAYERS = 12
+
+
+def _zamba2_gradients(dev, cut):
+    """Phase 14's gradient checks of ``cut`` (zamba2-2.7b at full width, 12
+    Mamba2 layers and 2 shared-block applications) at ``TRAIN_ZAMBA2``'s
+    batch x seq: with float32 weights, the kernel route against the plain
+    one, every leaf within ``LOGITS_REL_TOL``; in bf16 the same comparison
+    printed, not held, while each application's flash backward is held,
+    kernel vs plain on the q, k, v, out, dO and lse it got in the kernel
+    route, within ``ATTN_REL_TOL``. Printed beside it: how far the plain
+    backward's dq, dk, dv move when out and lse come from the plain
+    forward instead (dv = P^T dO reads neither out nor, beyond a scale,
+    lse; dq and dk read out through delta = rowsum(dO * out)), and K's and
+    Q's mean over positions against their spread about it (a mean that
+    the exact dS rows, summing to 0, cancel in dq = dS K and dk = dS^T Q)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_backward_plain,
+        flash_attention_plain)
+    f32 = torch.float32
+    _train_kernel_vs_plain(dev, dataclasses.replace(
+        cut, param_dtype=f32, dtype=f32), TRAIN_ZAMBA2, "train-zamba2-route")
+    saved = []
+
+    def recording(q, k, v, out, dout, lse, **kw):
+        saved.append([t.clone() for t in (q, k, v, out, dout, lse)])
+        return flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+    _train_kernel_vs_plain(dev, cut, TRAIN_ZAMBA2, "train-zamba2-route-bf16",
+                           backward=recording, held=False)
+    n_apps = cut.n_layers // cut.hybrid_period
+    if len(saved) != n_apps:
+        raise AssertionError(f"train-zamba2-backward: {len(saved)} flash "
+                             f"backward calls, not {n_apps}")
+
+    def mean_ratio(t):
+        t = t.float()
+        mean = t.mean(dim=2, keepdim=True)
+        spread = (t - mean).square().sum(-1).mean(-1).sqrt()
+        return (mean[:, :, 0].norm(dim=-1) / spread).median().item()
+    for g, (q, k, v, out, dout, lse) in enumerate(saved):
+        got = flash_attention_backward_kernel(q, k, v, out, dout, lse)
+        want = flash_attention_backward_plain(q, k, v, out, dout, lse)
+        lse_plain = torch.empty_like(lse)
+        out_plain = flash_attention_plain(q, k, v, lse=lse_plain)
+        moved = flash_attention_backward_plain(q, k, v, out_plain, dout,
+                                               lse_plain)
+        torch.cuda.synchronize()
+        errs = [_rel_err(a, b) for a, b in zip(got, want)]
+        shift = [_rel_err(a, b) for a, b in zip(moved, want)]
+        print(f"[train-zamba2-backward] application {g}, B{q.shape[0]} "
+              f"H{q.shape[1]} S{q.shape[2]} D{q.shape[3]} bf16: kernel vs "
+              f"plain on the kernel route's inputs, relative L2 dq/dk/dv "
+              f"{errs} (tolerance {ATTN_REL_TOL}); the plain backward with "
+              f"the plain forward's out and lse moves dq/dk/dv by {shift}, "
+              f"out itself by {_rel_err(out, out_plain)!r}; median over "
+              f"heads of |mean over positions| / spread: K "
+              f"{mean_ratio(k)!r}, Q {mean_ratio(q)!r}")
+        if not max(errs) <= ATTN_REL_TOL:
+            raise AssertionError(f"train-zamba2-backward: application {g}'s "
+                                 "flash backward disagrees with its plain "
+                                 "version")
+        del got, want, moved, out_plain
+    del saved
+    torch.cuda.empty_cache()
+
+
+def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
+    """Phase 14: the flash kernel at zamba2's D 160 prefill shape against
+    its plain version and timed (added to ``flash_row``); zamba2-2.7b (54
+    Mamba2 layers, 9 applications of the shared attention block) and
+    xlstm-125m (12 mLSTM/sLSTM layers, float32) at full width and depth,
+    served through ``launch.serve.generate`` at batch 4, 2048-token
+    prompts, 32 greedy tokens, and trained through ``launch.train.main``
+    for 4 steps (zamba2 at 2 x 4096 tokens, xlstm at 2 x 1024); zamba2's
+    gradients through the kernels
+    against the plain attention at 12 layers; the flash backward at D 160
+    timed (added to ``bwd_row``)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Segment
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_row.setdefault("served_shapes", []).append(
+        _flash_at(dev, card, *ZAMBA2_PREFILL_ATTN))
+    zamba2, xlstm = get_config("zamba2-2.7b"), get_config("xlstm-125m")
+    total = torch.cuda.mem_get_info()[1]
+    for cfg, label, kw in (
+            (zamba2, "serve-zamba2", dict(check_tokens=ZAMBA2_CHECK)),
+            (xlstm, "serve-xlstm", dict(check_tokens=XLSTM_CHECK,
+                                        decode_tol=XLSTM_DECODE_TOL,
+                                        read_tokens=XLSTM_READ))):
+        res = _serve_path(cfg, label, RECURRENT["batch"],
+                          RECURRENT["prompt_len"], RECURRENT["gen_len"], dev,
+                          kernels, strict=True, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if res["phase_peak_bytes"] >= total:
+            raise AssertionError(f"{label}: peak {res['phase_peak_bytes']} "
+                                 f"bytes, not below the card's {total}")
+        res["card"] = card
+        print(f"[recurrent] {json.dumps(res)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    bwd_launches = _train_lm_path(dev, kernels, TRAIN_ZAMBA2, "train-zamba2",
+                                  int8_ef=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zamba2_gradients(dev, dataclasses.replace(zamba2, segments=(
+        Segment("mamba2", "none", ZAMBA2_GRAD_LAYERS),)))
+    entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
+                                 ZAMBA2_TRAINED, "zamba2-2.7b")
+    bwd_row["trained_shapes"] = [{k: entry[k] for k in (
+        "calls", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "device_ms", "plain_device_ms",
+        "library_device_ms", "achieved_tflops", "vs_library")}]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _train_lm_path(dev, kernels, TRAIN_XLSTM, "train-xlstm", profile=False,
+                   int8_ef=False)
 
 
 def _wrapper_host_times(dev, card) -> None:
@@ -2865,20 +3096,21 @@ def _check_flash_backward(dev):
     """Phase 12a: the flash backward kernel against its plain version over
     the sweep, deterministic; the forward's lse against the plain
     version's; the forward's output bit-identical with and without lse.
-    Returns the max error at the trained shape."""
+    Returns the max abs error of each case, by name."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
         flash_attention_kernel, flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
     sweep = [("trained internlm2 layer",) + TRAINED + (None, bf16),
+             ("trained zamba2 shared block",) + ZAMBA2_TRAINED + (None, bf16),
              ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16),
              ("smoke configs", 2, 4, 2, 128, 16, None, f32),
              ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32),
              ("odd S and D", 1, 4, 2, 77, 20, 5, f32),
              ("odd S and D", 1, 4, 2, 77, 20, 5, bf16),
              ("D=256", 1, 4, 2, 100, 256, 37, f32)]
-    trained_err = None
+    errs = {}
     for name, b, h, hkv, s, d, window, dtype in sweep:
         args = _bwd_case(dev, b, h, hkv, s, d, window, dtype)
         got = flash_attention_backward_kernel(*args, window=window)
@@ -2898,9 +3130,8 @@ def _check_flash_backward(dev):
         if not ok:
             raise AssertionError(f"flash_attention_backward disagrees with "
                                  f"its plain version on {name}")
-        if trained_err is None:
-            trained_err = max((g.float() - w.float()).abs().max().item()
-                              for g, w in zip(got, want))
+        errs.setdefault(name, max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want)))
         del args, got, again, want
     # lse, and the output with and without it
     for name, b, h, hkv, s, d, window, dtype in [
@@ -2927,7 +3158,7 @@ def _check_flash_backward(dev):
               f"lse: {same} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"flash_attention lse disagrees on {name}")
-    return trained_err
+    return errs
 
 
 def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
@@ -2963,18 +3194,19 @@ def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def _time_flash_backward(dev, card, launches, err):
-    """Phase 12a, ``flash_attention_backward`` row: one layer's attention
-    backward at the trained shape (B2, H16, Hkv 8, S4096, D128, bf16,
-    causal) through the kernel, its plain version and the backward of
-    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    the same tensors, timed alone."""
+def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
+                         model="internlm2-1.8b"):
+    """Phases 12a and 14, ``flash_attention_backward`` row: one layer's
+    attention backward at a trained shape (default internlm2-1.8b's: B2,
+    H16, Hkv 8, S4096, D128, bf16, causal) through the kernel, its plain
+    version and the backward of ``F.scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True)`` on the same tensors, timed alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
         visible_pairs)
-    b, h, hkv, s, d = TRAINED
+    b, h, hkv, s, d = shape
     q, k, v, out, dout, lse = _bwd_case(dev, b, h, hkv, s, d, None,
                                         torch.bfloat16, seed=1)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -3008,14 +3240,14 @@ def _time_flash_backward(dev, card, launches, err):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": ms[2], "device_ms": dev_ms[0],
         "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
-        "calls": "one layer's attention backward of internlm2-1.8b training "
-                 "(B2, H16, Hkv8, S4096, D128, bf16, causal): the delta "
-                 "pre-pass, dQ and dK/dV kernels",
+        "calls": f"one layer's attention backward of {model} training "
+                 f"(B{b}, H{h}, Hkv{hkv}, S{s}, D{d}, bf16, causal): the "
+                 f"delta pre-pass, dQ and dK/dV kernels",
     }
     row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
     row["vs_library"] = dev_ms[0] / dev_ms[2]
-    print(f"[time] flash_attention_backward B{b} H{h} Hkv{hkv} S{s} D{d} bf16 "
-          f"causal: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
+    print(f"[time] flash_attention_backward {model} B{b} H{h} Hkv{hkv} S{s} "
+          f"D{d} bf16 causal: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
           f"{ms[2]!r} ms (per call); device (graph) kernel {dev_ms[0]!r}, "
           f"plain {dev_ms[1]!r}, SDPA backward {dev_ms[2]!r} ms; kernel "
           f"device time {row['vs_library']!r}x SDPA backward's; bound "
@@ -3027,7 +3259,7 @@ def _time_flash_backward(dev, card, launches, err):
 
 
 @contextlib.contextmanager
-def _recorded_train_steps(rec, profile_at=None):
+def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
     """Within the scope, every step ``launch.train.main`` takes is
     synchronised and recorded in ``rec``: wall, loss, ce, and the flash
     forward / backward launches it made; step ``profile_at`` runs under
@@ -3049,7 +3281,7 @@ def _recorded_train_steps(rec, profile_at=None):
             if len(rec) == profile_at:
                 box = []
                 prof = _profile_step(lambda: box.append(step(*args)),
-                                     "train-lm", "flash_bwd")
+                                     label, "flash_bwd")
                 out = box[0]
             else:
                 out, prof = step(*args), None
@@ -3069,21 +3301,24 @@ def _recorded_train_steps(rec, profile_at=None):
         train.make_train_step = real
 
 
-def _train_lm_path(dev, kernels):
-    """Phase 12b: ``python -m repro_torch.launch.train`` at internlm2-1.8b's
-    full width and depth, 6 steps of 2 x 4096 tokens (the last profiled),
-    then 2 steps with int8 error-feedback gradient compression. Returns the
-    flash backward launches of the main run."""
+def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
+                   int8_ef=True):
+    """Phases 12b and 14: ``python -m repro_torch.launch.train`` at
+    ``run``'s arch, full width and depth, ``run["steps"]`` steps of
+    ``run["batch"]`` x ``run["seq"]`` tokens (the last profiled where
+    ``profile``), then, where ``int8_ef``, 2 steps with int8 error-feedback
+    gradient compression. Returns the flash backward launches of the main
+    run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.models.specs import n_params
-    cfg = get_config(TRAIN["arch"])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
-            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"])]
-    print(f"[train-lm] {cfg.name}: {cfg.n_layers} layers, d_model "
+    cfg = get_config(run["arch"])
+    tokens = run["batch"] * run["seq"]
+    argv = ["--arch", run["arch"], "--steps", str(run["steps"]),
+            "--batch", str(run["batch"]), "--seq", str(run["seq"])]
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head "
           f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat "
           f"{cfg.remat}, logit_chunk {cfg.logit_chunk}; "
@@ -3093,7 +3328,8 @@ def _train_lm_path(dev, kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _recorded_train_steps(rec, profile_at=TRAIN["steps"] - 1):
+    with _recorded_train_steps(
+            rec, run["steps"] - 1 if profile else None, label):
         params = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3104,33 +3340,37 @@ def _train_lm_path(dev, kernels):
     losses = [r["loss"] for r in rec]
     steady = [r["wall"] for r in rec[1:-1]]
     for i, r in enumerate(rec):
-        print(f"[train-lm] step {i}: loss {r['loss']!r}, ce {r['ce']!r}, "
+        print(f"[{label}] step {i}: loss {r['loss']!r}, ce {r['ce']!r}, "
               f"wall {r['wall']!r} s (synchronised"
               f"{', under the profiler' if r['profiled'] else ''}), "
               f"{tokens / r['wall']!r} tokens/s; flash forward launches "
               f"{r['fwd']}, backward {r['bwd']}")
     mean = statistics.fmean(steady)
-    print(f"[train-lm] main() wall {wall!r} s (weights drawn, first step's "
+    print(f"[{label}] main() wall {wall!r} s (weights drawn, first step's "
           f"warm-up included); steps 1-{len(rec) - 2}: mean step wall "
           f"{mean!r} s, {tokens / mean!r} tokens/s, median "
           f"{statistics.median(steady)!r} s; peak device memory {peak} "
           f"bytes; launches {launches}")
-    want_fwd, want_bwd = 2 * cfg.n_layers, cfg.n_layers   # remat="full"
-    if (len(rec) != TRAIN["steps"]
+    n_attn = _attention_layers(cfg)
+    want_fwd = (2 if cfg.remat == "full" else 1) * n_attn
+    want_bwd = n_attn
+    if (len(rec) != run["steps"]
             or any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec)
             or launches["flash_attention_kernel.tensor_core"]
-            != want_fwd * TRAIN["steps"]):
-        raise AssertionError(f"train-lm: flash launches a step "
+            != want_fwd * run["steps"]):
+        raise AssertionError(f"{label}: flash launches a step "
                              f"{[(r['fwd'], r['bwd']) for r in rec]}, not "
                              f"{want_fwd} forward (all on the tensor cores) "
                              f"and {want_bwd} backward")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train-lm: losses {losses} not finite or not "
+        raise AssertionError(f"{label}: losses {losses} not finite or not "
                              "falling")
-    print(f"[train-lm] losses finite, step {len(losses) - 1} below step 0; "
+    print(f"[{label}] losses finite, step {len(losses) - 1} below step 0; "
           f"{want_fwd} forward flash launches (all on the tensor cores) and "
           f"{want_bwd} backward calls a step ok")
 
+    if not int8_ef:
+        return launches["flash_attention_backward_kernel"]
     rec_ef = []
     torch.cuda.reset_peak_memory_stats()
     with _recorded_train_steps(rec_ef):
@@ -3140,36 +3380,40 @@ def _train_lm_path(dev, kernels):
     del params
     torch.cuda.empty_cache()
     ef = [r["loss"] for r in rec_ef]
-    print(f"[train-lm] --grad-compression int8_ef, 2 steps: losses {ef}, "
+    print(f"[{label}] --grad-compression int8_ef, 2 steps: losses {ef}, "
           f"walls {[r['wall'] for r in rec_ef]} s; peak device memory "
           f"{peak_ef} bytes")
     if len(ef) != 2 or not all(math.isfinite(v) for v in ef):
-        raise AssertionError(f"train-lm int8_ef: losses {ef}")
+        raise AssertionError(f"{label} int8_ef: losses {ef}")
     return launches["flash_attention_backward_kernel"]
 
 
-def _train_kernel_vs_plain(dev):
-    """Phase 12c: one step's loss and gradients of internlm2-1.8b at full
-    width, depth cut 24 -> 2, bf16, 2 x 4096 tokens: the kernel route
-    against the plain Function (the plain forward and backward swapped in).
-    Every gradient leaf within relative L2 ``LOGITS_REL_TOL``."""
+def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
+                           backward=None, held=True):
+    """Phases 12c and 14: one step's loss and gradients of ``cfg`` (default
+    internlm2-1.8b at full width, depth cut 24 -> 2, bf16), ``run``'s batch
+    x seq tokens: the kernel route (its backward ``backward`` where given)
+    against the plain Function (the plain forward and backward swapped
+    in). Every gradient leaf within relative L2 ``LOGITS_REL_TOL`` and the
+    loss within that share, where ``held``; else only printed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, batch_for_step
     from repro_torch.kernels.flash_attention import (
-        flash_attention_backward_plain, flash_attention_plain)
+        flash_attention_backward_plain, flash_attention_kernel,
+        flash_attention_plain)
     from repro_torch.models import lm
     from repro_torch.models.lm import Segment
     from repro_torch.models.specs import materialize, tree_leaves
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
-                              segments=(Segment("attn", "dense", 2),))
+    cfg = cfg or dataclasses.replace(get_config(TRAIN["arch"]),
+                                     segments=(Segment("attn", "dense", 2),))
     params = materialize(lm.lm_specs(cfg),
                          torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
     toks, labels = batch_for_step(DataConfig(vocab=cfg.vocab,
-                                             batch=TRAIN["batch"],
-                                             seq_len=TRAIN["seq"]), 0)
+                                             batch=run["batch"],
+                                             seq_len=run["seq"]), 0)
     toks = torch.as_tensor(toks, device=dev).long()
     labels = torch.as_tensor(labels, device=dev).long()
 
@@ -3177,23 +3421,27 @@ def _train_kernel_vs_plain(dev):
         loss, _ = lm.lm_loss(params, cfg, toks, labels)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    kernel = grads()
+    with (_attention_route(flash_attention_kernel, backward) if backward
+          else contextlib.nullcontext()):
+        kernel = grads()
     with _attention_route(flash_attention_plain,
                           flash_attention_backward_plain):
         plain = grads()
     torch.cuda.synchronize()
-    errs = {"/".join(p): _rel_err(a, b)
-            for (p, _), a, b in zip(tree_leaves(params), kernel[1], plain[1])}
+    names = ["/".join(p) for p, _ in tree_leaves(params)]
+    errs = {n: _rel_err(a, b) for n, a, b in zip(names, kernel[1], plain[1])}
     worst = max(errs, key=errs.get)
-    print(f"[train-lm-route] {cfg.name} depth 2, one step at "
-          f"{TRAIN['batch']} x {TRAIN['seq']}: loss kernel route "
+    print(f"[{label}] {cfg.name} depth {cfg.n_layers}, "
+          f"{str(cfg.param_dtype).split('.')[1]} weights, one step at "
+          f"{run['batch']} x {run['seq']}: loss kernel route "
           f"{kernel[0].item()!r}, plain route {plain[0].item()!r}; gradient "
-          f"relative L2 error: worst {worst} {errs[worst]!r}, all {errs} "
-          f"(tolerance {LOGITS_REL_TOL})")
-    if not (errs[worst] <= LOGITS_REL_TOL
-            and abs(kernel[0].item() - plain[0].item())
-            <= LOGITS_REL_TOL * abs(plain[0].item())):
-        raise AssertionError("train-lm-route: the kernel route's gradients "
+          f"relative L2 error: worst {worst} {errs[worst]!r} "
+          f"({f'tolerance {LOGITS_REL_TOL}' if held else 'not held'}), "
+          f"all {errs}")
+    if held and not (errs[worst] <= LOGITS_REL_TOL
+                     and abs(kernel[0].item() - plain[0].item())
+                     <= LOGITS_REL_TOL * abs(plain[0].item())):
+        raise AssertionError(f"{label}: the kernel route's gradients "
                              "disagree with the plain route's")
     del params, leaves, kernel, plain
     torch.cuda.empty_cache()
@@ -3591,9 +3839,11 @@ def main() -> int:
     # ---- phase 12: LM training at full width ------------------------------------
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    flash_bwd_err = _check_flash_backward(dev)
+    bwd_errs = _check_flash_backward(dev)
     bwd_launches = _train_lm_path(dev, kernels)
-    rows.append(_time_flash_backward(dev, card, bwd_launches, flash_bwd_err))
+    bwd_row = _time_flash_backward(dev, card, bwd_launches,
+                                   bwd_errs["trained internlm2 layer"])
+    rows.append(bwd_row)
     torch.cuda.reset_peak_memory_stats()
     _train_kernel_vs_plain(dev)
     _train_restart_in_child()
@@ -3603,6 +3853,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _serve_families(dev, card, kernels, flash_row)
     print(f"[families] phase 13 in {time.perf_counter() - t0!r} s")
+
+    # ---- phase 14: the recurrent families served and trained -----------------
+    t0 = time.perf_counter()
+    _recurrent_families(dev, card, kernels, flash_row, bwd_row,
+                        bwd_errs["trained zamba2 shared block"])
+    print(f"[recurrent] phase 14 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,19 @@ batch of prompts, greedy or with temperature sampling::
         --batch 4 --prompt-len 2048 --gen-len 32      # full width, one card
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 2048 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --batch 4 --prompt-len 2048 --gen-len 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --smoke --device cpu --batch 2 --prompt-len 16 --gen-len 4
 
-Attention (GQA, sliding window) and MLA models with dense or MoE MLPs
-serve; their caches come from ``lm.cache_specs`` (K/V, or MLA's latent
-``ckv``/``kr``). On the card, prefill's attention runs through the flash
-kernel (``models.layers``). Weights are random, drawn from ``--seed``.
+Every decoder LM of the registry serves: attention (GQA, sliding window)
+and MLA models with dense or MoE MLPs, Mamba2 with zamba2's shared
+attention block, and xLSTM. Their caches come from ``lm.cache_specs``
+(K/V, MLA's latent ``ckv``/``kr``, the SSM and xLSTM states). On the card,
+prefill's attention runs through the flash kernel (``models.layers``); a
+Mamba2 prefill takes whole SSD chunks (128 tokens at full width), so its
+prompt length is a multiple of 128 or shorter than one chunk. Weights are
+random, drawn from ``--seed``.
 
 :class:`MicroBatchQueue` is the reusable continuous-batching front: a
 thread-safe submit/drain queue that coalesces requests arriving within a

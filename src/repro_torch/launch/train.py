@@ -8,6 +8,8 @@ attention runs the flash kernel forward and the flash backward kernel::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
         --steps 6 --batch 2 --seq 4096                 # full width, one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+        --steps 4 --batch 2 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
         --smoke --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir ckpt
 

@@ -22,14 +22,18 @@ checkpoints each layer, ``dots`` saves only the outputs of matrix products
 with no batch dimension (the reference's
 ``dots_with_no_batch_dims_saveable``).
 
-Ported so far: attention and MLA blocks with a dense (SwiGLU), MoE or no
-MLP, which covers internlm2, h2o-danube, phi3-medium, llava-next,
-minicpm3, qwen3-moe and deepseek-v3. ``lm_specs`` builds DeepSeek's MTP
-subtree, so its weights carry across whole, but the MTP loss is not ported:
-``lm_loss`` raises for ``cfg.mtp``. Mamba2, xLSTM and the hybrid shared
-block raise ``NotImplementedError`` naming their ROADMAP item. Caches are
+Ported: attention and MLA blocks with a dense (SwiGLU), MoE or no MLP,
+Mamba2 and xLSTM (mLSTM, sLSTM) blocks, and zamba2's hybrid shared
+attention block, which covers every decoder LM of the registry. ``lm_specs``
+builds DeepSeek's MTP subtree, so its weights carry across whole, but the
+MTP loss is not ported: ``lm_loss`` raises for ``cfg.mtp``. Caches are
 updated in place (the reference donates them) and the same dicts are
 returned.
+
+Hybrid models (zamba2) run one shared-parameter attention + MLP block over
+``concat(x, emb)`` after every ``hybrid_period`` Mamba2 layers, ``emb`` the
+embedding output; each application has its own slice of the ``"shared"``
+K/V caches and is rematerialised on its own under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -106,24 +110,22 @@ def _stack(specs, count: int):
                                         s.scale), specs)
 
 
-def _check_supported(cfg: LMConfig, seg: Segment) -> None:
-    if seg.kind not in ("attn", "mla"):
-        raise (_not_ported(f"the {seg.kind} block")
-               if seg.kind in ("mamba2", "mlstm", "slstm")
-               else ValueError(seg.kind))
-    if cfg.hybrid_period:
-        raise _not_ported("the hybrid shared attention block")
-
-
 def _layer_specs(cfg: LMConfig, seg: Segment):
-    _check_supported(cfg, seg)
     d, dt = cfg.d_model, cfg.param_dtype
     out = {"norm1": L.rmsnorm_specs(d)}
     if seg.kind == "attn":
         out["attn"] = L.attn_specs(d, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.d_head, dt)
-    else:
+    elif seg.kind == "mla":
         out["attn"] = mla_specs(d, cfg.n_heads, cfg.mla, dt)
+    elif seg.kind == "mamba2":
+        out["mix"] = M.mamba_specs(d, cfg.ssm, dt)
+    elif seg.kind == "mlstm":
+        out["mix"] = X.mlstm_specs(d, cfg.xlstm, dt)
+    elif seg.kind == "slstm":
+        out["mix"] = X.slstm_specs(d, cfg.xlstm, dt)
+    else:
+        raise ValueError(seg.kind)
     if seg.mlp == "dense":
         out["norm2"] = L.rmsnorm_specs(d)
         out["mlp"] = L.mlp_specs(d, cfg.d_ff, dt)
@@ -133,11 +135,42 @@ def _layer_specs(cfg: LMConfig, seg: Segment):
     return out
 
 
+def _shared_dims(cfg: LMConfig):
+    """The shared block's attention width and head dim (``hybrid_d_attn //
+    n_heads``, not ``cfg.d_head``)."""
+    da = cfg.hybrid_d_attn or 2 * cfg.d_model
+    return da, da // cfg.n_heads
+
+
+def _shared_block_specs(cfg: LMConfig):
+    """Zamba2-style shared attention+MLP block over concat(x, emb)."""
+    da, dh = _shared_dims(cfg)
+    return {
+        "norm1": L.rmsnorm_specs(da),
+        "attn": {
+            "wq": param((da, cfg.n_heads, dh), ("embed", "heads", "head_dim"),
+                        dtype=cfg.param_dtype),
+            "wk": param((da, cfg.n_kv_heads, dh), ("embed", "kv_heads",
+                                                   "head_dim"),
+                        dtype=cfg.param_dtype),
+            "wv": param((da, cfg.n_kv_heads, dh), ("embed", "kv_heads",
+                                                   "head_dim"),
+                        dtype=cfg.param_dtype),
+            "wo": param((cfg.n_heads, dh, cfg.d_model),
+                        ("heads", "head_dim", "embed"), dtype=cfg.param_dtype),
+        },
+        "norm2": L.rmsnorm_specs(cfg.d_model),
+        "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff, cfg.param_dtype),
+    }
+
+
 def lm_specs(cfg: LMConfig):
     out = {"embed": L.embed_specs(cfg.vocab, cfg.d_model, cfg.param_dtype),
            "final_norm": L.rmsnorm_specs(cfg.d_model)}
     for i, seg in enumerate(cfg.segments):
         out[f"seg{i}"] = _stack(_layer_specs(cfg, seg), seg.count)
+    if cfg.hybrid_period:
+        out["shared"] = _shared_block_specs(cfg)
     if not cfg.tie_embeddings:
         out["head"] = param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                             dtype=cfg.param_dtype, scale=0.02)
@@ -157,7 +190,7 @@ def lm_specs(cfg: LMConfig):
 
 def _layer_cache_specs(cfg: LMConfig, seg: Segment, batch: int,
                        max_len: int):
-    _check_supported(cfg, seg)
+    d = cfg.d_model
     if seg.kind == "mla":
         m = cfg.mla
         return {
@@ -168,6 +201,35 @@ def _layer_cache_specs(cfg: LMConfig, seg: Segment, batch: int,
                             ("cache_batch", "cache_seq", "head_dim"),
                             "zeros"),
         }
+    if seg.kind == "mamba2":
+        s = cfg.ssm
+        h = M.n_heads_ssm(d, s)
+        conv_ch = M.d_inner(d, s) + 2 * s.n_groups * s.d_state
+        return {
+            "h": ParamSpec((batch, h, s.head_dim, s.d_state), torch.float32,
+                           ("cache_batch", "heads", "head_dim", "ssm_state"),
+                           "zeros"),
+            "conv": ParamSpec((batch, s.d_conv - 1, conv_ch), cfg.dtype,
+                              ("cache_batch", "conv_k", "mlp"), "zeros"),
+        }
+    if seg.kind == "mlstm":
+        xc = cfg.xlstm
+        dh = int(d * xc.up_factor) // xc.n_heads
+        ax = ("cache_batch", "heads", "head_dim", "head_dim2")
+        return {"c": ParamSpec((batch, xc.n_heads, dh, dh), torch.float32, ax,
+                               "zeros"),
+                "n": ParamSpec((batch, xc.n_heads, dh), torch.float32, ax[:3],
+                               "zeros"),
+                "m": ParamSpec((batch, xc.n_heads), torch.float32, ax[:2],
+                               "zeros")}
+    if seg.kind == "slstm":
+        xc = cfg.xlstm
+        ax = ("cache_batch", "heads", "head_dim")
+        return {k: ParamSpec((batch, xc.n_heads, d // xc.n_heads),
+                             torch.float32, ax, "zeros")
+                for k in ("h", "c", "n", "m")}
+    if seg.kind != "attn":
+        raise ValueError(seg.kind)
     shp = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     axes = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
     return {"k": ParamSpec(shp, cfg.dtype, axes, "zeros"),
@@ -175,9 +237,19 @@ def _layer_cache_specs(cfg: LMConfig, seg: Segment, batch: int,
 
 
 def cache_specs(cfg: LMConfig, batch: int, max_len: int):
-    return {f"seg{i}": _stack(_layer_cache_specs(cfg, seg, batch, max_len),
-                              seg.count)
-            for i, seg in enumerate(cfg.segments)}
+    """The serving caches. mLSTM and sLSTM stabilisers ``m`` start at 0, as
+    in the reference (a fresh scan starts them at -1e30)."""
+    out = {f"seg{i}": _stack(_layer_cache_specs(cfg, seg, batch, max_len),
+                             seg.count)
+           for i, seg in enumerate(cfg.segments)}
+    if cfg.hybrid_period:
+        _, dh = _shared_dims(cfg)
+        shp = (cfg.n_layers // cfg.hybrid_period, batch, max_len,
+               cfg.n_kv_heads, dh)
+        axes = ("layers", "cache_batch", "cache_seq", "kv_heads", "head_dim")
+        out["shared"] = {"k": ParamSpec(shp, cfg.dtype, axes, "zeros"),
+                         "v": ParamSpec(shp, cfg.dtype, axes, "zeros")}
+    return out
 
 
 # ---------------------------------------------------------------- forward ----
@@ -185,10 +257,20 @@ def cache_specs(cfg: LMConfig, batch: int, max_len: int):
 def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
     """One layer: ``(x, aux, cache)``, aux the MoE's load-balance loss
     (float32; None for other MLPs, whose aux is 0)."""
-    _check_supported(cfg, seg)
     h = L.rmsnorm(p["norm1"], x)
-    block = L.attention_block if seg.kind == "attn" else mla_block
-    y, new_cache = block(p["attn"], h, positions, cfg, cache, pos)
+    if seg.kind == "attn":
+        y, new_cache = L.attention_block(p["attn"], h, positions, cfg, cache,
+                                         pos)
+    elif seg.kind == "mla":
+        y, new_cache = mla_block(p["attn"], h, positions, cfg, cache, pos)
+    elif seg.kind == "mamba2":
+        y, new_cache = M.mamba_block(p["mix"], h, cfg, cfg.ssm, cache)
+    elif seg.kind == "mlstm":
+        y, new_cache = X.mlstm_block(p["mix"], h, cfg.xlstm, cache)
+    elif seg.kind == "slstm":
+        y, new_cache = X.slstm_block(p["mix"], h, cfg.xlstm, cache)
+    else:
+        raise ValueError(seg.kind)
     x = x + y
     aux = None
     if seg.mlp == "dense":
@@ -230,13 +312,27 @@ def _maybe_remat(fn, cfg: LMConfig):
     return remat
 
 
+def _shared_block_fwd(p, cfg: LMConfig, x, emb, positions, cache, pos):
+    """Zamba2 shared block: attention over concat(x, emb) + MLP, residual to
+    x."""
+    h = L.rmsnorm(p["norm1"], torch.cat([x, emb], dim=-1))
+    y, _ = L.attention_block(p["attn"], h, positions, cfg, cache, pos)
+    x = x + y
+    return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
+
+
 def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
-                 cache=None, pos=None):
+                 cache=None, pos=None, shared=None, emb=None,
+                 shared_cache=None):
     """The segment's stacked layers one after another, each rematerialised
-    as ``cfg.remat`` says when there is no cache. Returns ``(x, aux,
-    cache)``, aux the sum of the layers' auxiliary losses (None where no
-    layer has one); each layer writes its slice of the stacked cache in
-    place."""
+    as ``cfg.remat`` says when there is no cache. In a hybrid model's Mamba2
+    segment the shared block (``shared``, over ``concat(x, emb)``) runs
+    after every ``cfg.hybrid_period`` layers, its g-th application with
+    slice g of ``shared_cache`` and rematerialised on its own. Returns
+    ``(x, aux, cache)``, aux the sum of the layers' auxiliary losses (None
+    where no layer has one); each layer and application writes its slice
+    of the stacked caches in place."""
+    per = cfg.hybrid_period if seg.kind == "mamba2" else 0
     aux = None
     for li in range(seg.count):
         p_layer = tree_map(lambda a: a[li], p_stack)
@@ -252,6 +348,17 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
                                  pos)
         if a is not None:
             aux = a if aux is None else aux + a
+        if per and (li + 1) % per == 0:
+            g = li // per
+            if cache is None:
+                x = _maybe_remat(
+                    lambda xx, ee: _shared_block_fwd(shared, cfg, xx, ee,
+                                                     positions, None, pos),
+                    cfg)(x, emb)
+            else:
+                x = _shared_block_fwd(shared, cfg, x, emb, positions,
+                                      tree_map(lambda a: a[g], shared_cache),
+                                      pos)
     return x, aux, cache
 
 
@@ -274,8 +381,10 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), device=x.device)
+    emb0 = x
     for i, seg in enumerate(cfg.segments):
-        x, aux, _ = _run_segment(params[f"seg{i}"], seg, cfg, x, positions)
+        x, aux, _ = _run_segment(params[f"seg{i}"], seg, cfg, x, positions,
+                                 shared=params.get("shared"), emb=emb0)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
@@ -284,16 +393,28 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
     return _head(params, cfg, x), aux_total
 
 
+def _run_cached(params, cfg: LMConfig, cache, x, positions, pos=None):
+    """Prefill (``pos`` None) or one decode step through every segment,
+    writing the caches in place. Returns the final-normed hidden states and
+    the (same) cache."""
+    emb0 = x
+    new_cache = {}
+    for i, seg in enumerate(cfg.segments):
+        x, _, new_cache[f"seg{i}"] = _run_segment(
+            params[f"seg{i}"], seg, cfg, x, positions, cache=cache[f"seg{i}"],
+            pos=pos, shared=params.get("shared"), emb=emb0,
+            shared_cache=cache.get("shared"))
+    if "shared" in cache:
+        new_cache["shared"] = cache["shared"]
+    return L.rmsnorm(params["final_norm"], x), new_cache
+
+
 def prefill(params, cfg: LMConfig, tokens, cache, prefix_embeds=None):
     """Fill the caches over the prompt; return the last position's logits
     ``[B, 1, V]`` and the (same, filled) cache."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    new_cache = {}
-    for i, seg in enumerate(cfg.segments):
-        x, _, new_cache[f"seg{i}"] = _run_segment(
-            params[f"seg{i}"], seg, cfg, x, positions, cache=cache[f"seg{i}"])
-    x = L.rmsnorm(params["final_norm"], x)
+    x, new_cache = _run_cached(params, cfg, cache, x, positions)
     return _head(params, cfg, x[:, -1:]), new_cache
 
 
@@ -302,12 +423,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos: int):
     pos = int(pos)
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    new_cache = {}
-    for i, seg in enumerate(cfg.segments):
-        x, _, new_cache[f"seg{i}"] = _run_segment(
-            params[f"seg{i}"], seg, cfg, x, positions, cache=cache[f"seg{i}"],
-            pos=pos)
-    x = L.rmsnorm(params["final_norm"], x)
+    x, new_cache = _run_cached(params, cfg, cache, x, positions, pos)
     return _head(params, cfg, x), new_cache
 
 

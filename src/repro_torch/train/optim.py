@@ -206,22 +206,35 @@ def _adam_param(p32, m, v, c1: float, c2: float, lr: float, decay: bool,
     return p32 - lr * delta
 
 
-def _layer(tree, i):
-    """Layer ``i`` of a stacked leaf (``i`` None: the leaf itself); an int8
-    moment ``{"codes", "scale"}`` is cut leaf by leaf."""
-    if i is None:
-        return tree
+# the most elements of a leaf updated at once: float32 temporaries of at
+# most 256 MiB each
+MAX_UPDATE = 1 << 26
+
+
+def _row_slices(p) -> list:
+    """Slices of whole rows along ``p``'s first axis, each of at most
+    ``MAX_UPDATE`` elements (one row at least); a leaf of fewer than two
+    axes, whose int8 moment has one scale, is one slice."""
+    if p.dim() < 2 or p.numel() <= MAX_UPDATE:
+        return [slice(None)]
+    rows = max(1, MAX_UPDATE // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
+def _rows(tree, sl):
+    """Rows ``sl`` of a leaf; an int8 moment ``{"codes", "scale"}`` (one
+    scale a row) is cut leaf by leaf."""
     if isinstance(tree, dict):
-        return {k: t[i] for k, t in tree.items()}
-    return tree[i]
+        return {k: t[sl] for k, t in tree.items()}
+    return tree[sl]
 
 
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step, in place. Returns ``(params, state)``: the same
-    trees, updated. The arithmetic is elementwise in float32; a stacked leaf
-    (three or more axes, the layers first) is updated one layer at a time,
-    which gives the same numbers with a layer's worth of temporaries."""
+    trees, updated. The arithmetic is elementwise in float32; a large leaf
+    is updated in slices of whole rows (``_row_slices``), which gives the
+    same numbers with a slice's worth of temporaries."""
     step = int(state["step"]) + 1
     state["step"].fill_(step)
     tag = cfg.state_dtype
@@ -234,12 +247,12 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     for path, p in tree_leaves(params):
         g, m_s, v_s = (at_path(t, path) for t in (grads, state["m"],
                                                   state["v"]))
-        for i in range(p.shape[0]) if p.dim() >= 3 else (None,):
-            pi = _layer(p, i)
-            g32 = _layer(g, i).float()
+        for sl in _row_slices(p):
+            pi = _rows(p, sl)
+            g32 = _rows(g, sl).float()
             if scale is not None:
                 g32 = g32 * scale
-            mi, vi = _layer(m_s, i), _layer(v_s, i)
+            mi, vi = _rows(m_s, sl), _rows(v_s, sl)
             m, v = _adam_moments(g32, _read_state(mi, tag),
                                  _read_state(vi, tag, True), cfg)
             pi.copy_(_adam_param(pi.float(), m, v, c1, c2, lr, p.dim() >= 2,

@@ -33,8 +33,10 @@ from repro_torch.models import specs as p_specs  # noqa: E402
 
 SERVED_ARCHS = ["internlm2-1.8b", "h2o-danube-1.8b", "phi3-medium-14b",
                 "llava-next-34b", "minicpm3-4b", "qwen3-moe-30b-a3b",
-                "deepseek-v3-671b"]
-UNPORTED_ARCHS = ["xlstm-125m", "zamba2-2.7b"]
+                "deepseek-v3-671b", "xlstm-125m", "zamba2-2.7b"]
+# zamba2's SSD scan needs S % min(chunk, S) == 0 (its smoke chunk is 32):
+# (forward length, prefill length) for it; the rest prefill 2 short
+CHUNKED_LENGTHS = {"zamba2-2.7b": (64, 64)}
 ATOL = 2e-5
 MODEL_ATOL = 1e-4
 
@@ -155,15 +157,22 @@ def _model_pair(arch, seed=0):
 def test_forward_prefill_decode_match_reference(arch):
     rcfg, pcfg, rp, pp = _model_pair(arch)
     rng = np.random.default_rng(7)
-    s = 72
-    mx = s + rcfg.prefix_len
-    toks = rng.integers(0, rcfg.vocab, (2, s))
+    s, n = CHUNKED_LENGTHS.get(arch, (72, 70))
+    mx = max(s, n + 2) + rcfg.prefix_len
+    toks = rng.integers(0, rcfg.vocab, (2, max(s, n + 2)))
     prefix = (rng.standard_normal((2, rcfg.prefix_len, rcfg.d_model))
               .astype(np.float32) if rcfg.prefix_len else None)
     jpre = None if prefix is None else jnp.asarray(prefix)
     tpre = None if prefix is None else _t(prefix)
-    want, r_aux = r_lm.forward(rp, rcfg, jnp.asarray(toks), jpre)
-    got, aux = p_lm.forward(pp, pcfg, _t(toks), tpre)
+    # the reference under jit, its config closed over (its xLSTM and SSD
+    # scans take seconds to run eagerly)
+    r_forward = jax.jit(lambda p_, t_, e_: r_lm.forward(p_, rcfg, t_, e_))
+    r_prefill = jax.jit(lambda p_, t_, c_, e_: r_lm.prefill(p_, rcfg, t_, c_,
+                                                            e_))
+    r_decode = jax.jit(lambda p_, c_, t_, i_: r_lm.decode_step(p_, rcfg, c_,
+                                                               t_, i_))
+    want, r_aux = r_forward(rp, jnp.asarray(toks[:, :s]), jpre)
+    got, aux = p_lm.forward(pp, pcfg, _t(toks[:, :s]), tpre)
     assert got.shape == (2, s + pcfg.prefix_len, pcfg.vocab)
     assert aux.dtype == torch.float32
     np.testing.assert_allclose(float(aux), float(r_aux), atol=1e-6)
@@ -171,23 +180,20 @@ def test_forward_prefill_decode_match_reference(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=MODEL_ATOL)
 
-    n = s
     r_cache = r_specs.materialize(jax.random.PRNGKey(0),
                                   r_lm.cache_specs(rcfg, 2, mx))
     p_cache = p_specs.materialize(p_lm.cache_specs(pcfg, 2, mx),
                                   device="cpu")
-    want, r_cache = r_lm.prefill(rp, rcfg, jnp.asarray(toks[:, :n - 2]),
-                                 r_cache, jpre)
-    got, p_cache = p_lm.prefill(pp, pcfg, _t(toks[:, :n - 2]), p_cache, tpre)
+    want, r_cache = r_prefill(rp, jnp.asarray(toks[:, :n]), r_cache, jpre)
+    got, p_cache = p_lm.prefill(pp, pcfg, _t(toks[:, :n]), p_cache, tpre)
     assert got.shape == (2, 1, pcfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=MODEL_ATOL)
     if prefix is not None:
         return          # the reference decodes text-only caches
-    for i in range(n - 2, n):
-        want, r_cache = r_lm.decode_step(rp, rcfg, r_cache,
-                                         jnp.asarray(toks[:, i:i + 1]),
-                                         jnp.int32(i))
+    for i in range(n, n + 2):
+        want, r_cache = r_decode(rp, r_cache, jnp.asarray(toks[:, i:i + 1]),
+                                 jnp.int32(i))
         got, p_cache = p_lm.decode_step(pp, pcfg, p_cache,
                                         _t(toks[:, i:i + 1]), i)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -196,19 +202,22 @@ def test_forward_prefill_decode_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b",
                                   "minicpm3-4b", "qwen3-moe-30b-a3b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "xlstm-125m",
+                                  "zamba2-2.7b"])
 def test_decode_matches_forward(arch):
     """The reference's ``test_models.py`` property, in the port alone: prefill
-    and decode logits equal full-sequence logits (atol 2e-4)."""
+    and decode logits equal full-sequence logits (atol 2e-4). zamba2 (SSD
+    chunk 32) prefills 32 of 64 positions and decodes the other 32."""
     _, pcfg, _, pp = _model_pair(arch, seed=1)
-    s, mx = 40, 44
+    s, p = (64, 32) if arch == "zamba2-2.7b" else (40, 37)
     toks = torch.as_tensor(np.random.default_rng(2).integers(0, pcfg.vocab,
                                                              (2, s)))
     full, _ = p_lm.forward(pp, pcfg, toks)
-    cache = p_specs.materialize(p_lm.cache_specs(pcfg, 2, mx), device="cpu")
-    pre, cache = p_lm.prefill(pp, pcfg, toks[:, :s - 3], cache)
-    errs = [(pre[:, 0] - full[:, s - 4]).abs().max().item()]
-    for i in range(s - 3, s):
+    cache = p_specs.materialize(p_lm.cache_specs(pcfg, 2, s + 4),
+                                device="cpu")
+    pre, cache = p_lm.prefill(pp, pcfg, toks[:, :p], cache)
+    errs = [(pre[:, 0] - full[:, p - 1]).abs().max().item()]
+    for i in range(p, s):
         lg, cache = p_lm.decode_step(pp, pcfg, cache, toks[:, i:i + 1], i)
         errs.append((lg[:, 0] - full[:, i]).abs().max().item())
     assert max(errs) < 2e-4, errs
@@ -231,11 +240,18 @@ def _with(tree, path, leaf):
     return out
 
 
-# a leaf of each block kind, and (deepseek) the MTP subtree's
+# a leaf of each block kind, (deepseek) the MTP subtree's and (zamba2) the
+# hybrid shared block's
 _LEAVES = {"internlm2-1.8b": ("seg0", "attn", "wq"),
            "minicpm3-4b": ("seg0", "attn", "w_uk"),
            "qwen3-moe-30b-a3b": ("seg0", "mlp", "w_gate"),
-           "deepseek-v3-671b": ("mtp", "layer", "attn", "w_uv")}
+           "deepseek-v3-671b": ("mtp", "layer", "attn", "w_uv"),
+           "xlstm-125m": ("seg1", "mix", "r_gates"),
+           "zamba2-2.7b": ("shared", "attn", "wq")}
+# float32 leaves whatever the param dtype: norm scales, the MoE router,
+# Mamba2's dt bias, A and D, the xLSTM gate weights and biases
+_F32_LEAVES = ("router", "scale", "dt_bias", "a_log", "d_skip", "w_if",
+               "b_if", "b_gates")
 
 
 @pytest.mark.parametrize("arch", sorted(_LEAVES))
@@ -259,10 +275,11 @@ def test_reference_params_round_trip_and_errors(arch):
     for (path, t), (_, s) in zip(p_specs.tree_leaves(pp), p_specs.tree_leaves(
             p_lm.lm_specs(pcfg))):
         assert t.dtype == s.dtype, path
-        want = (torch.float32 if path[-1] in ("router", "scale")
+        want = (torch.float32 if path[-1] in _F32_LEAVES
                 else torch.bfloat16)
         assert t.dtype == want, path
     assert ("mtp" in ref) == pcfg.mtp
+    assert ("shared" in ref) == bool(pcfg.hybrid_period)
     leaf = _LEAVES[arch]
     with pytest.raises(ValueError, match="missing"):
         p_lm.from_reference_params(pcfg, _without(ref, ("head",)),
@@ -283,15 +300,6 @@ def test_reference_params_round_trip_and_errors(arch):
     with pytest.raises(ValueError, match="shape"):
         p_lm.from_reference_params(pcfg, _with(ref, leaf, np.zeros(3)),
                                    device="cpu")
-
-
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_families_raise(arch):
-    cfg = p_reg.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        p_lm.lm_specs(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        p_lm.cache_specs(cfg, 1, 8)
 
 
 # ---- specs -----------------------------------------------------------------------

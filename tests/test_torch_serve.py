@@ -57,10 +57,12 @@ def _reference_margins(rp, rcfg, tokens, p):
                                        ("h2o-danube-1.8b", 0),
                                        ("minicpm3-4b", 0),
                                        ("qwen3-moe-30b-a3b", 0),
-                                       ("deepseek-v3-671b", 0)])
+                                       ("deepseek-v3-671b", 0),
+                                       ("zamba2-2.7b", 0)])
 def test_generate_greedy_tokens_match_reference(arch, seed):
     """Batch 2, a 30-token prompt (past h2o-danube's smoke window of 24, so
-    decode reads a windowed cache), 6 greedy tokens."""
+    decode reads a windowed cache; within zamba2's SSD chunk of 32), 6
+    greedy tokens."""
     rcfg, pcfg = r_reg.get_smoke_config(arch), p_reg.get_smoke_config(arch)
     rp = r_specs.materialize(jax.random.PRNGKey(seed), r_lm.lm_specs(rcfg))
     pp = p_lm.from_reference_params(pcfg, _np_tree(rp), device="cpu")
@@ -99,9 +101,12 @@ def test_main_serves_a_smoke_config_and_rejects_encdec(capsys):
     with pytest.raises(SystemExit, match="enc-dec"):
         p_serve.main(["--arch", "seamless-m4t-medium", "--smoke", "--device",
                       "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        p_serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device",
-                      "cpu"])
+    # zamba2 (Mamba2 + the hybrid shared block) serves too
+    toks = p_serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device",
+                         "cpu", "--batch", "2", "--prompt-len", "10",
+                         "--gen-len", "3"])
+    assert toks.shape == (2, 13) and toks.dtype == torch.int64
+    assert "generated 6 tokens" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-30b-a3b",
@@ -111,6 +116,17 @@ def test_main_serves_the_mla_and_moe_families(arch, capsys):
                          "--batch", "2", "--prompt-len", "9", "--gen-len",
                          "4"])
     assert toks.shape == (2, 13) and toks.dtype == torch.int64
+    assert "generated 8 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_main_serves_the_recurrent_families(arch, capsys):
+    """The recurrent families through the launcher: a 32-token prompt (one
+    zamba2 SSD chunk), 4 tokens each, with their state caches."""
+    toks = p_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt-len", "32", "--gen-len",
+                         "4"])
+    assert toks.shape == (2, 36) and toks.dtype == torch.int64
     assert "generated 8 tokens" in capsys.readouterr().out
 
 

@@ -25,6 +25,7 @@ import repro.launch.train as r_launch  # noqa: E402
 import repro_torch.launch.train as p_launch  # noqa: E402
 from repro.configs import registry as r_reg  # noqa: E402
 from repro.models import lm as r_lm  # noqa: E402
+from repro.models import mamba2 as r_mamba2  # noqa: E402
 from repro.models import specs as r_specs  # noqa: E402
 from repro.train import optim as r_optim  # noqa: E402
 from repro.train import step as r_step  # noqa: E402
@@ -63,8 +64,8 @@ def _f32(x):
 # ---- optimizer -----------------------------------------------------------------
 
 def _opt_inputs(seed):
-    """A float32 matrix, a bfloat16 matrix, a stacked 3-axis leaf (updated
-    layer by layer in the port) and a vector (no weight decay)."""
+    """A float32 matrix, a bfloat16 matrix, a stacked 3-axis leaf and a
+    vector (no weight decay)."""
     rng = np.random.default_rng(seed)
     params = {"w": rng.standard_normal((6, 8)).astype(np.float32),
               "h": rng.standard_normal((4, 16)).astype(np.float32),
@@ -141,6 +142,27 @@ def test_adamw_update_matches_reference(state_dtype):
                     assert a.dtype == torch.bfloat16
                     assert np.all(np.abs(_f32(a) - _f32(b))
                                   <= _bf16_step(_f32(b))), path
+
+
+@pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
+def test_adamw_update_in_row_slices_matches_whole(monkeypatch, state_dtype):
+    """A leaf updated in slices of whole rows (``MAX_UPDATE`` 20 elements:
+    3, 4 and 3 slices of the three matrices) gives the same bits as the
+    leaf updated whole."""
+    cfg = p_optim.AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0,
+                              state_dtype=state_dtype)
+    rp, grads = _opt_inputs(0)
+    runs = []
+    for max_update in (p_optim.MAX_UPDATE, 20):
+        monkeypatch.setattr(p_optim, "MAX_UPDATE", max_update)
+        params = _to_torch(rp)
+        opt = p_optim.adamw_init(params, cfg)
+        for g in grads:
+            p_optim.adamw_update(_to_torch(g), opt, params, cfg)
+        runs.append(_leaves(params) + _leaves(opt["m"]) + _leaves(opt["v"]))
+    assert len(p_optim._row_slices(_to_torch(rp)["w"])) == 3
+    for (path, a), (_, b) in zip(*runs):
+        assert torch.equal(a, b), path
 
 
 def test_adamw_first_step_is_lr_signed():
@@ -262,19 +284,49 @@ def test_compression_error_feedback_preserves_sum():
 # ---- lm_loss -----------------------------------------------------------------------
 
 S = 32
-LOSS_CASES = ([("internlm2-1.8b", chunk, remat) for chunk in (0, 8)
+# (arch, logit chunk, remat, tokens a row)
+LOSS_CASES = ([("internlm2-1.8b", chunk, remat, S) for chunk in (0, 8)
                for remat in ("none", "full", "dots")]
-              + [("h2o-danube-1.8b", 8, "none"),
-                 ("llava-next-34b", 8, "none")])
+              + [("h2o-danube-1.8b", 8, "none", S),
+                 ("llava-next-34b", 8, "none", S)]
+              + [("zamba2-2.7b", 8, remat, S)
+                 for remat in ("none", "full", "dots")]
+              + [("xlstm-125m", 8, "none", S)]
+              # 16 tokens: zamba2's masked decays stay finite, so the
+              # reference runs its own _segsum_mask (see _finite_segsum)
+              + [("zamba2-2.7b", 8, "none", 16)])
+# The recurrent families are deeper than two layers and their gradients
+# sum through recurrences, so 1e-6 absolute is below their float32
+# rounding. xlstm-125m's (stabilised mLSTM/sLSTM) are ill-conditioned: the
+# port against itself with the mLSTM chunk 16 -> 8 (the same sums in
+# another order) differs by up to 2.2e-5 of a leaf's largest magnitude, the
+# reference by 4.9e-5. zamba2-2.7b (4 Mamba2 layers and 2 shared-block
+# applications) differs from the reference by up to 1.6e-5 of a leaf's
+# largest magnitude (A's log), and by 1.3e-6 absolute on embedding rows of
+# 0.3. Their leaves are held within rtol 1e-4 plus this share of each
+# leaf's largest magnitude.
+GRAD_ATOL_OF_MAX = {"xlstm-125m": 1e-4, "zamba2-2.7b": 1e-5}
 
 
-def _loss_inputs(arch, chunk, remat):
+def _finite_segsum(a_cum):
+    """The reference's ``_segsum_mask`` values with a finite gradient: the
+    masked entries are exponentiated as exp(-inf) = 0. The reference takes
+    ``where(mask, exp(diff), 0)``, whose gradient is 0 x inf = NaN wherever a
+    masked ``diff`` overflows float32 (zamba2's smoke loss over 32 tokens
+    does, over 16 it does not); the port's ``_segsum_mask`` is this form."""
+    l = a_cum.shape[-1]
+    diff = a_cum[..., :, None] - a_cum[..., None, :]
+    mask = jnp.tril(jnp.ones((l, l), bool))
+    return jnp.exp(jnp.where(mask, diff, -jnp.inf))
+
+
+def _loss_inputs(arch, chunk, remat, s=S):
     rcfg = dataclasses.replace(r_reg.get_smoke_config(arch),
                                logit_chunk=chunk, remat=remat)
     pcfg = dataclasses.replace(p_reg.get_smoke_config(arch),
                                logit_chunk=chunk, remat=remat)
     rng = np.random.default_rng(3)
-    s = S - rcfg.prefix_len
+    s = s - rcfg.prefix_len
     tokens = rng.integers(0, rcfg.vocab, (2, s)).astype(np.int32)
     labels = rng.integers(-1, rcfg.vocab, (2, s)).astype(np.int32)
     prefix = ((rng.standard_normal((2, rcfg.prefix_len, rcfg.d_model)) * 0.5)
@@ -283,9 +335,19 @@ def _loss_inputs(arch, chunk, remat):
     return rcfg, pcfg, tokens, labels, prefix, params
 
 
-@pytest.mark.parametrize("arch,chunk,remat", LOSS_CASES)
-def test_lm_loss_and_grads_match_reference(arch, chunk, remat):
-    rcfg, pcfg, tokens, labels, prefix, rp = _loss_inputs(arch, chunk, remat)
+def _loss_case_id(case):
+    arch, chunk, remat, s = case
+    return f"{arch}-{chunk}-{remat}" + ("" if s == S else f"-s{s}")
+
+
+@pytest.mark.parametrize("arch,chunk,remat,s", LOSS_CASES,
+                         ids=[_loss_case_id(c) for c in LOSS_CASES])
+def test_lm_loss_and_grads_match_reference(monkeypatch, arch, chunk, remat,
+                                           s):
+    rcfg, pcfg, tokens, labels, prefix, rp = _loss_inputs(arch, chunk, remat,
+                                                          s)
+    if rcfg.ssm is not None and s == S:
+        monkeypatch.setattr(r_mamba2, "_segsum_mask", _finite_segsum)
 
     def r_loss(p):
         return r_lm.lm_loss(p, rcfg, jnp.asarray(tokens), jnp.asarray(labels),
@@ -304,7 +366,8 @@ def test_lm_loss_and_grads_match_reference(arch, chunk, remat):
                                    rtol=1e-5,
                                    atol=1e-7)
     for (path, want), got in zip(_leaves(_np_tree(r_g)), p_g):
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-6,
+        atol = max(1e-6, GRAD_ATOL_OF_MAX.get(arch, 0) * np.abs(want).max())
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=atol,
                                    err_msg=str(path))
 
 
@@ -353,21 +416,33 @@ def _reference_init(monkeypatch):
     monkeypatch.setattr(p_launch, "init_params", init)
 
 
-@pytest.mark.parametrize("arch,extra", [
-    ("internlm2-1.8b", []), ("llava-next-34b", []),
-    ("internlm2-1.8b", ["--grad-compression", "int8_ef"])])
-def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra):
+@pytest.mark.parametrize("arch,extra,steps", [
+    ("internlm2-1.8b", [], 6), ("llava-next-34b", [], 6),
+    ("internlm2-1.8b", ["--grad-compression", "int8_ef"], 6),
+    ("zamba2-2.7b", [], 6), ("xlstm-125m", [], 2)])
+def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra,
+                                         steps):
+    """Each step's loss within 1e-4. xlstm-125m's smoke training is chaotic
+    in float32 after two AdamW steps: each package against itself with the
+    mLSTM chunk 16 -> 8 (the same sums in another order) moves step 2's
+    loss by 5e-5 (port) / 6.3e-4 (reference) and step 3's by 3.2e-3 /
+    3.4e-3, so its run is held over the two steps before that. The
+    reference's SSD runs with ``_finite_segsum`` (its gradient is NaN where
+    a masked decay overflows, which zamba2's smoke run reaches)."""
     ref, port = [], []
     _record_losses(monkeypatch, r_launch, ref, traced=True)
     _record_losses(monkeypatch, p_launch, port, traced=False)
     _reference_init(monkeypatch)
-    argv = ["--arch", arch, "--smoke", "--steps", "6", "--batch", "2",
+    if r_reg.get_smoke_config(arch).ssm is not None:
+        monkeypatch.setattr(r_mamba2, "_segsum_mask", _finite_segsum)
+    argv = ["--arch", arch, "--smoke", "--steps", str(steps), "--batch", "2",
             "--seq", "32"] + extra
     r_launch.main(argv)
     p_launch.main(argv + ["--device", "cpu"])
     out = capsys.readouterr().out
-    assert out.count("done") == 2 and out.count("step    5 loss=") == 2
-    assert len(ref) == len(port) == 6
+    last = f"step {steps - 1:4d} loss="
+    assert out.count("done") == 2 and out.count(last) == 2
+    assert len(ref) == len(port) == steps
     np.testing.assert_allclose(port, ref, rtol=0, atol=1e-4)
 
 
