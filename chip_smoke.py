@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --wrapper-times   # only the LIF wrappers' host cost
     python3 chip_smoke.py --train-restart   # only phase 12d
+    python3 chip_smoke.py --moe-repeat      # only phase 15's MoE repeat
 
 Phases, each of which fails the run loudly:
 
@@ -226,7 +227,35 @@ Phases, each of which fails the run loudly:
     (printed, not held); the flash backward at D 160 (B2, H32,
     S4096, the CUDA-core route past D 128) timed against SDPA's backward
     (``trained_shapes`` of its row). Phases 2 and 12a hold the kernels at
-    those D 160 shapes against their plain versions.
+    those D 160 shapes against their plain versions;
+15. the enc-dec family and MLA/MoE training: the bf16 flash kernel at
+    seamless-m4t-medium's encoder shape (B4, H = Hkv 16, S2048, D 64,
+    non-causal) against its plain version (1e-2) and timed against
+    non-causal SDPA (a ``served_shapes`` entry), its backward there
+    (tensor cores) within relative L2 2e-2, twice bit-identical;
+    seamless-m4t-medium at published width and depth (12 + 12 layers,
+    bf16, seeded weights) served by ``encdec.prefill`` + ``decode_step``
+    at 4 x (2048 source frames + a 2048-token prompt), 32 greedy tokens:
+    36 tensor-core flash launches a prefill (12 encoder, 12 decoder self,
+    12 cross), each application's kernel output against the plain version
+    on its own q, k, v (1e-2), the last-position logits through the plain
+    attention and every decode step's logits against ``decode_train``
+    (relative L2 5e-2), two runs equal, time to first token, decode ms, a
+    profiled prefill and decode step, peak memory (one ``[encdec]`` JSON
+    line); ``launch.train.main`` for 4 steps of 4 x 4096 (2048 frames +
+    2048 tokens a row): 72 forward (36 recomputed) and 36 backward flash
+    calls a step, losses finite and falling, the last step profiled; its
+    gradients at 2 + 2 layers, 2 x 4096, kernel route vs plain with
+    float32 weights (every leaf within 5e-2) and each bf16 application's
+    backward on its own inputs (1e-2); the non-causal backward timed
+    against SDPA's (``trained_shapes``); then ``launch.train.main`` for 4
+    steps of 2 x 4096 at full width: minicpm3-4b at full depth (124 / 62
+    flash calls a step), qwen3-moe-30b-a3b cut 48 -> 6 layers (12 / 6) and
+    deepseek-v3-671b cut 61 -> 3 dense MLA layers with its MTP layer (7 /
+    4; its CE falling and its MTP term finite), each step's wall, tokens/s,
+    busy share and peak (one JSON line a run); qwen3's step twice from the
+    seed under deterministic algorithms, every parameter bit-identical (a
+    child process, ``--moe-repeat``).
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
@@ -1846,10 +1875,11 @@ def _pinned_routes(pick):
         moe._route = real
 
 
-def _layerwise_attention(params, cfg, prompts):
-    """One prefill of ``prompts`` through the flash kernel; at every layer
-    the plain version also runs on the same q, k, v. Returns each layer's
-    relative L2 error of the kernel's output against the plain one's."""
+def _layerwise_attention(params, prefill_last):
+    """One prefill through the flash kernel (``prefill_last(params,
+    attention)``); at every application the plain version also runs on the
+    same q, k, v. Returns each application's ``(causal, relative L2 error
+    of the kernel's output against the plain one's)``."""
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_plain)
     errs = []
@@ -1858,9 +1888,9 @@ def _layerwise_attention(params, cfg, prompts):
         flash_attention_kernel(q, k, v, causal=causal, window=window,
                                out=out, lse=lse)
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
-        errs.append(_rel_err(out, want))
+        errs.append((causal, _rel_err(out, want)))
         return out
-    _prefill_last(params, cfg, prompts, both)
+    prefill_last(params, both)
     return errs
 
 
@@ -1942,20 +1972,107 @@ def _attention_layers(cfg) -> int:
                 else 0)
 
 
+def _drawn(specs, dev, out):
+    """``specs`` drawn on the card from seed 0, in their dtypes; their
+    count, bytes, the drawing's seconds and peak device memory go into
+    ``out``."""
+    import torch
+    from repro_torch.models.specs import materialize, n_params, param_bytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    out.update(parameters=n_params(specs), param_bytes=param_bytes(specs),
+               materialize_s=time.perf_counter() - t0,
+               materialize_peak_bytes=torch.cuda.max_memory_allocated())
+    return params
+
+
+def _below_card(label, peak):
+    """Raises unless ``peak`` bytes are below the card's memory."""
+    import torch
+    total = torch.cuda.mem_get_info()[1]
+    if peak >= total:
+        raise AssertionError(f"{label}: peak {peak} bytes, not below the "
+                             f"card's {total}")
+
+
+def _serve_main(label, kernels, n_attn, generate, prompts, gen_len, vocab,
+                out, strict=True, again=contextlib.nullcontext):
+    """The main path of phases 10, 13, 14 and 15: ``generate()`` once, as a
+    user calls it (greedy tokens ``[B, P + gen_len]``), the kernel counts
+    set to 0 just before and read just after: one flash launch, on the
+    tensor cores, per attention of the prefill (``n_attn``); the prompt
+    kept and every token in the vocabulary. Then ``generate()`` again,
+    under ``again()``: with ``strict`` its tokens must equal the first
+    call's. Returns the first call's tokens; ``out`` gets the peak, the
+    flash launches and whether the two calls agreed."""
+    import torch
+    prompts = torch.as_tensor(prompts).cpu()
+    b, p = prompts.shape
+    _reset_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = generate()
+    torch.cuda.synchronize()
+    wall_first = time.perf_counter() - t0
+    launches = _counts(kernels)
+    out["generate_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["flash"] = flash = launches["flash_attention_kernel"]
+    tensor_core = launches["flash_attention_kernel.tensor_core"]
+    print(f"[{label}] generate batch {b}, prompt {p}, {gen_len} greedy "
+          f"tokens: wall {wall_first!r} s (first call); peak device memory "
+          f"{out['generate_peak_bytes']} bytes; launches {launches}")
+    if flash != n_attn or tensor_core != n_attn:
+        raise AssertionError(f"{label}: {flash} flash launches, "
+                             f"{tensor_core} on the tensor cores, not one "
+                             f"per attention of the prefill ({n_attn})")
+    if (tuple(toks.shape) != (b, p + gen_len)
+            or not torch.equal(toks[:, :p].cpu(), prompts)
+            or int(toks.min()) < 0 or int(toks.max()) >= vocab):
+        raise AssertionError(f"{label}: generate returned bad tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with again():
+        toks2 = generate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["repeat_equal"] = torch.equal(toks, toks2)
+    print(f"[{label}] generate again: wall {wall!r} s, "
+          f"{b * gen_len / wall!r} new tokens/s end to end (prefill "
+          f"included); tokens equal to the first call's: "
+          f"{out['repeat_equal']}")
+    if strict and not out["repeat_equal"]:
+        raise AssertionError(f"{label}: two generate calls gave different "
+                             f"tokens")
+    return toks
+
+
+def _profile_serving(label, prefill, decode, out):
+    """One profiled ``prefill()`` and ``decode()`` step: each one's busy
+    share and kernels go into ``out``."""
+    for part, step in (("prefill", prefill), ("decode", decode)):
+        prof = _profile_step(step, f"{label}-{part}", "flash_fwd_mma_kernel")
+        out[f"{part}_busy"] = None if prof is None else prof["busy"]
+        out[f"{part}_kernels"] = None if prof is None else prof["kernels"]
+
+
 def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
                 check_cfg=None, check_batch=None, strict=False,
                 check_tokens=None, decode_tol=None, read_tokens=None):
     """Phases 10, 13 and 14: serve ``cfg`` at full width through
     ``launch.serve.generate`` (seeded weights in the config's dtype,
     greedy), with the flash kernel's launches (one a causal self-attention
-    of the prefill); time to first token and decode per token from the
-    pieces ``generate`` runs; one profiled prefill and decode step; prefill
-    through the plain version of the attention against the kernel's (a MoE
-    model's routes pinned to the kernel prefill's, its free-running
-    difference printed; skipped for a model without attention); prefill +
-    decode against ``forward`` on the first ``check_batch`` rows of the
-    generated tokens, under ``check_cfg`` (default: ``cfg`` and the whole
-    batch; a MoE model's routes pinned to ``forward``'s), or on their first
+    of the prefill; ``_serve_main``); time to first token and decode per
+    token from the pieces ``generate`` runs; one profiled prefill and
+    decode step; the attention's routes compared (``_attention_routes_
+    agree``; skipped for a model without attention); prefill + decode
+    against ``forward`` on the first ``check_batch`` rows of the generated
+    tokens, under ``check_cfg`` (default: ``cfg`` and the whole batch; a
+    MoE model's routes pinned to ``forward``'s), or on their first
     ``total`` tokens with a ``prompt``-token prefill where ``check_tokens =
     (total, prompt)`` is given (Mamba2's chunked scan needs lengths in whole
     chunks), within ``decode_tol`` where given (else the kernel-vs-plain
@@ -1968,19 +2085,10 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
     import torch
     from repro_torch.launch.serve import generate
     from repro_torch.models import lm
-    from repro_torch.models.specs import materialize, n_params, param_bytes
-    specs = lm.lm_specs(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    torch.cuda.synchronize()
+    from repro_torch.models.specs import materialize
     out = {"model": cfg.name, "layers": cfg.n_layers, "batch": batch,
-           "prompt_len": prompt_len, "gen_len": gen_len,
-           "parameters": n_params(specs), "param_bytes": param_bytes(specs),
-           "materialize_s": time.perf_counter() - t0,
-           "materialize_peak_bytes": torch.cuda.max_memory_allocated()}
+           "prompt_len": prompt_len, "gen_len": gen_len}
+    params = _drawn(lm.lm_specs(cfg), dev, out)
     print(f"[{label}] {cfg.name}: {cfg.n_layers} layers "
           f"{[(g.kind, g.mlp, g.count) for g in cfg.segments]}, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}, kv heads {cfg.n_kv_heads}, "
@@ -1992,47 +2100,14 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
           f"{out['materialize_peak_bytes']} bytes")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab,
                                                 (batch, prompt_len))
-    n_new = batch * gen_len
-
-    # the main path: one generate call, as a user makes it
-    _reset_counts(kernels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    toks = generate(params, cfg, prompts, gen_len, device=dev)
-    torch.cuda.synchronize()
-    wall_first = time.perf_counter() - t0
-    launches = _counts(kernels)
-    flash = launches["flash_attention_kernel"]
-    tensor_core = launches["flash_attention_kernel.tensor_core"]
     n_attn = _attention_layers(cfg)
-    out["generate_peak_bytes"] = torch.cuda.max_memory_allocated()
-    print(f"[{label}] generate batch {batch}, prompt {prompt_len}, {gen_len} "
-          f"greedy tokens: wall {wall_first!r} s (first call); peak device "
-          f"memory {out['generate_peak_bytes']} bytes; launches {launches}")
-    if flash != n_attn or tensor_core != n_attn:
-        raise AssertionError(f"{label}: {flash} flash launches, "
-                             f"{tensor_core} on the tensor cores, not one "
-                             f"per attention of the prefill ({n_attn})")
-    if (tuple(toks.shape) != (batch, prompt_len + gen_len)
-            or not torch.equal(toks[:, :prompt_len].cpu(),
-                               torch.as_tensor(prompts))
-            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab):
-        raise AssertionError(f"{label}: generate returned bad tokens")
+
+    def gen(prm):
+        return generate(prm, cfg, prompts, gen_len, device=dev)
     routes = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _recording_routes(routes):
-        toks2 = generate(params, cfg, prompts, gen_len, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out["repeat_equal"] = torch.equal(toks, toks2)
-    print(f"[{label}] generate again: wall {wall!r} s, {n_new / wall!r} "
-          f"new tokens/s end to end (prefill included); tokens equal to the "
-          f"first call's: {out['repeat_equal']}")
-    if strict and not out["repeat_equal"]:
-        raise AssertionError(f"{label}: two generate calls gave different "
-                             f"tokens")
+    toks = _serve_main(label, kernels, n_attn, lambda: gen(params), prompts,
+                       gen_len, cfg.vocab, out, strict,
+                       lambda: _recording_routes(routes))
     if cfg.moe is not None:
         pre = [ids for ids in routes if ids.shape[0] == batch * prompt_len]
         dec = [ids for ids in routes if ids.shape[0] == batch]
@@ -2075,23 +2150,19 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
               f"first {steps[0] * 1e3!r} ms), {batch / step_s!r} tokens/s "
               f"at batch {batch}; first token equal to generate's: "
               f"{torch.equal(first, gen_toks[:, 0])}")
-
-        for part, step in (
-                ("prefill", lambda: lm.prefill(params, cfg, pt, cache)),
-                ("decode", lambda: lm.decode_step(
-                    params, cfg, cache, gen_toks[:, -1:],
-                    prompt_len + gen_len - 1))):
-            prof = _profile_step(step, f"{label}-{part}",
-                                 "flash_fwd_mma_kernel")
-            out[f"{part}_busy"] = None if prof is None else prof["busy"]
-            out[f"{part}_kernels"] = None if prof is None else prof["kernels"]
+        _profile_serving(
+            label, lambda: lm.prefill(params, cfg, pt, cache),
+            lambda: lm.decode_step(params, cfg, cache, gen_toks[:, -1:],
+                                   prompt_len + gen_len - 1), out)
         del cache
 
         rel = tol = None
         if n_attn:
-            rel, tol = _attention_routes_agree(params, cfg, label, pt,
-                                               prompts, gen_len, gen_toks,
-                                               out, dev)
+            rel, tol = _attention_routes_agree(
+                params, cfg, label,
+                lambda prm, attention=None: _prefill_last(prm, cfg, pt,
+                                                          attention),
+                gen, gen_toks, n_attn, out)
 
         # prefill + decode against forward on the same tokens
         ccfg = check_cfg or cfg
@@ -2123,70 +2194,76 @@ def _serve_path(cfg, label, batch, prompt_len, gen_len, dev, kernels,
                   f"{len(errs)} positions (printed, not held)")
     out["phase_peak_bytes"] = max(torch.cuda.max_memory_allocated(),
                                   out["materialize_peak_bytes"])
-    out.update(flash=flash, rel=rel)
+    out["rel"] = rel
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def _attention_routes_agree(params, cfg, label, pt, prompts, gen_len,
-                            gen_toks, out, dev):
-    """``_serve_path``'s attention checks: each prefill attention's kernel
-    output against the plain version on the same q, k, v, and the prefill's
-    last-position logits through the kernel against the plain attention,
-    within the larger of ``LOGITS_REL_TOL`` and the model's own response
-    to one bf16 rounding of noise in its embedding. Returns ``(rel,
-    tol)``."""
+def _attention_routes_agree(params, cfg, label, prefill_last, generate,
+                            gen_toks, n_attn, out):
+    """The serving phases' attention checks, through ``prefill_last(params,
+    attention=None)`` (the last position's prefill logits, the attention
+    through ``attention`` where given) and ``generate(params)`` (greedy
+    tokens ending in ``gen_toks``): each of the prefill's ``n_attn``
+    attention applications, kernel output against the plain version on
+    the same q, k, v, within ``ATTN_REL_TOL``; the last-position logits
+    through the kernel against the plain attention, within the larger of
+    ``LOGITS_REL_TOL`` and the model's own response to one bf16 rounding
+    of noise in its embedding (a MoE model's routes pinned to the kernel
+    prefill's); the plain route's greedy tokens beside the kernel's,
+    printed. Returns ``(rel, tol)``."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.launch.serve import generate
-    prompt_len = prompts.shape[1]
-    n_new = prompts.shape[0] * gen_len
-    # the kernel against its plain version on the model's own q, k, v
-    # at every layer of the prefill (each layer's input from the kernel
-    # route)
-    layer_errs = _layerwise_attention(params, cfg, pt)
-    out["attention_rel_max"] = max(layer_errs)
-    print(f"[{label}] each prefill layer's attention, kernel vs plain "
-          f"on the same q, k, v: relative L2 max "
-          f"{max(layer_errs)!r}, mean "
-          f"{sum(layer_errs) / len(layer_errs)!r} over "
-          f"{len(layer_errs)} layers (tolerance {ATTN_REL_TOL})")
-    if not max(layer_errs) <= ATTN_REL_TOL:
+    moe_cfg = getattr(cfg, "moe", None)
+    # the kernel against its plain version on the model's own q, k, v at
+    # every application of the prefill (each input from the kernel route)
+    errs = _layerwise_attention(params, prefill_last)
+    worst = max(e for _, e in errs)
+    out["attention_rel_max"] = worst
+    by_kind = "".join(
+        f", {kind} max {max(e for c, e in errs if c == causal)!r}"
+        for kind, causal in (("causal", True), ("non-causal", False))
+        if any(c == causal for c, _ in errs))
+    print(f"[{label}] each prefill attention, kernel vs plain on the same "
+          f"q, k, v: relative L2 max {worst!r}{by_kind}, mean "
+          f"{sum(e for _, e in errs) / len(errs)!r} over {len(errs)} "
+          f"applications (tolerance {ATTN_REL_TOL})")
+    if len(errs) != n_attn or not worst <= ATTN_REL_TOL:
         raise AssertionError(f"{label}: the flash kernel disagrees with "
-                             f"its plain version on the model's q, k, v")
+                             f"its plain version on the model's q, k, v "
+                             f"({len(errs)} applications of {n_attn})")
 
     # the whole prefill through the plain attention; a MoE model's
     # routes pinned to the kernel prefill's
     kernel_ids, plain_ids = [], []
     with _recording_routes(kernel_ids):
-        kernel_logits = _prefill_last(params, cfg, pt)
+        kernel_logits = prefill_last(params)
 
     def pinned():
         return (_pinned_routes(lambda i: kernel_ids[i]) if kernel_ids
                 else contextlib.nullcontext())
-    if cfg.moe is not None:
+    if moe_cfg is not None:
         with _recording_routes(plain_ids):
-            free = _prefill_last(params, cfg, pt, flash_attention_plain)
+            free = prefill_last(params, flash_attention_plain)
         out["routes_differ"] = _routes_differ(kernel_ids, plain_ids)
         out["kernel_vs_plain_rel_unpinned"] = _rel_err(kernel_logits,
                                                        free)
         print(f"[{label}] prefill through the plain attention with its "
               f"own routing: {out['routes_differ']!r} of the (layer, "
-              f"token) top-{cfg.moe.top_k} sets differ from the kernel "
+              f"token) top-{moe_cfg.top_k} sets differ from the kernel "
               f"prefill's; last-position logits relative L2 "
               f"{out['kernel_vs_plain_rel_unpinned']!r} (not gated: "
               f"top-k routing is discontinuous)")
         del free
     with pinned():
-        plain_logits = _prefill_last(params, cfg, pt,
-                                     flash_attention_plain)
+        plain_logits = prefill_last(params, flash_attention_plain)
     # the model's own response to one bf16 rounding of its input: the
     # plain prefill again with the embedding table perturbed by 2^-8
     # relative noise, rounded to bf16
     with pinned():
-        noisy_logits = _prefill_last(_noisy_embedding(params), cfg, pt,
-                                     flash_attention_plain)
+        noisy_logits = prefill_last(_noisy_embedding(params),
+                                    flash_attention_plain)
     del kernel_ids, plain_ids
     out["input_rounding_rel"] = _rel_err(noisy_logits, plain_logits)
     tol = max(LOGITS_REL_TOL, out["input_rounding_rel"])
@@ -2197,7 +2274,7 @@ def _attention_routes_agree(params, cfg, label, pt, prompts, gen_len,
                            plain_logits.argmax(-1))
     out["kernel_vs_plain_rel"] = rel
     print(f"[{label}] prefill last-position logits, kernel vs plain "
-          f"attention{'' if cfg.moe is None else ' (routes pinned)'}: "
+          f"attention{'' if moe_cfg is None else ' (routes pinned)'}: "
           f"relative L2 error {rel!r}, max abs {mx.item()!r} (logits up "
           f"to {plain_logits.float().abs().max().item()!r}); greedy "
           f"first token equal: {same_tok}; the plain prefill with one "
@@ -2209,11 +2286,11 @@ def _attention_routes_agree(params, cfg, label, pt, prompts, gen_len,
                              f"differ by {rel!r}")
     del noisy_logits
     with _attention_route(flash_attention_plain):
-        plain_toks = generate(params, cfg, prompts, gen_len, device=dev)
-    agree = (plain_toks[:, prompt_len:] == gen_toks).float().mean()
+        plain_toks = generate(params)
+    agree = (plain_toks[:, -gen_toks.shape[1]:] == gen_toks).float().mean()
     print(f"[{label}] greedy tokens through the plain attention equal to "
-          f"the kernel path's: {agree.item()!r} of {n_new} (not gated: "
-          f"random-weight bf16 logits tie)")
+          f"the kernel path's: {agree.item()!r} of {gen_toks.numel()} (not "
+          f"gated: random-weight bf16 logits tie)")
     return rel, tol
 
 
@@ -2355,10 +2432,13 @@ FAMILY_FLASH_SHAPES = [("minicpm3-4b", 4, 40, 40, 2048, 96),
                        ("deepseek-v3-671b", 4, 128, 128, 2048, 192)]
 
 
-def _flash_at(dev, card, model, b, h, hkv, s, d):
-    """The bf16 flash kernel at one served prefill shape (causal): held
-    against its plain version (1e-2), one tensor-core launch; then timed
-    beside its bound, the plain version and
+def _flash_at(dev, card, model, b, h, hkv, s, d, causal=True):
+    """The bf16 flash kernel at one served prefill shape (causal, or not):
+    held against its plain version (max abs 1e-2, and relative L2
+    ``ATTN_REL_TOL``: with q and k at scale 0.5 the softmax is nearly
+    uniform over a non-causal row and the outputs small, so a missing kv
+    tile shows in the relative error first), one tensor-core launch; then
+    timed beside its bound, the plain version and
     ``F.scaled_dot_product_attention`` (eager per call and CUDA-graph
     device time). Returns its entry of the ``flash_attention`` row."""
     import torch
@@ -2372,34 +2452,39 @@ def _flash_at(dev, card, model, b, h, hkv, s, d):
          ).bfloat16()
     v = torch.randn(b, hkv, s, d, generator=gen, device=dev).bfloat16()
     tc = flash_attention_kernel.tensor_core_launches
-    got = flash_attention_kernel(q, k, v)
+    got = flash_attention_kernel(q, k, v, causal=causal)
     torch.cuda.synchronize()
     tc = flash_attention_kernel.tensor_core_launches - tc
-    want = flash_attention_plain(q, k, v)
+    want = flash_attention_plain(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs().max().item()
+    rel = _rel_err(got, want)
     tol = FLASH_TOL["bfloat16"]
-    shape = f"B{b} H{h} Hkv{hkv} S{s} D{d} bf16 causal"
+    shape = (f"B{b} H{h} Hkv{hkv} S{s} D{d} bf16 "
+             f"{'causal' if causal else 'non-causal'}")
     ok = (tc == 1 and bool(torch.isfinite(got.float()).all())
-          and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+          and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+          and rel <= ATTN_REL_TOL)
     print(f"[kernel] flash_attention {model} prefill {shape}: max_abs_err="
-          f"{err!r} (rtol=atol={tol}); tensor-core launches {tc} "
+          f"{err!r} (rtol=atol={tol}), relative L2 {rel!r} (tolerance "
+          f"{ATTN_REL_TOL}), output max abs "
+          f"{want.float().abs().max().item()!r}; tensor-core launches {tc} "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version at {model}'s prefill shape")
     del got, want
-    fns = (lambda: flash_attention_kernel(q, k, v),
-           lambda: flash_attention_plain(q, k, v),
-           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    fns = (lambda: flash_attention_kernel(q, k, v, causal=causal),
+           lambda: flash_attention_plain(q, k, v, causal=causal),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True))
     dev_ms = [_graph_ms(f, reps=3, replays=3) for f in fns]
     ms = [_time_ms(f, reps=5, warmup=2) for f in fns]
-    pairs = visible_pairs(s) * b * h
+    pairs = visible_pairs(s, causal) * b * h
     n_ops = 4 * d * pairs
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     t_ops, t_bytes = n_ops / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
     entry = {"model": model, "shape": shape, "max_abs_err": err,
-             "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+             "rel_l2": rel, "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
              "device_ms": dev_ms[0], "plain_device_ms": dev_ms[1],
              "library_device_ms": dev_ms[2],
              "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -2453,9 +2538,7 @@ def _serve_families(dev, card, kernels, flash_row):
                           kernels, check, check_batch, strict=True)
         gc.collect()
         torch.cuda.empty_cache()
-        if res["phase_peak_bytes"] >= total:
-            raise AssertionError(f"{label}: peak {res['phase_peak_bytes']} "
-                                 f"bytes, not below the card's {total}")
+        _below_card(label, res["phase_peak_bytes"])
         res["card"] = card
         print(f"[families] {json.dumps(res)}")
         results.append(res)
@@ -2493,14 +2576,14 @@ TRAIN_XLSTM = dict(arch="xlstm-125m", steps=4, batch=2, seq=1024)
 ZAMBA2_GRAD_LAYERS = 12
 
 
-def _zamba2_gradients(dev, cut):
-    """Phase 14's gradient checks of ``cut`` (zamba2-2.7b at full width, 12
-    Mamba2 layers and 2 shared-block applications) at ``TRAIN_ZAMBA2``'s
-    batch x seq: with float32 weights, the kernel route against the plain
-    one, every leaf within ``LOGITS_REL_TOL``; in bf16 the same comparison
-    printed, not held, while each application's flash backward is held,
-    kernel vs plain on the q, k, v, out, dO and lse it got in the kernel
-    route, within ``ATTN_REL_TOL``. Printed beside it: how far the plain
+def _route_gradients(dev, cut, run, label, n_apps):
+    """Phases 14 and 15, the gradient checks of ``cut`` (a full-width depth
+    cut, bf16) at ``run``'s batch x seq: with float32 weights, the kernel
+    route against the plain one, every leaf within ``LOGITS_REL_TOL``; in
+    bf16 the same comparison printed, not held, while each of the
+    ``n_apps`` flash backward calls is held, kernel vs plain on the q, k,
+    v, out, dO and lse it got in the kernel route, within
+    ``ATTN_REL_TOL``. Printed beside it: how far the plain
     backward's dq, dk, dv move when out and lse come from the plain
     forward instead (dv = P^T dO reads neither out nor, beyond a scale,
     lse; dq and dk read out through delta = rowsum(dO * out)), and K's and
@@ -2510,19 +2593,17 @@ def _zamba2_gradients(dev, cut):
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
         flash_attention_plain)
-    f32 = torch.float32
-    _train_kernel_vs_plain(dev, dataclasses.replace(
-        cut, param_dtype=f32, dtype=f32), TRAIN_ZAMBA2, "train-zamba2-route")
+    _train_kernel_vs_plain(dev, _float32(cut), run, f"{label}-route")
     saved = []
 
     def recording(q, k, v, out, dout, lse, **kw):
-        saved.append([t.clone() for t in (q, k, v, out, dout, lse)])
+        saved.append(([t.clone() for t in (q, k, v, out, dout, lse)],
+                      {n: kw[n] for n in ("causal", "window") if n in kw}))
         return flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
-    _train_kernel_vs_plain(dev, cut, TRAIN_ZAMBA2, "train-zamba2-route-bf16",
+    _train_kernel_vs_plain(dev, cut, run, f"{label}-route-bf16",
                            backward=recording, held=False)
-    n_apps = cut.n_layers // cut.hybrid_period
     if len(saved) != n_apps:
-        raise AssertionError(f"train-zamba2-backward: {len(saved)} flash "
+        raise AssertionError(f"{label}-backward: {len(saved)} flash "
                              f"backward calls, not {n_apps}")
 
     def mean_ratio(t):
@@ -2530,18 +2611,20 @@ def _zamba2_gradients(dev, cut):
         mean = t.mean(dim=2, keepdim=True)
         spread = (t - mean).square().sum(-1).mean(-1).sqrt()
         return (mean[:, :, 0].norm(dim=-1) / spread).median().item()
-    for g, (q, k, v, out, dout, lse) in enumerate(saved):
-        got = flash_attention_backward_kernel(q, k, v, out, dout, lse)
-        want = flash_attention_backward_plain(q, k, v, out, dout, lse)
+    for g, ((q, k, v, out, dout, lse), kw) in enumerate(saved):
+        got = flash_attention_backward_kernel(q, k, v, out, dout, lse, **kw)
+        want = flash_attention_backward_plain(q, k, v, out, dout, lse, **kw)
         lse_plain = torch.empty_like(lse)
-        out_plain = flash_attention_plain(q, k, v, lse=lse_plain)
+        out_plain = flash_attention_plain(q, k, v, lse=lse_plain, **kw)
         moved = flash_attention_backward_plain(q, k, v, out_plain, dout,
-                                               lse_plain)
+                                               lse_plain, **kw)
         torch.cuda.synchronize()
         errs = [_rel_err(a, b) for a, b in zip(got, want)]
         shift = [_rel_err(a, b) for a, b in zip(moved, want)]
-        print(f"[train-zamba2-backward] application {g}, B{q.shape[0]} "
-              f"H{q.shape[1]} S{q.shape[2]} D{q.shape[3]} bf16: kernel vs "
+        print(f"[{label}-backward] application {g}, B{q.shape[0]} "
+              f"H{q.shape[1]} S{q.shape[2]} D{q.shape[3]} bf16 "
+              f"{'causal' if kw.get('causal', True) else 'non-causal'}: "
+              f"kernel vs "
               f"plain on the kernel route's inputs, relative L2 dq/dk/dv "
               f"{errs} (tolerance {ATTN_REL_TOL}); the plain backward with "
               f"the plain forward's out and lse moves dq/dk/dv by {shift}, "
@@ -2549,7 +2632,7 @@ def _zamba2_gradients(dev, cut):
               f"heads of |mean over positions| / spread: K "
               f"{mean_ratio(k)!r}, Q {mean_ratio(q)!r}")
         if not max(errs) <= ATTN_REL_TOL:
-            raise AssertionError(f"train-zamba2-backward: application {g}'s "
+            raise AssertionError(f"{label}-backward: application {g}'s "
                                  "flash backward disagrees with its plain "
                                  "version")
         del got, want, moved, out_plain
@@ -2577,7 +2660,6 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
     flash_row.setdefault("served_shapes", []).append(
         _flash_at(dev, card, *ZAMBA2_PREFILL_ATTN))
     zamba2, xlstm = get_config("zamba2-2.7b"), get_config("xlstm-125m")
-    total = torch.cuda.mem_get_info()[1]
     for cfg, label, kw in (
             (zamba2, "serve-zamba2", dict(check_tokens=ZAMBA2_CHECK)),
             (xlstm, "serve-xlstm", dict(check_tokens=XLSTM_CHECK,
@@ -2588,9 +2670,7 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
                           kernels, strict=True, **kw)
         gc.collect()
         torch.cuda.empty_cache()
-        if res["phase_peak_bytes"] >= total:
-            raise AssertionError(f"{label}: peak {res['phase_peak_bytes']} "
-                                 f"bytes, not below the card's {total}")
+        _below_card(label, res["phase_peak_bytes"])
         res["card"] = card
         print(f"[recurrent] {json.dumps(res)}")
 
@@ -2599,8 +2679,10 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
                                   int8_ef=False)
     gc.collect()
     torch.cuda.empty_cache()
-    _zamba2_gradients(dev, dataclasses.replace(zamba2, segments=(
-        Segment("mamba2", "none", ZAMBA2_GRAD_LAYERS),)))
+    cut = dataclasses.replace(zamba2, segments=(
+        Segment("mamba2", "none", ZAMBA2_GRAD_LAYERS),))
+    _route_gradients(dev, cut, TRAIN_ZAMBA2, "train-zamba2",
+                     cut.n_layers // cut.hybrid_period)
     entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
                                  ZAMBA2_TRAINED, "zamba2-2.7b")
     bwd_row["trained_shapes"] = [{k: entry[k] for k in (
@@ -2612,6 +2694,338 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
     torch.cuda.reset_peak_memory_stats()
     _train_lm_path(dev, kernels, TRAIN_XLSTM, "train-xlstm", profile=False,
                    int8_ef=False)
+
+
+# ---- the enc-dec family (seamless-m4t-medium) and MLA/MoE training ----------
+
+# seamless-m4t-medium served: the reference's prefill split of a sequence
+# (launch/cells.py), s // 2 source frames and s // 2 prompt tokens, cut
+# from prefill_32k to s = 4096, batch 4, 32 greedy tokens
+SEAMLESS = dict(batch=4, src_len=2048, prompt_len=2048, gen_len=32)
+# its attention, D 64 with H = Hkv 16: (model, B, H, Hkv, S, D) of the
+# served encoder (non-causal), and (B, H, Hkv, S, D) of the backward timed
+SEAMLESS_ATTN = ("seamless-m4t-medium", 4, 16, 16, 2048, 64)
+SEAMLESS_BWD = (4, 16, 16, 2048, 64)
+# train_4k with the batch cut 256 -> 4: rows of 2048 frames + 2048 tokens
+TRAIN_SEAMLESS = dict(arch="seamless-m4t-medium", steps=4, batch=4, seq=4096)
+# the kernel-vs-plain gradients at a depth cut of 2 + 2 layers, 2 x 4096
+SEAMLESS_GRAD = dict(batch=2, seq=4096)
+SEAMLESS_GRAD_LAYERS = 2
+# MLA and MoE training, 4 steps of 2 x 4096 (train_4k, batch cut 256 -> 2)
+# at full width: (arch, label, depth cut or None). qwen3-moe-30b-a3b's 61
+# GB of weights leave no room for AdamW moments on one card, so 48 -> 6
+# layers; one deepseek-v3 MoE layer (256 experts) is 11e9 parameters, so
+# deepseek keeps its 3 dense MLA layers (61 -> 3) and its MTP layer
+TRAIN_FAMILIES = [("minicpm3-4b", "train-minicpm3", None),
+                  ("qwen3-moe-30b-a3b", "train-qwen3-moe", ("attn", "moe", 6)),
+                  ("deepseek-v3-671b", "train-deepseek", ("mla", "dense", 3))]
+TRAIN_FAMILY_RUN = dict(steps=4, batch=2, seq=4096)
+# (name, (B, H, Hkv, S, D)) of the causal attention each phase-15 model
+# trains, held in phase 12a's backward sweep beside SEAMLESS_BWD (the
+# encoder's, non-causal): seamless's decoder self-attention, MLA's q/k
+# head dim with V padded to it, qwen3's GQA
+FAMILY_TRAINED = [
+    ("trained seamless decoder self-attention", SEAMLESS_BWD),
+    ("trained minicpm3-4b layer", (2, 40, 40, 4096, 96)),
+    ("trained qwen3-moe layer", (2, 32, 4, 4096, 128)),
+    ("trained deepseek-v3 layer", (2, 128, 128, 4096, 192))]
+# deepseek's kernel-vs-plain gradients at its trained cut (3 dense MLA
+# layers + MTP), 1 x 2048: the plain route's dense float32 scores at
+# 2 x 4096 and 128 heads would be 17 GB a tensor
+DEEPSEEK_GRAD = dict(batch=1, seq=2048)
+
+
+def _encdec_generate(params, cfg, frames, prompts, gen_len, clock=False):
+    """Greedy generation with the model's own serving entry points, as the
+    token server's ``generate`` runs an LM: one ``encdec.prefill`` of the
+    source and the prompt, then ``gen_len`` ``decode_step`` calls (the last
+    one's logits unused). Returns ``(tokens [B, P + gen_len], logits)``,
+    ``logits`` the prefill's last position and every step's ``[B, V]``;
+    with ``clock``, also the synchronised time to the first token and each
+    step's time."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models.specs import materialize
+    b, p = prompts.shape
+    cache = materialize(encdec.cache_specs(cfg, b, p + gen_len,
+                                           frames.shape[1]),
+                        device=prompts.device)
+    out, seen, steps = [prompts], [], []
+    t0 = time.perf_counter()
+    logits, cache = encdec.prefill(params, cfg, frames, prompts, cache)
+    for i in range(gen_len):
+        seen.append(logits[:, -1])
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        out.append(tok)
+        if clock:
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        logits, cache = encdec.decode_step(params, cfg, cache, tok, p + i)
+    seen.append(logits[:, -1])
+    toks = torch.cat(out, dim=1)
+    if clock:
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return toks, seen, steps[0], steps[1:]
+    return toks, seen
+
+
+def _encdec_prefill_last(params, cfg, frames, prompts, attention=None):
+    """The last position's prefill logits ``[B, V]``, the attention through
+    ``attention`` where given."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models.specs import materialize
+    with (_attention_route(attention) if attention is not None
+          else contextlib.nullcontext()):
+        cache = materialize(encdec.cache_specs(cfg, *prompts.shape,
+                                               frames.shape[1]),
+                            device=prompts.device)
+        logits, _ = encdec.prefill(params, cfg, frames, prompts, cache)
+        torch.cuda.synchronize()
+    return logits[:, -1]
+
+
+def _chunked_cross_share(params, cfg, frames, prompts, decode_ms, label):
+    """Phase 15b: the share of a decode step, and of a prefill whose prompt
+    is half the source's length, that cross-attention on the reference's
+    chunked route (``layers._Flash``, ``S_q != S_kv``) takes: each
+    decoder layer's cross-attention at that query length over the source,
+    timed alone (eager per call under CUDA events, host work included;
+    random bf16 q, k, v), times the layers, over the step's time (the
+    decode step's from the clocked run; the prefill's timed the same
+    way). Prefill and training with ``S_dec == S_enc`` run no ``_Flash``
+    (every attention is a kernel launch)."""
+    import torch
+    from repro_torch.models import encdec, layers
+    from repro_torch.models.specs import materialize
+    b, src = frames.shape[:2]
+    gen = torch.Generator(device=frames.device).manual_seed(6)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=frames.device,
+                           dtype=torch.bfloat16)
+    xk = draw(b, src, cfg.n_kv_heads, cfg.d_head)
+    xv = draw(b, src, cfg.n_kv_heads, cfg.d_head)
+    half = prompts[:, :prompts.shape[1] // 2]
+    cache = materialize(encdec.cache_specs(cfg, b, half.shape[1], src),
+                        device=frames.device)
+    prefill_ms = _time_ms(lambda: encdec.prefill(params, cfg, frames, half,
+                                                 cache), reps=3, warmup=1)
+    del cache
+    out = {}
+    for part, s_q, step_ms in (("decode", 1, decode_ms),
+                               ("prefill", half.shape[1], prefill_ms)):
+        q = draw(b, s_q, cfg.n_heads, cfg.d_head)
+        one = _time_ms(lambda: layers.blockwise_attention(
+            q, xk, xv, causal=False, q_chunk=cfg.q_chunk,
+            k_chunk=cfg.k_chunk), reps=10 if s_q > 1 else 50, warmup=2)
+        out[part] = cfg.n_dec_layers * one / step_ms
+        print(f"[{label}] {part} at {s_q}-token queries over {src} source "
+              f"frames: cross-attention on the chunked route {one!r} ms a "
+              f"layer, x {cfg.n_dec_layers} layers of a {step_ms!r} ms "
+              f"{part}: share {out[part]!r}")
+    return out
+
+
+def _serve_encdec(dev, card, kernels):
+    """Phase 15b: seamless-m4t-medium at published width and depth (bf16,
+    seeded weights) served by ``encdec.prefill`` + ``decode_step``: 4 rows
+    of 2048 source frames and a 2048-token prompt, 32 greedy tokens. One
+    tensor-core flash launch per attention of the prefill (12 encoder, 12
+    decoder self, 12 cross) and two runs giving equal tokens
+    (``_serve_main``); time to first token and decode ms a step; the
+    chunked cross-attention's share; profiled prefill and decode step; the
+    attention routes compared (``_attention_routes_agree``); every decode
+    step's logits against ``decode_train`` over the same tokens
+    (``LOGITS_REL_TOL``); peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.specs import materialize
+    label = "serve-seamless"
+    cfg = get_config("seamless-m4t-medium")
+    b, src, p, g = (SEAMLESS[k] for k in ("batch", "src_len", "prompt_len",
+                                           "gen_len"))
+    out = {"model": cfg.name, "layers": [cfg.n_enc_layers, cfg.n_dec_layers],
+           "batch": b, "src_len": src, "prompt_len": p, "gen_len": g}
+    params = _drawn(encdec.encdec_specs(cfg), dev, out)
+    print(f"[{label}] {cfg.name}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_dec_layers} decoder layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; n_params {out['parameters']}, "
+          f"{out['param_bytes']} bytes ({cfg.param_dtype}), drawn in "
+          f"{out['materialize_s']!r} s")
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal((b, src, cfg.d_model))
+                             .astype(np.float32), device=dev)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (b, p)),
+                              device=dev)
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+
+    def gen(prm):
+        return _encdec_generate(prm, cfg, frames, prompts, g)[0]
+    with torch.inference_mode():
+        # the main path: one greedy generation, as a user runs it
+        toks = _serve_main(label, kernels, n_attn, lambda: gen(params),
+                           prompts, g, cfg.vocab, out)
+        again, seen, ttft, steps = _encdec_generate(params, cfg, frames,
+                                                    prompts, g, clock=True)
+        step_s = statistics.fmean(steps[1:])
+        out.update(ttft_s=ttft, decode_ms=step_s * 1e3)
+        print(f"[{label}] again, synchronised: time to first token (encoder, "
+              f"prefill of {b} x {p} and the argmax) {ttft!r} s; decode "
+              f"{step_s * 1e3!r} ms a step (mean after the first; first "
+              f"{steps[0] * 1e3!r} ms), {b / step_s!r} tokens/s at batch "
+              f"{b}; tokens equal to the first call's: "
+              f"{torch.equal(toks, again)}")
+        if not torch.equal(toks, again):
+            raise AssertionError(f"{label}: two runs gave different tokens")
+        out["chunked_cross_share"] = _chunked_cross_share(
+            params, cfg, frames, prompts, out["decode_ms"], label)
+        cache = materialize(encdec.cache_specs(cfg, b, p + g, src),
+                            device=dev)
+        _profile_serving(
+            label, lambda: encdec.prefill(params, cfg, frames, prompts,
+                                          cache),
+            lambda: encdec.decode_step(params, cfg, cache, toks[:, -1:],
+                                       p + g - 1), out)
+        del cache
+        _attention_routes_agree(
+            params, cfg, label,
+            lambda prm, attention=None: _encdec_prefill_last(
+                prm, cfg, frames, prompts, attention),
+            gen, toks[:, p:], n_attn, out)
+
+        # prefill + decode against decode_train over the same tokens
+        hidden = encdec.decode_train_hidden(params, cfg, toks,
+                                            encdec.encode(params, cfg,
+                                                          frames))
+        dec = [_rel_err(got, hidden[:, p - 1 + i] @ params["head"])
+               for i, got in enumerate(seen)]
+        del hidden, seen
+        out["decode_vs_train_rel"] = max(dec)
+        print(f"[{label}] prefill + decode logits vs decode_train over "
+              f"{p + g} tokens: relative L2 max {max(dec)!r}, mean "
+              f"{statistics.fmean(dec)!r} over {len(dec)} positions "
+              f"(tolerance {LOGITS_REL_TOL})")
+        if not max(dec) <= LOGITS_REL_TOL:
+            raise AssertionError(f"{label}: decode disagrees with "
+                                 "decode_train")
+    out["phase_peak_bytes"] = max(torch.cuda.max_memory_allocated(),
+                                  out["materialize_peak_bytes"])
+    out["card"] = card
+    del params
+    torch.cuda.empty_cache()
+    _below_card(label, out["phase_peak_bytes"])
+    print(f"[encdec] {json.dumps(out)}")
+    return out
+
+
+def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
+    """Phase 15: the flash kernels at seamless's D 64 shapes, non-causal
+    (forward held and timed against SDPA, added to ``flash_row``; the
+    backward held in phase 12a's sweep, its max abs error ``bwd_err``);
+    seamless-m4t-
+    medium served (``_serve_encdec``) and trained through
+    ``launch.train.main`` (4 steps of 4 x 4096: 72 forward and 36 backward
+    flash calls a step), its gradients at 2 + 2 layers kernel vs plain;
+    the non-causal backward timed (added to ``bwd_row``); then minicpm3-4b,
+    qwen3-moe-30b-a3b (6 layers) and deepseek-v3-671b (3 layers + MTP)
+    trained 4 steps of 2 x 4096 each; deepseek's gradients kernel vs plain
+    at its cut; qwen3's step twice under deterministic algorithms, bit for
+    bit (in a child process)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Segment
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_row.setdefault("served_shapes", []).append(
+        _flash_at(dev, card, *SEAMLESS_ATTN, causal=False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _serve_encdec(dev, card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_launches = _train_lm_path(dev, kernels, TRAIN_SEAMLESS,
+                                  "train-seamless", int8_ef=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(get_config("seamless-m4t-medium"),
+                              n_enc_layers=SEAMLESS_GRAD_LAYERS,
+                              n_dec_layers=SEAMLESS_GRAD_LAYERS)
+    _route_gradients(dev, cut, SEAMLESS_GRAD, "train-seamless",
+                     cut.n_enc_layers + 2 * cut.n_dec_layers)
+    entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
+                                 SEAMLESS_BWD, "seamless-m4t-medium",
+                                 causal=False)
+    bwd_row.setdefault("trained_shapes", []).append({k: entry[k] for k in (
+        "calls", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "device_ms", "plain_device_ms",
+        "library_device_ms", "achieved_tflops", "vs_library")})
+    for arch, label, depth in TRAIN_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, segments=(Segment(*depth),))
+        _train_lm_path(dev, kernels, dict(TRAIN_FAMILY_RUN, arch=arch),
+                       label, int8_ef=False, cfg=cfg)
+    # a second witness for deepseek's run, whose MTP term grows as the
+    # reference's does at 128 heads (tests/test_torch_train.py)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _route_gradients(dev, cfg, DEEPSEEK_GRAD, "train-deepseek",
+                     _flash_calls_a_step(cfg)[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    _child("--moe-repeat", "moe-repeat")
+
+
+def _moe_repeat(dev):
+    """Phase 15 (``--moe-repeat``, in a child process): qwen3-moe-30b-a3b at
+    full width, ``TRAIN_FAMILIES``' 6 layers, one training step of 2 x 4096
+    through ``launch.train.main`` twice from the same seeded state under
+    ``torch.use_deterministic_algorithms(True)``: losses and every
+    parameter after the step equal bit for bit (the MoE dispatch's and
+    combine's gathers run a deterministic scatter-add backward)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.lm import Segment
+    from repro_torch.models.specs import tree_leaves
+    arch, _, depth = TRAIN_FAMILIES[1]
+    cfg = dataclasses.replace(get_config(arch), segments=(Segment(*depth),))
+    argv = ["--arch", arch, "--steps", "1", "--batch",
+            str(TRAIN_FAMILY_RUN["batch"]), "--seq",
+            str(TRAIN_FAMILY_RUN["seq"])]
+    torch.use_deterministic_algorithms(True)
+    runs, losses = [], []
+    for _ in range(2):
+        rec = []
+        out = io.StringIO()
+        with _recorded_train_steps(rec), _launcher_config(cfg), \
+                contextlib.redirect_stdout(out):
+            params = train.main(argv)
+        losses.append(rec[0]["loss"])
+        runs.append([(path, t.detach().cpu()) for path, t in
+                     tree_leaves(params)])
+        del params
+        torch.cuda.empty_cache()
+    differ = ["/".join(p) for (p, a), (_, b) in zip(*runs)
+              if not torch.equal(a, b)]
+    print(f"[moe-repeat] {arch} depth {cfg.n_layers}, one step of "
+          f"{argv[-3]} x {argv[-1]} twice from the seed under deterministic "
+          f"algorithms: losses {losses!r}; {len(runs[0])} parameter leaves "
+          f"after the step, differing: {differ}")
+    if differ or losses[0] != losses[1] or len(runs[0]) != len(runs[1]):
+        raise AssertionError("moe-repeat: the MoE training step does not "
+                             "repeat bit for bit")
 
 
 def _wrapper_host_times(dev, card) -> None:
@@ -3065,7 +3479,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 
-def _bwd_case(dev, b, h, hkv, s, d, window, dtype, seed=0):
+def _bwd_case(dev, b, h, hkv, s, d, window, dtype, seed=0, causal=True):
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3075,7 +3489,8 @@ def _bwd_case(dev, b, h, hkv, s, d, window, dtype, seed=0):
     dout = torch.randn(b, h, s, d, generator=gen, device=dev)
     q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
     lse = torch.empty(b, h, s, device=dev)
-    out = flash_attention_kernel(q, k, v, window=window, lse=lse)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                 lse=lse)
     return q, k, v, out, dout, lse
 
 
@@ -3092,38 +3507,98 @@ def _bwd_err(got, want, dtype) -> float:
     return max(_rel_err(g, w) for g, w in zip(got, want))
 
 
-def _check_flash_backward(dev):
-    """Phase 12a: the flash backward kernel against its plain version over
-    the sweep, deterministic; the forward's lse against the plain
-    version's; the forward's output bit-identical with and without lse.
-    Returns the max abs error of each case, by name."""
+def _backward_plain_sliced(q, k, v, out, dout, lse, *, causal=True,
+                           window=None):
+    """``flash_attention_backward_plain`` one batch row and a few whole kv
+    head groups at a time, each slice's dense float32 ``[heads, S, S]``
+    tensors at most ``2^26`` elements (256 MiB) where a group allows: the
+    same sums as the whole call, whose scores at deepseek's trained shape
+    would be 17 GB a tensor. Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
     import torch
     from repro_torch.kernels.flash_attention import (
-        flash_attention_backward_kernel, flash_attention_backward_plain,
-        flash_attention_kernel, flash_attention_plain)
+        flash_attention_backward_plain)
+    b, h, s, _ = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    g = max(1, min(hkv, (1 << 26) // (rep * s * s)))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    for i in range(b):
+        for j in range(0, hkv, g):
+            hs, ks = slice(j * rep, (j + g) * rep), slice(j, j + g)
+            flash_attention_backward_plain(
+                q[i:i + 1, hs], k[i:i + 1, ks], v[i:i + 1, ks],
+                out[i:i + 1, hs], dout[i:i + 1, hs], lse[i:i + 1, hs],
+                causal=causal, window=window, dq=grads[0][i:i + 1, hs],
+                dk=grads[1][i:i + 1, ks], dv=grads[2][i:i + 1, ks])
+    return tuple(grads)
+
+
+@contextlib.contextmanager
+def _held_backward(sink, calls):
+    """Within the scope the model's attention runs the flash kernels, as
+    on the main path, and its first ``calls`` backward calls are each held
+    against the plain version on the same q, k, v, out, dO and lse
+    (``_backward_plain_sliced``): ``(shape, causal, [relative L2 of dq,
+    dk, dv])`` is appended to ``sink``. The kernel is launched once a
+    call, as without the scope."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_kernel)
+
+    def checked(q, k, v, out, dout, lse, *, causal=True, window=None, **kw):
+        got = flash_attention_backward_kernel(q, k, v, out, dout, lse,
+                                              causal=causal, window=window,
+                                              **kw)
+        if len(sink) < calls:
+            want = _backward_plain_sliced(q, k, v, out, dout, lse,
+                                          causal=causal, window=window)
+            sink.append((tuple(q.shape) + (k.shape[1],), causal,
+                         [_rel_err(a, w) for a, w in zip(got, want)]))
+        return got
+    with _attention_route(flash_attention_kernel, checked):
+        yield
+
+
+def _check_flash_backward(dev):
+    """Phase 12a: the flash backward kernel against its plain version over
+    the sweep (every trained shape of phases 12, 14 and 15 among it),
+    deterministic; the forward's lse against the plain version's; the
+    forward's output bit-identical with and without lse. Returns the max
+    abs error of each case, by name."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel, flash_attention_kernel,
+        flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
-    sweep = [("trained internlm2 layer",) + TRAINED + (None, bf16),
-             ("trained zamba2 shared block",) + ZAMBA2_TRAINED + (None, bf16),
-             ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16),
-             ("smoke configs", 2, 4, 2, 128, 16, None, f32),
-             ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32),
-             ("odd S and D", 1, 4, 2, 77, 20, 5, f32),
-             ("odd S and D", 1, 4, 2, 77, 20, 5, bf16),
-             ("D=256", 1, 4, 2, 100, 256, 37, f32)]
+    sweep = [("trained internlm2 layer",) + TRAINED + (None, bf16, True),
+             ("trained zamba2 shared block",) + ZAMBA2_TRAINED
+             + (None, bf16, True),
+             ("trained seamless encoder",) + SEAMLESS_BWD
+             + (None, bf16, False),
+             *((name,) + shape + (None, bf16, True) for name, shape in
+               FAMILY_TRAINED),
+             ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16, True),
+             ("smoke configs", 2, 4, 2, 128, 16, None, f32, True),
+             ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32, True),
+             ("odd S and D", 1, 4, 2, 77, 20, 5, f32, True),
+             ("odd S and D", 1, 4, 2, 77, 20, 5, bf16, True),
+             ("D=256", 1, 4, 2, 100, 256, 37, f32, True)]
     errs = {}
-    for name, b, h, hkv, s, d, window, dtype in sweep:
-        args = _bwd_case(dev, b, h, hkv, s, d, window, dtype)
-        got = flash_attention_backward_kernel(*args, window=window)
-        again = flash_attention_backward_kernel(*args, window=window)
+    for name, b, h, hkv, s, d, window, dtype, causal in sweep:
+        args = _bwd_case(dev, b, h, hkv, s, d, window, dtype, causal=causal)
+        kw = dict(causal=causal, window=window)
+        got = flash_attention_backward_kernel(*args, **kw)
+        again = flash_attention_backward_kernel(*args, **kw)
         torch.cuda.synchronize()
-        want = flash_attention_backward_plain(*args, window=window)
+        want = _backward_plain_sliced(*args, **kw)
         key = str(dtype).split(".")[1]
         err = _bwd_err(got, want, key)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         ok = err <= BWD_TOL[key] and same and finite
         print(f"[kernel] flash_attention_backward {name} B{b} H{h} Hkv{hkv} "
-              f"S{s} D{d} window {window} {dtype}: error {err!r} "
+              f"S{s} D{d} window {window} {dtype}"
+              f"{'' if causal else ' non-causal'}: error {err!r} "
               f"({'relative L2' if key == 'bfloat16' else 'max abs over max'}"
               f", tolerance {BWD_TOL[key]}); a second run bit-identical: "
               f"{same} {'ok' if ok else 'MISMATCH'}")
@@ -3161,9 +3636,10 @@ def _check_flash_backward(dev):
     return errs
 
 
-def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
+def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int,
+                            causal: bool = True) -> float:
     """Device time of the backward of ``F.scaled_dot_product_attention(
-    is_causal=True, enable_gqa=True)`` alone: its forward runs once on a side
+    is_causal=causal, enable_gqa=True)`` alone: its forward runs once on a side
     stream, outside the graph; autograd runs each backward kernel on the
     stream of its forward, so capturing on that stream records the backward
     and nothing else. ``reps`` backward calls in one graph, replayed
@@ -3174,7 +3650,7 @@ def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                              enable_gqa=True)
         for _ in range(3):
             torch.autograd.grad(out, leaves, dout, retain_graph=True)
@@ -3195,25 +3671,30 @@ def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int) -> float:
 
 
 def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
-                         model="internlm2-1.8b"):
-    """Phases 12a and 14, ``flash_attention_backward`` row: one layer's
+                         model="internlm2-1.8b", causal=True):
+    """Phases 12a, 14 and 15, ``flash_attention_backward`` row: one layer's
     attention backward at a trained shape (default internlm2-1.8b's: B2,
     H16, Hkv 8, S4096, D128, bf16, causal) through the kernel, its plain
     version and the backward of ``F.scaled_dot_product_attention(
-    is_causal=True, enable_gqa=True)`` on the same tensors, timed alone."""
+    is_causal=causal, enable_gqa=True)`` on the same tensors, timed
+    alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_backward_plain,
         visible_pairs)
     b, h, hkv, s, d = shape
+    mask = "causal" if causal else "non-causal"
     q, k, v, out, dout, lse = _bwd_case(dev, b, h, hkv, s, d, None,
-                                        torch.bfloat16, seed=1)
+                                        torch.bfloat16, seed=1,
+                                        causal=causal)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                              enable_gqa=True)
-    fns = (lambda: flash_attention_backward_kernel(q, k, v, out, dout, lse),
-           lambda: flash_attention_backward_plain(q, k, v, out, dout, lse),
+    fns = (lambda: flash_attention_backward_kernel(q, k, v, out, dout, lse,
+                                                   causal=causal),
+           lambda: flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                                  causal=causal),
            lambda: torch.autograd.grad(lib_out, leaves, dout,
                                        retain_graph=True))
     lib_err = max(_rel_err(a, b_) for a, b_ in zip(fns[2](), fns[1]()))
@@ -3224,8 +3705,9 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
     # alone, on the stream its forward ran on (see _sdpa_backward_graph_ms)
     dev_ms = [_graph_ms(fns[0], reps=5, replays=3),
               _graph_ms(fns[1], reps=1, replays=2),
-              _sdpa_backward_graph_ms(q, k, v, dout, reps=5, replays=3)]
-    pairs = visible_pairs(s) * b * h
+              _sdpa_backward_graph_ms(q, k, v, dout, reps=5, replays=3,
+                                      causal=causal)]
+    pairs = visible_pairs(s, causal) * b * h
     n_ops = 10 * d * pairs      # q.k, dout.v, p^T dout, ds k, ds^T q
     n_bytes = (2 * (3 * q.numel() + 2 * out.numel() + 3 * k.numel())
                + 4 * lse.numel())   # q, k, v, out, dout, lse; dq, dk, dv
@@ -3241,13 +3723,13 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
         "library_ms": ms[2], "device_ms": dev_ms[0],
         "plain_device_ms": dev_ms[1], "library_device_ms": dev_ms[2],
         "calls": f"one layer's attention backward of {model} training "
-                 f"(B{b}, H{h}, Hkv{hkv}, S{s}, D{d}, bf16, causal): the "
+                 f"(B{b}, H{h}, Hkv{hkv}, S{s}, D{d}, bf16, {mask}): the "
                  f"delta pre-pass, dQ and dK/dV kernels",
     }
     row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
     row["vs_library"] = dev_ms[0] / dev_ms[2]
     print(f"[time] flash_attention_backward {model} B{b} H{h} Hkv{hkv} S{s} "
-          f"D{d} bf16 causal: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
+          f"D{d} bf16 {mask}: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
           f"{ms[2]!r} ms (per call); device (graph) kernel {dev_ms[0]!r}, "
           f"plain {dev_ms[1]!r}, SDPA backward {dev_ms[2]!r} ms; kernel "
           f"device time {row['vs_library']!r}x SDPA backward's; bound "
@@ -3289,6 +3771,7 @@ def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
             rec.append({
                 "wall": time.perf_counter() - t0, "profiled": prof,
                 "loss": float(out[2]["loss"]), "ce": float(out[2]["ce"]),
+                "mtp": float(out[2]["mtp"]),
                 "fwd": flash_attention_kernel.launches - before[0],
                 "bwd": flash_attention_backward_kernel.launches - before[1]})
             return out
@@ -3301,35 +3784,72 @@ def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
         train.make_train_step = real
 
 
+@contextlib.contextmanager
+def _launcher_config(cfg):
+    """Within the scope, ``launch.train.main`` runs ``cfg`` for its
+    ``--arch`` (a depth cut of a published config; the launcher has no
+    depth option, as the reference's has none)."""
+    from repro_torch.launch import train
+    real = train.get_config
+    train.get_config = lambda arch: cfg
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
+def _flash_calls_a_step(cfg) -> tuple:
+    """Flash forward launches and backward calls of one training step of
+    ``cfg`` (rows of equal source and target lengths for the enc-dec
+    family, as the launcher makes them): every attention once forward and
+    once backward, the forward again where ``remat="full"`` recomputes
+    it; DeepSeek's MTP layer once each (outside remat)."""
+    from repro_torch.models.encdec import EncDecConfig
+    if isinstance(cfg, EncDecConfig):
+        # encoder, decoder self- and cross-attention (S_dec == S_enc)
+        n, extra = cfg.n_enc_layers + 2 * cfg.n_dec_layers, 0
+    else:
+        n, extra = _attention_layers(cfg), int(cfg.mtp)
+    return (2 if cfg.remat == "full" else 1) * n + extra, n + extra
+
+
 def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
-                   int8_ef=True):
-    """Phases 12b and 14: ``python -m repro_torch.launch.train`` at
-    ``run``'s arch, full width and depth, ``run["steps"]`` steps of
-    ``run["batch"]`` x ``run["seq"]`` tokens (the last profiled where
-    ``profile``), then, where ``int8_ef``, 2 steps with int8 error-feedback
-    gradient compression. Returns the flash backward launches of the main
-    run."""
+                   int8_ef=True, cfg=None):
+    """Phases 12b, 14 and 15: ``python -m repro_torch.launch.train`` at
+    ``run``'s arch (full width and depth, or ``cfg``, a depth cut of it),
+    ``run["steps"]`` steps of ``run["batch"]`` x ``run["seq"]`` tokens (the
+    last profiled where ``profile``; each flash backward call of the first
+    held against its plain version on its own inputs, ``_held_backward``),
+    then, where ``int8_ef``, 2 steps with int8 error-feedback gradient
+    compression. Returns the flash backward launches of the main run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import train
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.models.specs import n_params
-    cfg = get_config(run["arch"])
+    cfg = cfg or get_config(run["arch"])
+    is_ed = isinstance(cfg, encdec.EncDecConfig)
+    specs = encdec.encdec_specs(cfg) if is_ed else lm.lm_specs(cfg)
     tokens = run["batch"] * run["seq"]
     argv = ["--arch", run["arch"], "--steps", str(run["steps"]),
             "--batch", str(run["batch"]), "--seq", str(run["seq"])]
-    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d_model "
+    shape = ("(a row: seq // 2 source frames, seq // 2 target tokens)"
+             if is_ed else f"{[(g.kind, g.mlp, g.count) for g in cfg.segments]}"
+             f", mtp {cfg.mtp}")
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers {shape}, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head "
           f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat "
-          f"{cfg.remat}, logit_chunk {cfg.logit_chunk}; "
-          f"{n_params(lm.lm_specs(cfg))} parameters; main({argv})")
-    rec = []
+          f"{cfg.remat}, logit_chunk {cfg.logit_chunk}; n_params "
+          f"{n_params(specs)}; main({argv})")
+    want_fwd, want_bwd = _flash_calls_a_step(cfg)
+    rec, held = [], []
     _reset_counts(kernels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with _recorded_train_steps(
-            rec, run["steps"] - 1 if profile else None, label):
+            rec, run["steps"] - 1 if profile else None, label), \
+            _launcher_config(cfg), _held_backward(held, want_bwd):
         params = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3341,7 +3861,7 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
     steady = [r["wall"] for r in rec[1:-1]]
     for i, r in enumerate(rec):
         print(f"[{label}] step {i}: loss {r['loss']!r}, ce {r['ce']!r}, "
-              f"wall {r['wall']!r} s (synchronised"
+              f"mtp {r['mtp']!r}, wall {r['wall']!r} s (synchronised"
               f"{', under the profiler' if r['profiled'] else ''}), "
               f"{tokens / r['wall']!r} tokens/s; flash forward launches "
               f"{r['fwd']}, backward {r['bwd']}")
@@ -3351,9 +3871,22 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
           f"{mean!r} s, {tokens / mean!r} tokens/s, median "
           f"{statistics.median(steady)!r} s; peak device memory {peak} "
           f"bytes; launches {launches}")
-    n_attn = _attention_layers(cfg)
-    want_fwd = (2 if cfg.remat == "full" else 1) * n_attn
-    want_bwd = n_attn
+    _below_card(label, peak)
+    shapes = {}
+    for shape, causal, errs in held:
+        shapes.setdefault((shape, causal), []).append(max(errs))
+    worst = max((e for *_, errs in held for e in errs), default=0.0)
+    print(f"[{label}] step 0's {len(held)} flash backward calls, kernel vs "
+          f"plain on each call's own q, k, v, out, dO and lse: relative L2 "
+          f"max {worst!r} (tolerance {ATTN_REL_TOL}); by (B, H, S, D, Hkv), "
+          f"causal: " + "; ".join(
+              f"{shape} {causal}: {len(e)} calls, max {max(e)!r}"
+              for (shape, causal), e in shapes.items()))
+    if len(held) != want_bwd or not worst <= ATTN_REL_TOL:
+        raise AssertionError(f"{label}: the flash backward disagrees with "
+                             f"its plain version on the training step's "
+                             f"inputs ({len(held)} calls held of "
+                             f"{want_bwd})")
     if (len(rec) != run["steps"]
             or any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec)
             or launches["flash_attention_kernel.tensor_core"]
@@ -3362,12 +3895,34 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
                              f"{[(r['fwd'], r['bwd']) for r in rec]}, not "
                              f"{want_fwd} forward (all on the tensor cores) "
                              f"and {want_bwd} backward")
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{label}: losses {losses} not finite or not "
+    # with DeepSeek's MTP head the CE is held to fall and the MTP term to
+    # stay finite: its layer's output meets the head without a norm, and
+    # at full width that term starts near 60 and grows under AdamW, as the
+    # reference's does at 128 heads (tests/test_torch_train.py,
+    # test_launcher_mtp_term_at_128_heads_matches_reference)
+    mtp = getattr(cfg, "mtp", False)
+    held = [r["ce"] for r in rec] if mtp else losses
+    if (not all(math.isfinite(r[k]) for r in rec for k in ("loss", "mtp"))
+            or not held[-1] < held[0]):
+        raise AssertionError(f"{label}: losses {losses} (ce "
+                             f"{[r['ce'] for r in rec]}, mtp "
+                             f"{[r['mtp'] for r in rec]}) not finite or not "
                              "falling")
-    print(f"[{label}] losses finite, step {len(losses) - 1} below step 0; "
+    print(f"[{label}] losses finite, step {len(losses) - 1}'s "
+          f"{'ce' if mtp else 'loss'} below step 0's; "
           f"{want_fwd} forward flash launches (all on the tensor cores) and "
           f"{want_bwd} backward calls a step ok")
+    prof = rec[-1]["profiled"]
+    print(f"[{label}] " + json.dumps({
+        "model": cfg.name, "layers": cfg.n_layers,
+        "parameters": n_params(specs), "batch": run["batch"],
+        "seq": run["seq"], "losses": losses,
+        "mtp": [r["mtp"] for r in rec], "step_wall_s": [r["wall"] for r in rec],
+        "steady_step_s": mean, "tokens_per_s": tokens / mean,
+        "busy": None if prof is None else prof["busy"],
+        "kernels": None if prof is None else prof["kernels"],
+        "peak_bytes": peak, "flash_forward": want_fwd,
+        "flash_backward": want_bwd}))
 
     if not int8_ef:
         return launches["flash_attention_backward_kernel"]
@@ -3388,37 +3943,73 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
     return launches["flash_attention_backward_kernel"]
 
 
-def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
-                           backward=None, held=True):
-    """Phases 12c and 14: one step's loss and gradients of ``cfg`` (default
-    internlm2-1.8b at full width, depth cut 24 -> 2, bf16), ``run``'s batch
-    x seq tokens: the kernel route (its backward ``backward`` where given)
-    against the plain Function (the plain forward and backward swapped
-    in). Every gradient leaf within relative L2 ``LOGITS_REL_TOL`` and the
-    loss within that share, where ``held``; else only printed."""
+def _float32(cfg):
+    """``cfg`` with float32 weights and activations (the enc-dec config's
+    dtypes are class attributes: a subclass carries them)."""
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.models.encdec import EncDecConfig
+    f32 = torch.float32
+    if not isinstance(cfg, EncDecConfig):
+        return dataclasses.replace(cfg, param_dtype=f32, dtype=f32)
+
+    class Float32(type(cfg)):
+        param_dtype = dtype = f32
+    return Float32(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cfg)})
+
+
+def _train_loss(cfg, run, dev):
+    """The launcher's loss at step 0 of ``run``'s batch x seq: the function
+    of the parameters ``launch.train.main`` differentiates (the enc-dec
+    family's rows of ``seq // 2`` seeded source frames and ``seq // 2``
+    target tokens)."""
+    import numpy as np
+    import torch
     from repro_torch.data.pipeline import DataConfig, batch_for_step
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_backward_plain, flash_attention_kernel,
-        flash_attention_plain)
-    from repro_torch.models import lm
-    from repro_torch.models.lm import Segment
-    from repro_torch.models.specs import materialize, tree_leaves
-    cfg = cfg or dataclasses.replace(get_config(TRAIN["arch"]),
-                                     segments=(Segment("attn", "dense", 2),))
-    params = materialize(lm.lm_specs(cfg),
-                         torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    from repro_torch.models import encdec, lm
     toks, labels = batch_for_step(DataConfig(vocab=cfg.vocab,
                                              batch=run["batch"],
                                              seq_len=run["seq"]), 0)
     toks = torch.as_tensor(toks, device=dev).long()
     labels = torch.as_tensor(labels, device=dev).long()
+    if not isinstance(cfg, encdec.EncDecConfig):
+        return lambda params: lm.lm_loss(params, cfg, toks, labels)[0]
+    half = run["seq"] // 2
+    frames = torch.as_tensor(np.random.default_rng(1000).normal(
+        size=(run["batch"], half, cfg.d_model)).astype(np.float32),
+        device=dev)
+    return lambda params: encdec.encdec_loss(
+        params, cfg, frames, toks[:, :half], labels[:, :half])[0]
+
+
+def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
+                           backward=None, held=True):
+    """Phases 12c, 14 and 15: one step's loss and gradients of ``cfg``
+    (default internlm2-1.8b at full width, depth cut 24 -> 2, bf16),
+    ``run``'s batch x seq tokens: the kernel route (its backward
+    ``backward`` where given) against the plain Function (the plain
+    forward and backward swapped in). Every gradient leaf within relative
+    L2 ``LOGITS_REL_TOL`` and the loss within that share, where ``held``;
+    else only printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_plain, flash_attention_kernel,
+        flash_attention_plain)
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.lm import Segment
+    from repro_torch.models.specs import materialize, tree_leaves
+    cfg = cfg or dataclasses.replace(get_config(TRAIN["arch"]),
+                                     segments=(Segment("attn", "dense", 2),))
+    specs = (encdec.encdec_specs(cfg)
+             if isinstance(cfg, encdec.EncDecConfig) else lm.lm_specs(cfg))
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    loss_of = _train_loss(cfg, run, dev)
 
     def grads():
-        loss, _ = lm.lm_loss(params, cfg, toks, labels)
+        loss = loss_of(params)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     with (_attention_route(flash_attention_kernel, backward) if backward
@@ -3487,21 +4078,23 @@ def _train_restart(dev):
                              "bit-identical to the straight one")
 
 
-def _train_restart_in_child():
-    """Phase 12d in a child process: cuBLAS reads its workspace setting once,
-    at its first call, and deterministic algorithms need ``:4096:8``; the
-    child gets it, so the earlier phases run under the default setting."""
+def _child(flag: str, label: str):
+    """Phases 12d and 15: ``chip_smoke.py flag`` in a child process, run
+    under deterministic algorithms: cuBLAS reads its workspace setting
+    once, at its first call, and deterministic algorithms need
+    ``:4096:8``; the child gets it, so the earlier phases run under the
+    default setting."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
-                          "--train-restart"], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=600)
+    out = subprocess.run([sys.executable, str(root / "chip_smoke.py"), flag],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
     print(out.stdout, end="")
     if out.returncode != 0:
-        raise AssertionError(f"train-restart: the child exited "
+        raise AssertionError(f"{label}: the child exited "
                              f"{out.returncode}:\n{out.stderr[-3000:]}")
-    print(f"[train-restart] child process: exit 0 in "
+    print(f"[{label}] child process: exit 0 in "
           f"{time.perf_counter() - t0!r} s")
 
 
@@ -3518,6 +4111,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--train-restart"]:
         _train_restart(torch.device("cuda"))
+        return 0
+    if sys.argv[1:] == ["--moe-repeat"]:
+        _moe_repeat(torch.device("cuda"))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -3846,7 +4442,7 @@ def main() -> int:
     rows.append(bwd_row)
     torch.cuda.reset_peak_memory_stats()
     _train_kernel_vs_plain(dev)
-    _train_restart_in_child()
+    _child("--train-restart", "train-restart")
     print(f"[train-lm] phase 12 in {time.perf_counter() - t0!r} s")
 
     # ---- phase 13: the MLA and MoE families served at full width ---------------
@@ -3859,6 +4455,12 @@ def main() -> int:
     _recurrent_families(dev, card, kernels, flash_row, bwd_row,
                         bwd_errs["trained zamba2 shared block"])
     print(f"[recurrent] phase 14 in {time.perf_counter() - t0!r} s")
+
+    # ---- phase 15: the enc-dec family, and MLA/MoE training -------------------
+    t0 = time.perf_counter()
+    _encdec_and_families(dev, card, kernels, flash_row, bwd_row,
+                         bwd_errs["trained seamless encoder"])
+    print(f"[encdec] phase 15 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,15 @@ attention runs the flash kernel forward and the flash backward kernel::
         --steps 6 --batch 2 --seq 4096                 # full width, one card
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
         --steps 4 --batch 2 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch seamless-m4t-medium --steps 4 --batch 4 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
         --smoke --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir ckpt
 
-Weights are random, drawn from ``--seed``. The enc-dec family and a device
-mesh (``--mesh``) are not ported.
+Weights are random, drawn from ``--seed``. The enc-dec family (seamless)
+trains on rows of ``--seq // 2`` source frames (seeded normal embeddings,
+the frontend's stub) and ``--seq // 2`` decoder tokens, as in the
+reference. A device mesh (``--mesh``) is not ported.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from ..checkpoint import store
 from ..configs.registry import get_config, get_smoke_config
 from ..data.pipeline import DataConfig, batch_for_step
 from ..device import resolve_device
-from ..models import lm
+from ..models import encdec, lm
 from ..models.encdec import EncDecConfig
 from ..models.specs import materialize
 from ..train.optim import AdamWConfig
@@ -38,7 +42,9 @@ from ..train.step import (TrainConfig, error_state_init, init_optimizer,
 
 def init_params(cfg, seed: int, device):
     """The model's parameters drawn from ``seed`` on ``device``."""
-    return materialize(lm.lm_specs(cfg),
+    specs = (encdec.encdec_specs(cfg) if isinstance(cfg, EncDecConfig)
+             else lm.lm_specs(cfg))
+    return materialize(specs,
                        torch.Generator(device=device).manual_seed(seed),
                        device=device)
 
@@ -62,10 +68,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if isinstance(cfg, EncDecConfig):
-        raise NotImplementedError(
-            "training the enc-dec family is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 10)")
+    is_ed = isinstance(cfg, EncDecConfig)
     if args.mesh:
         raise NotImplementedError(
             "a device mesh is not ported to repro_torch yet (ROADMAP queue 1 "
@@ -78,6 +81,9 @@ def main(argv=None):
                       seed=args.seed)
 
     def loss_fn(params, bt):
+        if is_ed:
+            return encdec.encdec_loss(params, cfg, bt["frames"],
+                                      bt["tokens"], bt["labels"])
         return lm.lm_loss(params, cfg, bt["tokens"], bt["labels"],
                           bt.get("prefix"))
 
@@ -99,7 +105,14 @@ def main(argv=None):
         tokens, labels = batch_for_step(dcfg, i)
         bt = {"tokens": torch.as_tensor(tokens, device=dev).long(),
               "labels": torch.as_tensor(labels, device=dev).long()}
-        if cfg.prefix_len:
+        if is_ed:
+            rng = np.random.default_rng(1000 + i)
+            bt["frames"] = torch.as_tensor(
+                rng.normal(size=(args.batch, args.seq // 2, cfg.d_model))
+                .astype(np.float32), device=dev)
+            bt["tokens"] = bt["tokens"][:, : args.seq // 2]
+            bt["labels"] = bt["labels"][:, : args.seq // 2]
+        elif cfg.prefix_len:
             rng = np.random.default_rng(2000 + i)
             bt["prefix"] = torch.as_tensor(
                 rng.normal(size=(args.batch, cfg.prefix_len, cfg.d_model))

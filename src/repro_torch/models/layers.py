@@ -11,11 +11,14 @@ autograd. Two ``torch.autograd.Function``s carry it, chosen by the arguments
 and by no switch:
 
 * on a CUDA tensor, causal self-attention (``pos_offset == 0``,
-  ``Skv == S``, with or without a window) is :class:`_FlashAttention` over
-  the whole sequence: its forward is the flash kernel
-  (``kernels/flash_attention.py``, which also writes ``lse`` when a gradient
-  is needed), its backward the flash backward kernel;
-* everything else (CPU tensors, cross-attention, ``pos_offset != 0``) is
+  ``Skv == S``, with or without a window) and non-causal attention with
+  ``Skv == S``, ``pos_offset == 0`` and no window (the enc-dec encoder, and
+  cross-attention where the decoder's length equals the source's) are
+  :class:`_FlashAttention` over the whole sequence: its forward is the
+  flash kernel (``kernels/flash_attention.py``, which also writes ``lse``
+  when a gradient is needed), its backward the flash backward kernel;
+* everything else (CPU tensors, cross-attention with ``Skv != S``,
+  ``pos_offset != 0``, a window on non-causal attention) is
   :class:`_Flash`, the reference's ``_flash`` over one q chunk:
   ``blockwise_attention``'s q chunks over static kv ranges,
   ``_flash_fwd_impl``'s online softmax over kv sub-chunks, and
@@ -230,24 +233,24 @@ def _bhsd(t):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Causal self-attention of ``q [B, S, H, D]`` over ``k``, ``v [B, S,
-    Hkv, D]`` (GQA by the kernels' head map, no repeated heads) in one call
-    of ``_flash_forward``, which writes ``lse`` when an input needs a
+    """Attention of ``q [B, S, H, D]`` over ``k``, ``v [B, S, Hkv, D]``
+    (causal or not; GQA by the kernels' head map, no repeated heads) in one
+    call of ``_flash_forward``, which writes ``lse`` when an input needs a
     gradient; the backward is one call of ``_flash_backward`` on the saved
     ``(q, k, v, out, lse)``, whose ``dk``/``dv`` sum over each kv head's
     query heads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, causal=True):
         b, s, h, _ = q.shape
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
                if any(ctx.needs_input_grad[:3]) else None)
-        _flash_forward(_bhsd(q), _bhsd(k), _bhsd(v), causal=True,
+        _flash_forward(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
                        window=window, out=_bhsd(out), lse=lse)
         if lse is not None:
             ctx.save_for_backward(q, k, v, out, lse)
-            ctx.window = window
+            ctx.window, ctx.causal = window, causal
         return out
 
     @staticmethod
@@ -258,18 +261,21 @@ class _FlashAttention(torch.autograd.Function):
         grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                  for t in (q, k, v)]
         _flash_backward(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out),
-                        _bhsd(dout), lse, causal=True, window=ctx.window,
-                        dq=_bhsd(grads[0]), dk=_bhsd(grads[1]),
-                        dv=_bhsd(grads[2]))
-        return grads[0], grads[1], grads[2], None
+                        _bhsd(dout), lse, causal=ctx.causal,
+                        window=ctx.window, dq=_bhsd(grads[0]),
+                        dk=_bhsd(grads[1]), dv=_bhsd(grads[2]))
+        return grads[0], grads[1], grads[2], None, None
 
 
-def _kernel_route(q, k, pos_offset: int, causal: bool) -> bool:
-    """Causal self-attention on CUDA tensors: the flash kernels' case, with
-    or without a gradient to take (the kernels carry the reference's custom
-    VJP)."""
-    return (q.device.type == "cuda" and causal and pos_offset == 0
-            and k.shape[1] == q.shape[1])
+def _kernel_route(q, k, pos_offset: int, causal: bool,
+                  window: int | None = None) -> bool:
+    """The flash kernels' case on CUDA tensors, with or without a gradient
+    to take (the kernels carry the reference's custom VJP): ``Skv == S`` at
+    ``pos_offset == 0``, causal with or without a window, or non-causal
+    without one (then no mask depends on a position, so any such call is
+    the kernel's function)."""
+    return (q.device.type == "cuda" and pos_offset == 0
+            and k.shape[1] == q.shape[1] and (causal or window is None))
 
 
 def blockwise_attention(q, k, v, *, window: int | None = None,
@@ -279,16 +285,16 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
 
     q [B,S,H,D], k/v [B,Skv,HKV,D] with Skv == S + pos_offset (self-attention:
     pos_offset=0; cross-attention: causal=False, any Skv). On CUDA tensors,
-    causal self-attention is one :class:`_FlashAttention` (one forward
-    kernel launch, one backward call); otherwise a Python loop over q chunks
-    with static kv ranges (never-visible blocks skipped), each a
-    :class:`_Flash` with an online softmax over kv sub-chunks, as in the
+    the kernels' case (``_kernel_route``) is one :class:`_FlashAttention`
+    (one forward kernel launch, one backward call); otherwise a Python loop
+    over q chunks with static kv ranges (never-visible blocks skipped), each
+    a :class:`_Flash` with an online softmax over kv sub-chunks, as in the
     reference.
     """
     b, s, h, d = q.shape
     skv = k.shape[1]
-    if _kernel_route(q, k, pos_offset, causal):
-        return _FlashAttention.apply(q, k, v, window)
+    if _kernel_route(q, k, pos_offset, causal, window):
+        return _FlashAttention.apply(q, k, v, window, causal)
     cq = min(q_chunk, s)
     if s % cq:
         cq = s                       # small/odd seq: single chunk

@@ -15,7 +15,8 @@ Entry points:
 * ``lm_loss``: the mean token cross-entropy, chunked over the sequence when
   ``cfg.logit_chunk`` divides it, each chunk's head and CE under
   ``torch.utils.checkpoint`` as the reference wraps them in
-  ``jax.checkpoint``.
+  ``jax.checkpoint``, plus the MoE auxiliary loss and DeepSeek's
+  multi-token prediction (MTP) loss.
 
 Layers are rematerialised as ``cfg.remat`` says (``_maybe_remat``): ``full``
 checkpoints each layer, ``dots`` saves only the outputs of matrix products
@@ -24,11 +25,9 @@ with no batch dimension (the reference's
 
 Ported: attention and MLA blocks with a dense (SwiGLU), MoE or no MLP,
 Mamba2 and xLSTM (mLSTM, sLSTM) blocks, and zamba2's hybrid shared
-attention block, which covers every decoder LM of the registry. ``lm_specs``
-builds DeepSeek's MTP subtree, so its weights carry across whole, but the
-MTP loss is not ported: ``lm_loss`` raises for ``cfg.mtp``. Caches are
-updated in place (the reference donates them) and the same dicts are
-returned.
+attention block, which covers every decoder LM of the registry, and
+DeepSeek's MTP head (depth 1) in the loss. Caches are updated in place (the
+reference donates them) and the same dicts are returned.
 
 Hybrid models (zamba2) run one shared-parameter attention + MLP block over
 ``concat(x, emb)`` after every ``hybrid_period`` Mamba2 layers, ``emb`` the
@@ -40,17 +39,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from ..device import resolve_device
 from . import layers as L
 from . import mamba2 as M
 from . import xlstm as X
 from .mla import MLAConfig, mla_block, mla_specs
 from .moe import MoEConfig, moe_apply, moe_specs
-from .specs import ParamSpec, check_tree, is_spec, param, tree_map
+from .specs import ParamSpec, load_reference, param, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +92,6 @@ class LMConfig:
     @property
     def n_layers(self) -> int:
         return sum(s.count for s in self.segments)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item 10)")
 
 
 # ------------------------------------------------------------------ specs ----
@@ -446,36 +438,57 @@ def _token_ce(logits, labels):
     return total / count.clamp(min=1)
 
 
+def chunked_ce(head, hidden, labels, chunk: int):
+    """Mean token CE of ``head(hidden)`` against ``labels``; over chunks of
+    ``chunk`` positions when that divides the sequence, each chunk's head
+    and CE under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``), so that only one chunk's ``[B, C, V]`` float32
+    logits is alive at a time."""
+    if not (chunk and hidden.shape[1] % chunk == 0):
+        return _token_ce(head(hidden), labels)
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(hidden.shape[1] // chunk):
+        s, n = _ckpt.checkpoint(
+            lambda h, lab: _ce_sum(head(h), lab),
+            hidden[:, i * chunk:(i + 1) * chunk],
+            labels[:, i * chunk:(i + 1) * chunk], use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot / cnt.clamp(min=1)
+
+
 def lm_loss(params, cfg: LMConfig, tokens, labels, prefix_embeds=None):
-    """CE + the MoE auxiliary loss (the MTP loss is not ported yet: a
-    config with ``mtp`` raises). Uses
-    chunked CE when ``cfg.logit_chunk`` divides the (unprefixed) sequence:
-    the head and CE of each chunk run under ``torch.utils.checkpoint``, so
-    only one chunk's ``[B, C, V]`` float32 logits is alive at a time.
-    Returns ``(loss, {"ce", "aux", "mtp"})``."""
-    if cfg.mtp:
-        raise _not_ported("the multi-token prediction head")
+    """CE + the MoE auxiliary loss + ``cfg.mtp_weight`` times the MTP loss
+    (where ``cfg.mtp``). The CE is chunked when ``cfg.logit_chunk`` divides
+    the (unprefixed) sequence (:func:`chunked_ce`). Returns ``(loss, {"ce",
+    "aux", "mtp"})``."""
     hidden, aux = forward(params, cfg, tokens, prefix_embeds,
                           return_hidden=True)
     if cfg.prefix_len:
         hidden = hidden[:, cfg.prefix_len:]
     labels = torch.as_tensor(labels, device=hidden.device)
-    if cfg.logit_chunk and hidden.shape[1] % cfg.logit_chunk == 0:
-        c = cfg.logit_chunk
-        tot = torch.zeros((), device=hidden.device)
-        cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
-        for i in range(hidden.shape[1] // c):
-            s, n = _ckpt.checkpoint(
-                lambda h, lab: _ce_sum(_head(params, cfg, h), lab),
-                hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
-                use_reentrant=False)
-            tot, cnt = tot + s, cnt + n
-        ce = tot / cnt.clamp(min=1)
-    else:
-        ce = _token_ce(_head(params, cfg, hidden), labels)
-    mtp_loss = torch.zeros((), device=hidden.device)
-    loss = ce + aux
+    ce = chunked_ce(lambda h: _head(params, cfg, h), hidden, labels,
+                    cfg.logit_chunk)
+    mtp_loss = (_mtp_loss(params, cfg, hidden, labels) if cfg.mtp
+                else torch.zeros((), device=hidden.device))
+    loss = ce + aux + cfg.mtp_weight * mtp_loss
     return loss, {"ce": ce, "aux": aux, "mtp": mtp_loss}
+
+
+def _mtp_loss(params, cfg: LMConfig, hidden, labels):
+    """DeepSeek-V3 MTP (depth 1): predict token t+2 from ``(h_t,
+    emb(t+1))`` through one attention (MLA) + dense layer, its CE unchunked
+    as in the reference."""
+    p = params["mtp"]
+    emb_next = L.embed(params["embed"], labels.clamp(min=0)).to(cfg.dtype)
+    cat = torch.cat([L.rmsnorm(p["norm_h"], hidden),
+                     L.rmsnorm(p["norm_e"], emb_next)], dim=-1)
+    h = cat @ p["proj"]
+    seg = Segment("mla" if cfg.mla else "attn", "dense", 1)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _, _ = _layer_fwd(p["layer"], seg, cfg, h, positions, None, None)
+    logits = _head(params, cfg, h[:, :-1])
+    return _token_ce(logits, labels[:, 1:])      # token t+2 at position t
 
 
 # --------------------------------------------------- reference parameters ----
@@ -485,17 +498,7 @@ def from_reference_params(cfg: LMConfig, params, device=None):
     pytree paths, e.g. ``materialize(key, lm_specs(cfg))``) as the port's
     tensors on ``device`` (``None``: the card), each in its spec's dtype.
     Raises on a missing or surplus leaf and on a wrong shape."""
-    dev = resolve_device(device)
-    specs = lm_specs(cfg)
-    check_tree(specs, params)
-
-    def load(spec_tree, tree):
-        return {k: (torch.tensor(np.asarray(tree[k], np.float32))
-                    .to(device=dev, dtype=v.dtype) if is_spec(v)
-                    else load(v, tree[k]))
-                for k, v in spec_tree.items()}
-
-    return load(specs, params)
+    return load_reference(lm_specs(cfg), params, device)
 
 
 def to_reference_params(params):

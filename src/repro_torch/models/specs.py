@@ -74,6 +74,23 @@ def check_tree(spec_tree, tree, path=()):
             check_tree(v, tree[k], path + (k,))
 
 
+def load_reference(specs, params, device=None):
+    """The reference's parameters (nested dicts of numpy arrays under its
+    pytree paths), checked against ``specs`` by :func:`check_tree`, as
+    tensors on ``device`` (``None``: the card), each in its spec's
+    dtype."""
+    dev = resolve_device(device)
+    check_tree(specs, params)
+
+    def load(spec_tree, tree):
+        return {k: (torch.tensor(np.asarray(tree[k], np.float32))
+                    .to(device=dev, dtype=v.dtype) if is_spec(v)
+                    else load(v, tree[k]))
+                for k, v in spec_tree.items()}
+
+    return load(specs, params)
+
+
 def tree_map(fn, tree):
     """``fn`` over every leaf of a nested dict (a spec or a tensor), keeping
     the dict structure."""

@@ -1,9 +1,7 @@
 """The port's per-model config modules (``repro_torch.configs.<name>``)
 against the JAX package's: each module's ``CONFIG`` and ``SMOKE`` equal the
 reference module's field by field, with JAX dtypes mapped to torch's
-(EncDecConfig's class attributes included). Importing a module of a family
-the port does not run yet (zamba2, xLSTM, seamless) builds its configs and
-raises nothing; only its specs raise.
+(EncDecConfig's class attributes included).
 """
 import dataclasses
 import importlib

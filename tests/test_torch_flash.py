@@ -216,6 +216,61 @@ def test_backward_matches_reference_vjp(s, window, h, hkv):
         check([out.detach().numpy()] + [t.numpy() for t in grads])
 
 
+@pytest.mark.parametrize("s", [17, 64, 160])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4)])
+def test_noncausal_whole_sequence_function_matches_reference_vjp(s, h, hkv):
+    """The whole-sequence Function with ``causal=False`` (the enc-dec
+    encoder's and equal-length cross-attention's route on the card) on CPU
+    tensors, forward and gradients, against ``jax.vjp`` of the reference's
+    non-causal blockwise attention (rtol 1e-4, atol 1e-6)."""
+    q, k, v, g = _bshd_inputs(s + h + hkv, s, h, hkv)
+
+    def ref(q, k, v):
+        return r_layers.blockwise_attention(q, k, v, causal=False,
+                                            q_chunk=64, k_chunk=32)
+
+    out, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want = (out,) + vjp(jnp.asarray(g))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    got = p_layers._FlashAttention.apply(*leaves, None, False)
+    grads = torch.autograd.grad(got, leaves, torch.tensor(g))
+    for a, b in zip([got.detach()] + list(grads), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-6)
+
+
+class _Stand:
+    """The shape and device that a ``_kernel_route`` decision reads, on a
+    device that this host need not have."""
+
+    def __init__(self, device, b, s, h, d):
+        self.shape = (b, s, h, d)
+        self.device = torch.device(device)
+
+
+@pytest.mark.parametrize("device,s,skv,pos_offset,causal,window,kernel", [
+    ("cuda", 128, 128, 0, True, None, True),     # causal self-attention
+    ("cuda", 128, 128, 0, True, 37, True),       # ... with a window
+    ("cuda", 128, 128, 0, False, None, True),    # encoder; S_dec == S_enc
+    ("cuda", 100, 128, 0, False, None, False),   # cross, S_q != S_kv
+    ("cuda", 1, 128, 0, False, None, False),     # cross-attention in decode
+    ("cuda", 128, 128, 0, False, 37, False),     # non-causal with a window
+    ("cuda", 128, 160, 32, True, None, False),   # a q block past the start
+    ("cpu", 128, 128, 0, False, None, False),    # CPU tensors
+    ("cpu", 128, 128, 0, True, None, False),
+])
+def test_kernel_route_takes_equal_length_attention(device, s, skv,
+                                                   pos_offset, causal,
+                                                   window, kernel):
+    """On CUDA tensors the flash kernels take causal self-attention and
+    non-causal attention with ``S_q == S_kv``, no window, at offset 0;
+    ``S_q != S_kv`` cross-attention, a window on non-causal attention and
+    an offset stay on the reference's chunked ``_Flash``, as does every
+    CPU tensor."""
+    q, k = _Stand(device, 2, s, 4, 16), _Stand(device, 2, skv, 4, 16)
+    assert p_layers._kernel_route(q, k, pos_offset, causal, window) is kernel
+
+
 @pytest.mark.parametrize("s,window", [(40, None), (77, 24)])
 def test_plain_lse_matches_reference(s, window):
     q, k, v, _ = _bshd_inputs(s, s, 4, 2)

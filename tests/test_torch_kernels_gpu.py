@@ -1005,6 +1005,10 @@ FLASH_CASES = [(2, h, hkv, s, d, w, torch.float32, True)
     # zamba2-2.7b's shared attention block: head dim 5120 / 32 = 160, MHA
     (4, 32, 32, 2048, 160, None, torch.bfloat16, True),
     (1, 4, 2, 200, 160, 37, torch.bfloat16, True),
+    # seamless-m4t-medium's encoder and equal-length cross-attention: D 64,
+    # MHA, non-causal, at the served prefill and off the tile
+    (4, 16, 16, 2048, 64, None, torch.bfloat16, False),
+    (2, 16, 16, 77, 64, None, torch.bfloat16, False),
 ]
 
 
@@ -1143,6 +1147,18 @@ FLASH_BWD_CASES = [
     (1, 32, 32, 1024, 160, None, torch.bfloat16, True),
     (1, 4, 2, 200, 160, 37, torch.bfloat16, True),
     (1, 4, 2, 77, 160, None, torch.float32, True),
+    # seamless-m4t-medium (D 64, MHA) on the tensor cores: non-causal (the
+    # encoder, equal-length cross-attention; every q tile feeds every kv
+    # tile) and causal (the decoder's self-attention)
+    (2, 16, 16, 1024, 64, None, torch.bfloat16, False),
+    (2, 16, 16, 77, 64, None, torch.bfloat16, False),
+    (2, 16, 16, 1024, 64, None, torch.bfloat16, True),
+    # the trained MLA/MoE layers: minicpm3-4b's MLA (D 96, MHA) on the
+    # tensor cores, qwen3-moe's GQA 32/4 at D 128, deepseek-v3's MLA (D 192)
+    # past D 128 on the CUDA-core route
+    (1, 8, 8, 300, 96, None, torch.bfloat16, True),
+    (2, 32, 4, 512, 128, None, torch.bfloat16, True),
+    (1, 8, 8, 257, 192, None, torch.bfloat16, True),
 ]
 
 
@@ -1261,14 +1277,16 @@ def _attention_layers(cfg) -> int:
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "minicpm3-4b",
+                                  "qwen3-moe-30b-a3b", "deepseek-v3-671b"])
 def test_lm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
     """A smoke-size model's loss and every gradient leaf on the card
     (remat "full", chunked CE; each layer's attention through the flash
-    forward and backward kernels, float32) against the same model on the
-    CPU (the reference's custom VJP in plain torch): loss within rtol 1e-5,
-    gradients within rtol 1e-4 / atol 1e-6 of float32 sums in another
-    order (zamba2: atol 1e-5 of each leaf's largest magnitude)."""
+    forward and backward kernels, float32; deepseek's MTP layer too, once,
+    outside remat) against the same model on the CPU (the reference's
+    custom VJP in plain torch): loss within rtol 1e-5, gradients within
+    rtol 1e-4 / atol 1e-6 of float32 sums in another order (zamba2: atol
+    1e-5 of each leaf's largest magnitude)."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
@@ -1293,8 +1311,8 @@ def test_lm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
         on_card = int(dev.type == "cuda")
         assert (flash_attention_kernel.launches,
                 flash_attention_backward_kernel.launches) == (
-                    before[0] + 2 * n_attn * on_card,
-                    before[1] + n_attn * on_card)
+                    before[0] + (2 * n_attn + cfg.mtp) * on_card,
+                    before[1] + (n_attn + cfg.mtp) * on_card)
         res[dev.type] = (loss.detach().cpu(), [g.cpu() for g in grads])
     torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-5,
                                atol=0)
@@ -1305,6 +1323,57 @@ def test_lm_loss_gradients_on_the_card_match_the_cpu(cuda, arch):
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         torch.testing.assert_close(
             a, b, rtol=1e-4, atol=max(1e-6, share * b.abs().max().item()))
+
+
+@pytest.mark.parametrize("s_enc,s_dec", [(32, 32), (40, 24)])
+def test_encdec_loss_gradients_on_the_card_match_the_cpu(cuda, s_enc,
+                                                         s_dec):
+    """seamless-m4t-medium's smoke model with float32 weights (a subclass:
+    dtype is a class attribute) on the card against the CPU, loss within
+    rtol 1e-5 and every gradient within rtol 1e-4 / atol 1e-6, remat
+    "full", chunked CE. The encoder's attention runs the flash kernels
+    non-causal, the decoder's self-attention causal, and cross-attention
+    non-causal where ``S_dec == S_enc`` (else the chunked ``_Flash``):
+    forward launches twice each under remat, one backward call each."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import encdec
+    from repro_torch.models.specs import materialize, tree_leaves, tree_map
+
+    class F32(encdec.EncDecConfig):
+        dtype = param_dtype = torch.float32
+
+    smoke = get_smoke_config("seamless-m4t-medium")
+    cfg = F32(**{f.name: getattr(smoke, f.name)
+                 for f in dataclasses.fields(smoke)})
+    cfg = dataclasses.replace(cfg, remat="full", logit_chunk=8)
+    cpu = materialize(encdec.encdec_specs(cfg),
+                      torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal((2, s_enc, cfg.d_model)),
+                             dtype=torch.float32)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, s_dec)))
+    labels = torch.as_tensor(rng.integers(-1, cfg.vocab, (2, s_dec)))
+    n_attn = cfg.n_enc_layers + cfg.n_dec_layers * (1 + (s_enc == s_dec))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(), cpu)
+        leaves = [t for _, t in tree_leaves(params)]
+        before = (flash_attention_kernel.launches,
+                  flash_attention_backward_kernel.launches)
+        loss, _ = encdec.encdec_loss(params, cfg, frames.to(dev),
+                                     toks.to(dev), labels.to(dev))
+        grads = torch.autograd.grad(loss, leaves)
+        on_card = int(dev.type == "cuda")
+        assert (flash_attention_kernel.launches,
+                flash_attention_backward_kernel.launches) == (
+                    before[0] + 2 * n_attn * on_card,
+                    before[1] + n_attn * on_card)
+        res[dev.type] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 # float16 and mixed inputs: (u, s, current) dtypes for LIF, (spikes, w) for

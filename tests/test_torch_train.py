@@ -24,12 +24,14 @@ import jax.numpy as jnp  # noqa: E402
 import repro.launch.train as r_launch  # noqa: E402
 import repro_torch.launch.train as p_launch  # noqa: E402
 from repro.configs import registry as r_reg  # noqa: E402
+from repro.models import encdec as r_encdec  # noqa: E402
 from repro.models import lm as r_lm  # noqa: E402
 from repro.models import mamba2 as r_mamba2  # noqa: E402
 from repro.models import specs as r_specs  # noqa: E402
 from repro.train import optim as r_optim  # noqa: E402
 from repro.train import step as r_step  # noqa: E402
 from repro_torch.configs import registry as p_reg  # noqa: E402
+from repro_torch.models import encdec as p_encdec  # noqa: E402
 from repro_torch.models import lm as p_lm  # noqa: E402
 from repro_torch.models import specs as p_specs  # noqa: E402
 from repro_torch.train import optim as p_optim  # noqa: E402
@@ -292,6 +294,9 @@ LOSS_CASES = ([("internlm2-1.8b", chunk, remat, S) for chunk in (0, 8)
               + [("zamba2-2.7b", 8, remat, S)
                  for remat in ("none", "full", "dots")]
               + [("xlstm-125m", 8, "none", S)]
+              # the MLA and MoE families; deepseek with its MTP head
+              + [(arch, 8, "none", S) for arch in (
+                  "minicpm3-4b", "qwen3-moe-30b-a3b", "deepseek-v3-671b")]
               # 16 tokens: zamba2's masked decays stay finite, so the
               # reference runs its own _segsum_mask (see _finite_segsum)
               + [("zamba2-2.7b", 8, "none", 16)])
@@ -380,46 +385,61 @@ def test_lm_loss_refuses_what_is_not_ported():
     toks = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(ValueError, match="bogus"):
         p_lm.lm_loss(params, cfg, toks, toks)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        p_lm.lm_loss(params, dataclasses.replace(cfg, mtp=True), toks, toks)
 
 
 # ---- the launcher -------------------------------------------------------------------
 
-def _record_losses(monkeypatch, module, sink, traced):
-    """Wrap ``module.make_train_step`` so that every step's loss lands in
-    ``sink`` (through a debug callback where the step is traced by jit)."""
+def _record_losses(monkeypatch, module, sink, traced, keys=("loss",)):
+    """Wrap ``module.make_train_step`` so that every step's loss (or the
+    tuple of its metrics ``keys``) lands in ``sink`` (through a debug
+    callback where the step is traced by jit)."""
     real = module.make_train_step
+
+    def put(*vals):
+        vals = tuple(float(v) for v in vals)
+        sink.append(vals[0] if len(keys) == 1 else vals)
 
     def wrapped(loss_fn, tcfg):
         step = real(loss_fn, tcfg)
 
         def recorded(*args):
             out = step(*args)
+            vals = [out[2][k] for k in keys]
             if traced:
-                jax.debug.callback(lambda l: sink.append(float(l)),
-                                   out[2]["loss"], ordered=True)
+                jax.debug.callback(put, *vals, ordered=True)
             else:
-                sink.append(float(out[2]["loss"]))
+                put(*vals)
             return out
         return recorded
     monkeypatch.setattr(module, "make_train_step", wrapped)
 
 
 def _reference_init(monkeypatch):
-    """The port's launcher starts from the reference's seeded weights."""
+    """The port's launcher starts from the reference's seeded weights (the
+    enc-dec family's drawn from ``encdec_specs``)."""
     def init(cfg, seed, device):
         rcfg = r_reg.get_smoke_config(cfg.name[:-len("-smoke")])
-        rp = r_specs.materialize(jax.random.PRNGKey(seed),
-                                 r_lm.lm_specs(rcfg))
-        return p_lm.from_reference_params(cfg, _np_tree(rp), device=device)
+        ed = isinstance(rcfg, r_encdec.EncDecConfig)
+        specs = r_encdec.encdec_specs(rcfg) if ed else r_lm.lm_specs(rcfg)
+        rp = _np_tree(r_specs.materialize(jax.random.PRNGKey(seed), specs))
+        return (p_encdec if ed else p_lm).from_reference_params(
+            cfg, rp, device=device)
     monkeypatch.setattr(p_launch, "init_params", init)
+
+
+# the launcher's losses, port against reference, each step: float32 smoke
+# configs within 1e-4; seamless-m4t-medium's smoke config is bfloat16 in
+# both packages (class attributes), whose activations and AdamW updates
+# round in other places: over its 6 steps the losses differ by 7.9e-5 to
+# 5.3e-4; held at 2e-3
+LAUNCHER_ATOL = {"seamless-m4t-medium": 2e-3}
 
 
 @pytest.mark.parametrize("arch,extra,steps", [
     ("internlm2-1.8b", [], 6), ("llava-next-34b", [], 6),
     ("internlm2-1.8b", ["--grad-compression", "int8_ef"], 6),
-    ("zamba2-2.7b", [], 6), ("xlstm-125m", [], 2)])
+    ("zamba2-2.7b", [], 6), ("xlstm-125m", [], 2),
+    ("seamless-m4t-medium", [], 6), ("deepseek-v3-671b", [], 6)])
 def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra,
                                          steps):
     """Each step's loss within 1e-4. xlstm-125m's smoke training is chaotic
@@ -433,7 +453,7 @@ def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra,
     _record_losses(monkeypatch, r_launch, ref, traced=True)
     _record_losses(monkeypatch, p_launch, port, traced=False)
     _reference_init(monkeypatch)
-    if r_reg.get_smoke_config(arch).ssm is not None:
+    if getattr(r_reg.get_smoke_config(arch), "ssm", None) is not None:
         monkeypatch.setattr(r_mamba2, "_segsum_mask", _finite_segsum)
     argv = ["--arch", arch, "--smoke", "--steps", str(steps), "--batch", "2",
             "--seq", "32"] + extra
@@ -443,7 +463,56 @@ def test_launcher_losses_match_reference(monkeypatch, capsys, arch, extra,
     last = f"step {steps - 1:4d} loss="
     assert out.count("done") == 2 and out.count(last) == 2
     assert len(ref) == len(port) == steps
-    np.testing.assert_allclose(port, ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port, ref, rtol=0,
+                               atol=LAUNCHER_ATOL.get(arch, 1e-4))
+
+
+def test_launcher_mtp_term_at_128_heads_matches_reference(monkeypatch,
+                                                         capsys):
+    """DeepSeek's MTP term at its published head count: a cut of
+    deepseek-v3-671b keeping its 128 heads and MLA dims (d_model = d_ff =
+    1024, vocab 8192, one dense MLA layer and the MTP layer, float32),
+    4 steps of 2 x 64 tokens at the launcher's AdamW (lr 1e-3). Each
+    step's loss, CE and MTP term within rtol 2e-5 of the reference's
+    launcher (2.9e-6 read); and in both the MTP term grows while the CE
+    falls (17.73 -> 31.31 and 9.291 -> 9.093): the MTP layer's output
+    meets the head without a norm and MLA's ``wo`` is drawn with the
+    fan-in of its head axis, so its logits start large and AdamW's first
+    steps overshoot them. The published smoke config (4 heads) does not
+    show it."""
+    keys = ("loss", "ce", "mtp")
+    ref, port = [], []
+    _record_losses(monkeypatch, r_launch, ref, traced=True, keys=keys)
+    _record_losses(monkeypatch, p_launch, port, traced=False, keys=keys)
+    cut = dict(name="deepseek-v3-671b-smoke", d_model=1024, d_ff=1024,
+               vocab=8192, remat="none", logit_chunk=0, q_chunk=64,
+               k_chunk=64)
+    rcfg = dataclasses.replace(
+        r_reg.get_config("deepseek-v3-671b"),
+        segments=(r_lm.Segment("mla", "dense", 1),), param_dtype=jnp.float32,
+        dtype=jnp.float32, **cut)
+    pcfg = dataclasses.replace(
+        p_reg.get_config("deepseek-v3-671b"),
+        segments=(p_lm.Segment("mla", "dense", 1),),
+        param_dtype=torch.float32, dtype=torch.float32, **cut)
+    monkeypatch.setattr(r_launch, "get_smoke_config", lambda arch: rcfg)
+    monkeypatch.setattr(p_launch, "get_smoke_config", lambda arch: pcfg)
+
+    def init(cfg, seed, device):
+        rp = _np_tree(r_specs.materialize(jax.random.PRNGKey(seed),
+                                          r_lm.lm_specs(rcfg)))
+        return p_lm.from_reference_params(cfg, rp, device=device)
+    monkeypatch.setattr(p_launch, "init_params", init)
+    argv = ["--arch", "deepseek-v3-671b", "--smoke", "--steps", "4",
+            "--batch", "2", "--seq", "64"]
+    r_launch.main(argv)
+    p_launch.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out.count("done") == 2
+    assert len(ref) == len(port) == 4
+    np.testing.assert_allclose(port, ref, rtol=2e-5, atol=0)
+    for run in (ref, port):
+        ce, mtp = [r[1] for r in run], [r[2] for r in run]
+        assert ce[-1] < ce[0] and mtp[-1] > 1.5 * mtp[0], run
 
 
 def test_launcher_restarts_from_its_checkpoint(tmp_path, capsys):
@@ -462,7 +531,6 @@ def test_launcher_restarts_from_its_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "seamless-m4t-medium"], "item 10"),
     (["--arch", "internlm2-1.8b", "--mesh", "2x4"], "item 11")])
 def test_launcher_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
