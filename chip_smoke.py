@@ -5,6 +5,7 @@
     python3 chip_smoke.py --wrapper-times   # only the LIF wrappers' host cost
     python3 chip_smoke.py --train-restart   # only phase 12d
     python3 chip_smoke.py --moe-repeat      # only phase 15's MoE repeat
+    python3 chip_smoke.py --mesh            # only phase 16
 
 Phases, each of which fails the run loudly:
 
@@ -255,7 +256,29 @@ Phases, each of which fails the run loudly:
     4; its CE falling and its MTP term finite), each step's wall, tokens/s,
     busy share and peak (one JSON line a run); qwen3's step twice from the
     seed under deterministic algorithms, every parameter bit-identical (a
-    child process, ``--moe-repeat``).
+    child process, ``--moe-repeat``);
+16. training on a device mesh, in a child process (``--mesh``) that joins
+    a one-rank NCCL group and builds the 1 x 1 mesh over ``("data",
+    "model")``: (a) ``launch.train --mesh 1x1`` at internlm2-1.8b's full
+    width, 4 steps of 2 x 4096 tokens (DTensor parameters, a sharded
+    batch, the step in a mesh context), 48 forward and 24 backward flash
+    launches a step, against the unsharded launcher at the same seed on
+    the same rows (a sharded batch draws row r from shard r): losses and
+    final parameters bit-identical or not, and within relative 1e-6; step
+    wall, tokens/s, peak memory and busy share of both, so DTensor's host
+    overhead shows; (b) qwen3-moe-30b-a3b at 6 of 48 layers, one forward
+    and backward of 2 x 4096 with every ``moe_apply`` on the
+    expert-parallel path (an all-to-all on the model axis's group) against
+    the single-device path, routes pinned to the latter's: loss and every
+    gradient within relative 1e-6 and the dropped assignments of each
+    layer identical; (c) internlm2-1.8b at full width, depth cut to 2, laid
+    out by ``BASE_RULES``, saved and restored through ``shardings=``, bit
+    for bit; (d) ``batch_for_step`` on the mesh against the rows drawn on
+    the host, exactly; (e) sequence-parallel attention at phi3-medium-14b's
+    attention shape, 1 x 4096 bf16 in 4 sequence shards, each shard through
+    ``layers._SeqShardAttention`` (r + 1 flash calls a shard, forward and
+    backward) against one kernel call over the whole sequence, within
+    ``ATTN_REL_TOL``.
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
@@ -4098,6 +4121,381 @@ def _child(flag: str, label: str):
           f"{time.perf_counter() - t0!r} s")
 
 
+# ---- training on a device mesh: DeviceMesh/DTensor, EP, elastic restore ------
+
+MESH_RUN = dict(arch="internlm2-1.8b", steps=4, batch=2, seq=4096)
+# qwen3-moe-30b-a3b's depth cut for the expert-parallel check (phase 15's)
+MESH_MOE = ("qwen3-moe-30b-a3b", ("attn", "moe", 6))
+MESH_REL_TOL = 1e-6
+# phase 16e: phi3-medium-14b's attention (40 / 10 heads of 128), 1 x 4096,
+# the sequence in 4 shards as a model axis of 4 splits it
+MESH_SEQ = dict(arch="phi3-medium-14b", batch=1, seq=4096, shards=4)
+
+
+def _rel_gap(a, b) -> float:
+    """Relative L2 gap of two tensors (0 where both are 0)."""
+    a, b = a.float(), b.float()
+    den = b.norm().item()
+    return (a - b).norm().item() / den if den else (a - b).norm().item()
+
+
+@contextlib.contextmanager
+def _host_rows():
+    """Within the scope, ``launch.train``'s unsharded batches are the rows a
+    sharded batch holds (row ``r`` from shard ``r``), drawn on the host."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    real = train.batch_for_step
+
+    def rows(cfg, step, mesh=None):
+        buf = pipeline.rows_for_step(cfg, step, range(cfg.batch))
+        return buf[:, :-1], buf[:, 1:]
+    train.batch_for_step = rows
+    try:
+        yield
+    finally:
+        train.batch_for_step = real
+
+
+@contextlib.contextmanager
+def _counting_moe(drops, ep_calls):
+    """Within the scope, every MoE dispatch appends its dropped assignments
+    to ``drops`` and every expert-parallel application one to
+    ``ep_calls``."""
+    from repro_torch.models import moe
+    real_dispatch, real_ep = moe._dispatch, moe._moe_ep
+
+    def dispatch(*a):
+        buf, meta = real_dispatch(*a)
+        drops.append(int((~meta[2]).sum()))
+        return buf, meta
+
+    def ep(*a):
+        ep_calls.append(1)
+        return real_ep(*a)
+    moe._dispatch, moe._moe_ep = dispatch, ep
+    try:
+        yield
+    finally:
+        moe._dispatch, moe._moe_ep = real_dispatch, real_ep
+
+
+def _mesh_launcher(card, kernels, mesh):
+    """Phase 16a: ``launch.train --mesh 1x1`` at internlm2-1.8b's full width
+    against the unsharded launcher at the same seed on the same rows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.specs import tree_leaves
+    run = MESH_RUN
+    cfg = get_config(run["arch"])
+    want_fwd, want_bwd = _flash_calls_a_step(cfg)
+    tokens = run["batch"] * run["seq"]
+    argv = ["--arch", run["arch"], "--steps", str(run["steps"]), "--batch",
+            str(run["batch"]), "--seq", str(run["seq"])]
+    runs, held = {}, 0
+    for name, extra in (("mesh 1x1", ["--mesh", "1x1"]), ("unsharded", [])):
+        rec = []
+        _reset_counts(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _recorded_train_steps(rec, run["steps"] - 1, "mesh"), \
+                (_host_rows() if not extra else contextlib.nullcontext()):
+            params = train.main(argv + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leaves = [t.to_local() if hasattr(t, "to_local") else t
+                  for _, t in tree_leaves(params)]
+        steady = statistics.fmean(r["wall"] for r in rec[1:-1])
+        # the peak less the first run's final parameters, still held
+        runs[name] = dict(rec=rec, leaves=leaves, launches=_counts(kernels),
+                          peak=torch.cuda.max_memory_allocated() - held,
+                          wall=wall, steady=steady)
+        held = sum(t.numel() * t.element_size() for t in leaves)
+        prof = rec[-1]["profiled"]
+        print(f"[mesh] {name}: {cfg.name} full width, {run['steps']} steps "
+              f"of {run['batch']} x {run['seq']}: losses "
+              f"{[r['loss'] for r in rec]}; step walls "
+              f"{[r['wall'] for r in rec]} s; steps 1-{len(rec) - 2} mean "
+              f"{steady!r} s, {tokens / steady!r} tokens/s; peak "
+              f"{runs[name]['peak']} bytes; busy share "
+              f"{None if prof is None else prof['busy']!r}; flash launches "
+              f"a step {[(r['fwd'], r['bwd']) for r in rec]}; main() wall "
+              f"{wall!r} s; card {card}")
+        if any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec):
+            raise AssertionError(f"mesh: {name} made flash launches "
+                                 f"{[(r['fwd'], r['bwd']) for r in rec]} a "
+                                 f"step, not {want_fwd} and {want_bwd}")
+        del params
+    m, u = runs["mesh 1x1"], runs["unsharded"]
+    loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(m["rec"], u["rec"]))
+    param_gap = max(_rel_gap(a, b) for a, b in zip(m["leaves"], u["leaves"]))
+    same = (all(a["loss"] == b["loss"] for a, b in zip(m["rec"], u["rec"]))
+            and all(torch.equal(a, b)
+                    for a, b in zip(m["leaves"], u["leaves"])))
+    print(f"[mesh] 1x1 mesh vs unsharded launcher: losses and final "
+          f"parameters bit-identical: {same}; largest relative gap: loss "
+          f"{loss_gap!r}, parameters (relative L2, worst leaf) "
+          f"{param_gap!r} (tolerance {MESH_REL_TOL}); step wall "
+          f"{m['steady']!r} vs {u['steady']!r} s "
+          f"({m['steady'] / u['steady']!r}x: DTensor's host overhead); "
+          f"peak {m['peak']} vs {u['peak']} bytes; card {card}")
+    print("[mesh] " + json.dumps({
+        "model": cfg.name, "mesh": "1x1", "batch": run["batch"],
+        "seq": run["seq"], "losses": [r["loss"] for r in m["rec"]],
+        "unsharded_losses": [r["loss"] for r in u["rec"]],
+        "bit_identical": same, "loss_rel_gap": loss_gap,
+        "param_rel_gap": param_gap, "steady_step_s": m["steady"],
+        "unsharded_steady_step_s": u["steady"],
+        "tokens_per_s": tokens / m["steady"],
+        "unsharded_tokens_per_s": tokens / u["steady"],
+        "busy": (m["rec"][-1]["profiled"] or {}).get("busy"),
+        "unsharded_busy": (u["rec"][-1]["profiled"] or {}).get("busy"),
+        "peak_bytes": m["peak"], "unsharded_peak_bytes": u["peak"],
+        "flash_forward": want_fwd, "flash_backward": want_bwd,
+        "launches": m["launches"]}))
+    if not (loss_gap <= MESH_REL_TOL and param_gap <= MESH_REL_TOL):
+        raise AssertionError("mesh: the 1x1 mesh launcher departs from the "
+                             "unsharded one")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def _mesh_moe(card, mesh, dev):
+    """Phase 16b: qwen3-moe-30b-a3b at 6 of 48 layers, one forward and
+    backward of a 2 x 4096 batch with every ``moe_apply`` on the
+    expert-parallel path (DTensor parameters and batch in a mesh context)
+    against the single-device path, routes pinned to the latter's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, rows_for_step
+    from repro_torch.models import lm
+    from repro_torch.models.lm import Segment
+    from repro_torch.models.specs import materialize, tree_leaves, tree_map
+    from repro_torch.sharding import rules as R
+    arch, depth = MESH_MOE
+    cfg = dataclasses.replace(get_config(arch), segments=(Segment(*depth),))
+    b, s = MESH_RUN["batch"], MESH_RUN["seq"]
+    buf = torch.as_tensor(rows_for_step(
+        DataConfig(vocab=cfg.vocab, batch=b, seq_len=s), 0, range(b)),
+        device=dev).long()
+    toks, labels = buf[:, :-1], buf[:, 1:]
+    params = materialize(lm.lm_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    routes, drops, ep = [], [], []
+    t0 = time.perf_counter()
+    with _recording_routes(routes), _counting_moe(drops, ep):
+        loss = lm.lm_loss(params, cfg, toks, labels)[0]
+        grads = torch.autograd.grad(loss, leaves)
+    single = (loss.detach(), grads, list(drops))
+    del loss, grads
+    rep = R.NamedSharding(mesh, ())
+    dparams = tree_map(lambda t: R.distribute(t.detach(), rep), params)
+    dleaves = [t.requires_grad_() for _, t in tree_leaves(dparams)]
+    bsh = R.NamedSharding(mesh, R.batch_partition(mesh, 2))
+    drops.clear()
+    with _pinned_routes(lambda i: routes[i]), _counting_moe(drops, ep), \
+            R.set_context(mesh):
+        loss = lm.lm_loss(dparams, cfg, R.distribute(toks, bsh),
+                          R.distribute(labels, bsh))[0]
+        n_ep = len(ep)
+        grads = torch.autograd.grad(loss, dleaves)
+    torch.cuda.synchronize()
+    loss = loss.full_tensor()
+    gaps = {"/".join(p): _rel_gap(g.to_local(), h) for (p, _), g, h in
+            zip(tree_leaves(params), grads, single[1])}
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(loss.item() - single[0].item()) / abs(single[0].item())
+    same = (loss.item() == single[0].item()
+            and all(torch.equal(g.to_local(), h)
+                    for g, h in zip(grads, single[1])))
+    print(f"[mesh-moe] {cfg.name} depth {cfg.n_layers} (6 attention + MoE "
+          f"layers of 48), {b} x {s}, {cfg.param_dtype}, capacity factor "
+          f"{cfg.moe.capacity_factor}: expert-parallel applications in the "
+          f"forward {n_ep} (of {cfg.n_layers} layers; {len(ep)} with the "
+          f"recomputation); loss EP {loss.item()!r}, single "
+          f"{single[0].item()!r} (relative gap {loss_gap!r}); gradients "
+          f"relative L2, worst {worst} {gaps[worst]!r} (tolerance "
+          f"{MESH_REL_TOL}); bit-identical: {same}; dropped assignments a "
+          f"dispatch (the forward's, then the recomputation's) EP {drops}, "
+          f"single {single[2]}; "
+          f"{time.perf_counter() - t0!r} s; card {card}")
+    if (n_ep != cfg.n_layers or drops != single[2]
+            or not loss_gap <= MESH_REL_TOL
+            or not gaps[worst] <= MESH_REL_TOL):
+        raise AssertionError("mesh-moe: the expert-parallel path departs "
+                             "from the single-device path")
+    del params, dparams, leaves, dleaves, grads, single
+    torch.cuda.empty_cache()
+
+
+def _mesh_seq_attention(card, dev):
+    """Phase 16e: sequence-parallel attention (``seq_shard_attn``) at
+    phi3-medium-14b's attention shape in bf16. The card is one, so this
+    process plays each rank of the model axis in turn: shard ``r`` of q
+    against the whole K/V through ``layers._SeqShardAttention`` (``r + 1``
+    flash calls forward and backward), against one ``_FlashAttention``
+    over the whole sequence: outputs, dq by rows, and dk/dv summed over the
+    shards, within ``ATTN_REL_TOL`` relative L2."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    cfg = get_config(MESH_SEQ["arch"])
+    b, s, n = MESH_SEQ["batch"], MESH_SEQ["seq"], MESH_SEQ["shards"]
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do = (torch.randn(b, s, m, d, generator=g, device=dev)
+                   .to(torch.bfloat16) for m in (h, hkv, hkv, h))
+    whole = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = L._FlashAttention.apply(*whole, None, True)
+    want.backward(do)
+    kv = [t.clone().requires_grad_() for t in (k, v)]
+    c = s // n
+    outs, dqs, ms = [], [], []
+    launches = (fa.flash_attention_kernel.launches,
+                fa.flash_attention_backward_kernel.launches)
+    for r in range(n):
+        qr = q[:, r * c:(r + 1) * c].clone().requires_grad_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = L._SeqShardAttention.apply(qr, *kv, r, True)
+        out.backward(do[:, r * c:(r + 1) * c])
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        outs.append(out.detach())
+        dqs.append(qr.grad)
+    fwd = fa.flash_attention_kernel.launches - launches[0]
+    bwd = fa.flash_attention_backward_kernel.launches - launches[1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    again = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ev[0].record()
+    L._FlashAttention.apply(*again, None, True).backward(do)
+    ev[1].record()
+    torch.cuda.synchronize()
+    errs = {"out": _rel_gap(torch.cat(outs, 1), want),
+            "dq": _rel_gap(torch.cat(dqs, 1), whole[0].grad),
+            "dk": _rel_gap(kv[0].grad, whole[1].grad),
+            "dv": _rel_gap(kv[1].grad, whole[2].grad)}
+    print(f"[mesh-seq] {cfg.name} attention ({h} / {hkv} heads of {d}), "
+          f"{b} x {s} bf16 in {n} sequence shards: flash launches forward "
+          f"{fwd}, backward {bwd} (expected {n * (n + 1) // 2} each); "
+          f"relative L2 against the whole sequence's kernel call {errs} "
+          f"(tolerance {ATTN_REL_TOL}); forward + backward ms a shard "
+          f"{ms!r}, the whole sequence on one card "
+          f"{ev[0].elapsed_time(ev[1])!r}; card {card}")
+    if (fwd != bwd or fwd != n * (n + 1) // 2
+            or not max(errs.values()) <= ATTN_REL_TOL):
+        raise AssertionError("mesh-seq: sequence-parallel attention departs "
+                             "from the whole sequence's")
+
+
+def _mesh_checkpoint_and_batches(card, mesh, dev):
+    """Phases 16c and 16d: internlm2-1.8b at full width, depth cut 24 -> 2,
+    laid out by ``BASE_RULES`` on the mesh, saved and restored through
+    ``shardings=`` bit for bit; ``batch_for_step`` on the mesh against the
+    rows drawn on the host."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, batch_for_step,
+                                           rows_for_step)
+    from repro_torch.models import lm
+    from repro_torch.models.lm import Segment
+    from repro_torch.models.specs import materialize, tree_leaves
+    from repro_torch.sharding import rules as R
+    cfg = dataclasses.replace(get_config(MESH_RUN["arch"]),
+                              segments=(Segment("attn", "dense", 2),))
+    specs = lm.lm_specs(cfg)
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    sh = R.tree_shardings(mesh, specs, R.BASE_RULES)
+
+    def place(t, h):
+        return (R.distribute(t, h) if isinstance(h, R.NamedSharding)
+                else {k: place(t[k], h[k]) for k in t})
+    tree = place(params, sh)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        store.save(d, 7, tree)
+        restored, step, _ = store.restore(d, params, shardings=sh)
+    pairs = list(zip(tree_leaves(tree), tree_leaves(restored)))
+    differ = ["/".join(p) for (p, a), (_, b) in pairs
+              if a.placements != b.placements
+              or not torch.equal(a.to_local(), b.to_local())]
+    placements = sorted({str(a.placements) for (_, a), _ in pairs})
+    n_bytes = sum(a.to_local().numel() * a.element_size()
+                  for (_, a), _ in pairs)
+    print(f"[mesh-ckpt] {cfg.name} depth 2, {len(pairs)} leaves ({n_bytes} "
+          f"bytes) laid out by BASE_RULES ({placements}), saved and "
+          f"restored through shardings= in {time.perf_counter() - t0!r} s: "
+          f"step {step}, leaves differing (values or placements): {differ}; "
+          f"card {card}")
+    if differ or step != 7:
+        raise AssertionError("mesh-ckpt: the restored checkpoint is not "
+                             "bit-identical")
+    del params, tree, restored, pairs
+    dcfg = DataConfig(vocab=cfg.vocab, batch=MESH_RUN["batch"],
+                      seq_len=MESH_RUN["seq"])
+    bad = []
+    for i in range(MESH_RUN["steps"]):
+        tokens, labels = batch_for_step(dcfg, i, mesh)
+        host = rows_for_step(dcfg, i, range(dcfg.batch))
+        if not (np.array_equal(tokens.to_local().cpu().numpy(), host[:, :-1])
+                and np.array_equal(labels.to_local().cpu().numpy(),
+                                   host[:, 1:])
+                and tokens.to_local().device == dev):
+            bad.append(i)
+    print(f"[mesh-batch] batch_for_step on the mesh, steps 0-"
+          f"{MESH_RUN['steps'] - 1} of {dcfg.batch} x {dcfg.seq_len}: "
+          f"{tokens.placements} int32 DTensors on {dev}, against the rows "
+          f"drawn on the host: steps differing {bad}")
+    if bad:
+        raise AssertionError("mesh-batch: sharded batches differ from the "
+                             "host's rows")
+
+
+def _mesh_phase():
+    """Phase 16 (``--mesh``, in a child process): training on a device
+    mesh. One process joins a one-rank NCCL group (torchrun's variables,
+    set here where no launcher set them) and builds the 1 x 1 mesh over
+    ``("data", "model")``; 16a-16d run on it, then 16e."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    if "RANK" not in os.environ:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    card = _card_line()
+    dev = init_distributed()
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    print(f"[mesh] {dist.get_backend()} group of {dist.get_world_size()} on "
+          f"{dev}; mesh {mesh}")
+    try:
+        _mesh_launcher(card, (fa.flash_attention_kernel,
+                              fa.flash_attention_backward_kernel), mesh)
+        _mesh_moe(card, mesh, dev)
+        _mesh_checkpoint_and_batches(card, mesh, dev)
+        _mesh_seq_attention(card, dev)
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] phase 16 in {time.perf_counter() - t0!r} s (this "
+          f"process); card {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4114,6 +4512,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--moe-repeat"]:
         _moe_repeat(torch.device("cuda"))
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        _mesh_phase()
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -4461,6 +4862,11 @@ def main() -> int:
     _encdec_and_families(dev, card, kernels, flash_row, bwd_row,
                          bwd_errs["trained seamless encoder"])
     print(f"[encdec] phase 15 in {time.perf_counter() - t0!r} s")
+
+    # ---- phase 16: training on a device mesh ----------------------------------
+    t0 = time.perf_counter()
+    _child("--mesh", "mesh")
+    print(f"[mesh] phase 16 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

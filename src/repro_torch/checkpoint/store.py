@@ -17,8 +17,16 @@ checkpoints.
 bfloat16 leaves are stored as their raw 2-byte bits. numpy has no bfloat16:
 the reference's ``np.savez`` of such a leaf writes a 2-byte void dtype
 (``|V2``), and the port writes the same and reads either back into
-``torch.bfloat16`` bit for bit. Elastic restore onto a new mesh
-(``shardings=``) is not ported.
+``torch.bfloat16`` bit for bit.
+
+Meshes: a DTensor leaf is saved whole (``full_tensor()``, a collective every
+rank of its mesh takes part in); rank 0 alone writes, and every rank waits
+at a barrier until the write is committed. Restore is elastic: each rank
+reads the full arrays and keeps its own shard, laid out by ``shardings``
+(a tree of ``sharding.rules.NamedSharding`` beside the template), or else by
+a DTensor template leaf's own mesh and placements, so a run checkpointed on
+N ranks restarts on M. The files do not change, so checkpoints cross
+between the packages in both directions.
 """
 from __future__ import annotations
 
@@ -29,6 +37,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..sharding.rules import mesh_device
 
 _SEP = "/"
 
@@ -47,6 +59,8 @@ def _to_host(leaf) -> np.ndarray:
     """A copy of ``leaf`` in host memory (the training loop updates its
     tensors in place, so the copy must not share storage); bfloat16 as its
     2-byte bits."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -55,8 +69,11 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """``arr`` as a tensor of ``like``'s dtype on ``like``'s device."""
+def _from_host(arr: np.ndarray, like: torch.Tensor,
+               sharding=None) -> torch.Tensor:
+    """``arr`` as a tensor of ``like``'s dtype on ``like``'s device; a
+    DTensor laid out as ``sharding`` (a ``NamedSharding``), else as a
+    DTensor ``like``, each rank keeping its own shard."""
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         if like.dtype != torch.bfloat16:
             raise TypeError(f"a stored bfloat16 leaf cannot restore into "
@@ -64,7 +81,24 @@ def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
-    return t.to(device=like.device, dtype=like.dtype)
+    if sharding is None and isinstance(like, DTensor):
+        mesh, pl = like.device_mesh, like.placements
+    elif sharding is not None:
+        mesh, pl = sharding.mesh, sharding.placements
+    else:
+        return t.to(device=like.device, dtype=like.dtype)
+    return distribute_tensor(t.to(device=mesh_device(mesh), dtype=like.dtype),
+                             mesh, pl, src_data_rank=None)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _write(ckpt_dir: str, step: int, arrays: dict, extra) -> str:
@@ -86,10 +120,14 @@ def _write(ckpt_dir: str, step: int, arrays: dict, extra) -> str:
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None,
          keep: int = 3):
-    """Synchronous atomic save. Returns the checkpoint's directory."""
-    final = _write(ckpt_dir, step,
-                   {k: _to_host(v) for k, v in _flatten(tree).items()}, extra)
-    _gc(ckpt_dir, keep)
+    """Synchronous atomic save. Returns the checkpoint's directory. In a
+    process group every rank calls it; rank 0 writes."""
+    arrays = {k: _to_host(v) for k, v in _flatten(tree).items()}
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if _writer():
+        _write(ckpt_dir, step, arrays, extra)
+        _gc(ckpt_dir, keep)
+    _barrier()
     return final
 
 
@@ -99,10 +137,12 @@ _save_thread = None
 def save_async(ckpt_dir: str, step: int, tree, extra=None, keep: int = 3):
     """Non-blocking save: the device-to-host copy happens on the caller's
     thread (so the caller may go on updating ``tree`` in place), the write
-    in a background thread. :func:`wait` joins it."""
+    in a background thread of rank 0. :func:`wait` joins it."""
     global _save_thread
     wait()
     arrays = {k: _to_host(v) for k, v in _flatten(tree).items()}
+    if not _writer():
+        return
 
     def work():
         _write(ckpt_dir, step, arrays, extra)
@@ -113,10 +153,13 @@ def save_async(ckpt_dir: str, step: int, tree, extra=None, keep: int = 3):
 
 
 def wait():
+    """Join the background write; in a process group every rank calls it
+    and returns once rank 0's write is committed."""
     global _save_thread
     if _save_thread is not None:
         _save_thread.join()
         _save_thread = None
+    _barrier()
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -129,12 +172,10 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, template, step: int | None = None,
             shardings=None):
-    """Restore into ``template``'s structure, each leaf on the template
-    leaf's device in its dtype. Returns ``(tree, step, extra)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "elastic restore onto a mesh is not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 11)")
+    """Restore into ``template``'s structure, each leaf in its dtype on the
+    template leaf's device, or as a DTensor laid out by ``shardings`` (a
+    tree of ``NamedSharding`` of the template's structure) or by a DTensor
+    template leaf. Returns ``(tree, step, extra)``."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -142,11 +183,12 @@ def restore(ckpt_dir: str, template, step: int | None = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(d, "arrays.npz")) as data:
-        def load(tmpl, path=()):
+        def load(tmpl, shard, path=()):
             if isinstance(tmpl, dict):
-                return {k: load(v, path + (str(k),)) for k, v in tmpl.items()}
-            return _from_host(data[_SEP.join(path)], tmpl)
-        tree = load(template)
+                return {k: load(v, None if shard is None else shard[k],
+                                path + (str(k),)) for k, v in tmpl.items()}
+            return _from_host(data[_SEP.join(path)], tmpl, shard)
+        tree = load(template, shardings)
     return tree, manifest["step"], manifest["extra"]
 
 

@@ -1,19 +1,28 @@
-"""Deterministic, resumable synthetic data pipeline (``repro.data.pipeline``).
+"""Deterministic, resumable, sharded synthetic data pipeline
+(``repro.data.pipeline``).
 
 Batches are a pure function of (seed, step): restart-safe (the checkpoint
-stores only the step counter). The numbers are the reference's, bit for bit:
-numpy draws from a ``SeedSequence([seed, step, shard])``, and the batches stay
-numpy int32, as the reference returns them; the caller moves them to the card.
+stores only the step counter) and elastic (another mesh builds the same
+global batch with its own sharding). The numbers are the reference's, bit for
+bit: numpy draws from a ``SeedSequence([seed, step, shard])``. Without a mesh
+the batches stay numpy int32, as the reference returns them, and the caller
+moves them to the card; over a mesh each rank draws only its own rows (row
+``r`` from shard ``r``, as the reference's ``make_array_from_callback``
+does) and the batch is an int32 DTensor on the mesh's device.
 
 Synthetic text follows a Zipfian unigram mix with a Markov-ish repetition
-structure so losses move meaningfully during short training runs. Sharding
-over a mesh (the reference's ``make_array_from_callback`` path) is not ported.
+structure so losses move meaningfully during short training runs.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor
+
+from ..sharding.rules import (NamedSharding, batch_partition, local_range,
+                              mesh_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +63,32 @@ def global_batch(cfg: DataConfig, step: int):
     return toks.reshape(cfg.batch, cfg.seq_len + 1)
 
 
+def rows_for_step(cfg: DataConfig, step: int, rows) -> np.ndarray:
+    """Rows ``rows`` of a sharded batch, ``[len(rows), S+1]`` int32: row
+    ``r`` drawn from shard ``r`` (a sharded batch differs from
+    :func:`global_batch`, in the reference too)."""
+    out = np.empty((len(rows), cfg.seq_len + 1), np.int32)
+    for i, r in enumerate(rows):
+        out[i] = _sample_tokens(_rng_for(cfg, step, r), cfg.seq_len + 1,
+                                cfg.vocab)
+    return out
+
+
 def batch_for_step(cfg: DataConfig, step: int, mesh=None, sharding=None):
-    """``(tokens [B, S], labels [B, S])``, numpy int32; labels are the tokens
-    shifted by one."""
-    if mesh is not None or sharding is not None:
-        raise NotImplementedError(
-            "sharded batches over a mesh are not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 11)")
-    buf = global_batch(cfg, step)
-    return buf[:, :-1], buf[:, 1:]
+    """``(tokens [B, S], labels [B, S])``; labels are the tokens shifted by
+    one. Numpy int32 without a mesh; with one, int32 DTensors laid out as
+    ``sharding`` (default: ``batch_partition(mesh, 2)``), whose local
+    shards are the only rows this rank draws."""
+    if mesh is None and sharding is None:
+        buf = global_batch(cfg, step)
+        return buf[:, :-1], buf[:, 1:]
+    if sharding is None:
+        sharding = NamedSharding(mesh, batch_partition(mesh, 2))
+    mesh, spec = sharding.mesh, sharding.spec
+    out = rows_for_step(cfg, step, local_range(mesh, spec, 0, cfg.batch))
+    cols = local_range(mesh, spec, 1, cfg.seq_len)
+    local = torch.from_numpy(out).to(mesh_device(mesh))
+    cut = slice(cols.start, cols.stop)
+    return tuple(DTensor.from_local(t[:, cut].contiguous(), mesh,
+                                    sharding.placements)
+                 for t in (local[:, :-1], local[:, 1:]))

@@ -18,7 +18,18 @@ attention runs the flash kernel forward and the flash backward kernel::
 Weights are random, drawn from ``--seed``. The enc-dec family (seamless)
 trains on rows of ``--seq // 2`` source frames (seeded normal embeddings,
 the frontend's stub) and ``--seq // 2`` decoder tokens, as in the
-reference. A device mesh (``--mesh``) is not ported.
+reference.
+
+``--mesh DxM`` trains on a ``(D, M)`` mesh over ``("data", "model")``, one
+rank a device, as the reference's launcher does: the parameters are
+replicated, the batch is sharded over ``data`` (each rank draws its own
+rows) and the step runs inside ``set_context(mesh)``, so activations keep
+the batch sharding and MoE layers run expert-parallel over ``model``. The
+job has ``D·M`` ranks (torchrun's ``WORLD_SIZE``); rank 0 alone prints and
+writes checkpoints::
+
+    PYTHONPATH=src torchrun --nproc-per-node 1 -m repro_torch.launch.train \
+        --arch internlm2-1.8b --steps 4 --batch 2 --seq 4096 --mesh 1x1
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import store
 from ..configs.registry import get_config, get_smoke_config
@@ -34,10 +46,12 @@ from ..data.pipeline import DataConfig, batch_for_step
 from ..device import resolve_device
 from ..models import encdec, lm
 from ..models.encdec import EncDecConfig
-from ..models.specs import materialize
+from ..models.specs import materialize, tree_map
+from ..sharding import rules as R
 from ..train.optim import AdamWConfig
 from ..train.step import (TrainConfig, error_state_init, init_optimizer,
                           make_train_step)
+from .mesh import init_distributed, make_test_mesh
 
 
 def init_params(cfg, seed: int, device):
@@ -69,11 +83,18 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     is_ed = isinstance(cfg, EncDecConfig)
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "a device mesh is not ported to repro_torch yet (ROADMAP queue 1 "
-            "item 11)")
-    dev = resolve_device(args.device)
+        d, m = (int(x) for x in args.mesh.split("x"))
+        dev = init_distributed(args.device)
+        mesh = make_test_mesh((d, m), ("data", "model"))
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"--mesh {args.mesh} needs {mesh.size()} ranks, "
+                             f"the job has {dist.get_world_size()}")
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or dist.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
 
     tcfg = TrainConfig(adam=AdamWConfig(lr=args.lr, grad_clip=1.0),
                        grad_compression=args.grad_compression)
@@ -87,36 +108,56 @@ def main(argv=None):
         return lm.lm_loss(params, cfg, bt["tokens"], bt["labels"],
                           bt.get("prefix"))
 
-    step_fn = make_train_step(loss_fn, tcfg)
+    raw_step = make_train_step(loss_fn, tcfg)
     compressed = tcfg.grad_compression == "int8_ef"
+
+    def step_fn(*a):
+        if mesh is None:
+            return raw_step(*a)
+        with R.set_context(mesh):
+            return raw_step(*a)
 
     # ---- init or restore (restart-on-relaunch fault tolerance) ----
     start_step = 0
     params = init_params(cfg, args.seed, dev)
+    if mesh is not None:
+        rep = R.NamedSharding(mesh, ())
+        params = tree_map(lambda p: R.distribute(p, rep), params)
     opt = init_optimizer(params, tcfg)
     if args.ckpt_dir and store.latest_step(args.ckpt_dir) is not None:
         restored, start_step, _ = store.restore(
             args.ckpt_dir, {"params": params, "opt": opt})
         params, opt = restored["params"], restored["opt"]
-        print(f"restored checkpoint at step {start_step}")
+        log(f"restored checkpoint at step {start_step}")
     err_state = error_state_init(params) if compressed else None
 
+    def host(a):
+        """A host array of the batch's rows on ``dev``; over a mesh, laid
+        out as the batch."""
+        t = torch.as_tensor(a, device=dev)
+        if mesh is None:
+            return t
+        return R.distribute(t, R.NamedSharding(
+            mesh, R.batch_partition(mesh, t.dim())))
+
     def make_batch(i):
-        tokens, labels = batch_for_step(dcfg, i)
-        bt = {"tokens": torch.as_tensor(tokens, device=dev).long(),
-              "labels": torch.as_tensor(labels, device=dev).long()}
+        tokens, labels = batch_for_step(dcfg, i, mesh)
+        if mesh is None:
+            tokens, labels = (torch.as_tensor(a, device=dev)
+                              for a in (tokens, labels))
+        bt = {"tokens": tokens.long(), "labels": labels.long()}
         if is_ed:
             rng = np.random.default_rng(1000 + i)
-            bt["frames"] = torch.as_tensor(
+            bt["frames"] = host(
                 rng.normal(size=(args.batch, args.seq // 2, cfg.d_model))
-                .astype(np.float32), device=dev)
+                .astype(np.float32))
             bt["tokens"] = bt["tokens"][:, : args.seq // 2]
             bt["labels"] = bt["labels"][:, : args.seq // 2]
         elif cfg.prefix_len:
             rng = np.random.default_rng(2000 + i)
-            bt["prefix"] = torch.as_tensor(
+            bt["prefix"] = host(
                 rng.normal(size=(args.batch, cfg.prefix_len, cfg.d_model))
-                .astype(np.float32), device=dev)
+                .astype(np.float32))
             bt["tokens"] = bt["tokens"][:, : args.seq - cfg.prefix_len]
             bt["labels"] = bt["labels"][:, : args.seq - cfg.prefix_len]
         return bt
@@ -130,7 +171,7 @@ def main(argv=None):
         else:
             params, opt, metrics = step_fn(params, opt, bt)
         if i % 5 == 0 or i == args.steps - 1:
-            print(f"step {i:4d} loss={float(metrics['loss']):.4f} "
+            log(f"step {i:4d} loss={float(metrics['loss']):.4f} "
                   f"ce={float(metrics['ce']):.4f} "
                   f"({time.time()-t0:.1f}s)")
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
@@ -138,7 +179,7 @@ def main(argv=None):
                              {"params": params, "opt": opt},
                              extra={"data_step": i + 1})
     store.wait()
-    print("done")
+    log("done")
     return params
 
 

@@ -24,16 +24,24 @@ and by no switch:
   ``_flash_fwd_impl``'s online softmax over kv sub-chunks, and
   ``_flash_bwd``'s backward in plain torch.
 
-Decode attends in plain torch. The reference's sharding constraints are
-identities on one card: ``seq_shard_attn`` keeps only its effect of a single
-q chunk.
+On DTensors (inside a mesh context) attention runs on each rank's local
+shard (:func:`_sharded_attention`): the local tensors take the route above,
+so on the card every rank launches the kernels on its own batch (or heads)
+shard. Under ``seq_shard_attn`` K/V go through
+``kv_replicated_constraint`` and q keeps its sequence shard, as in the
+reference: each rank attends with its own queries over the gathered K/V,
+one kernel call a block of keys (:class:`_SeqShardAttention`).
+
+Decode attends in plain torch.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
+from ..sharding.rules import kv_replicated_constraint
 from .specs import param
 
 NEG_INF = -1e30
@@ -291,6 +299,10 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
     a :class:`_Flash` with an online softmax over kv sub-chunks, as in the
     reference.
     """
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, window=window, q_chunk=q_chunk,
+                                  k_chunk=k_chunk, pos_offset=pos_offset,
+                                  causal=causal)
     b, s, h, d = q.shape
     skv = k.shape[1]
     if _kernel_route(q, k, pos_offset, causal, window):
@@ -315,6 +327,113 @@ def blockwise_attention(q, k, v, *, window: int | None = None,
                                  pos_offset + qi * cq, lo_al, window, causal,
                                  ck))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+class _SeqShardAttention(torch.autograd.Function):
+    """Attention of a sequence shard ``q [B, s, H, D]``, positions ``[r*s,
+    (r+1)*s)``, over the whole ``k``, ``v [B, n*s, Hkv, D]`` (no window,
+    no offset). The kernels take as many keys as queries, so the keys go in
+    blocks of ``s``: each visible block is one ``_flash_forward`` call
+    (causal on the diagonal block ``r`` and whole before it; every block
+    when not causal), and the blocks' outputs merge by their ``lse``. The
+    backward runs each block's ``_flash_backward`` against the merged
+    ``out`` and ``lse``, the softmax over all keys, so each block's
+    ``dk``/``dv`` are its own and the blocks' ``dq`` sum."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, r, causal):
+        b, s, h, _ = q.shape
+        n = r + 1 if causal else k.shape[1] // s
+        outs, lses = [], []
+        for j in range(n):
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+            blk = slice(j * s, (j + 1) * s)
+            _flash_forward(_bhsd(q), _bhsd(k[:, blk]), _bhsd(v[:, blk]),
+                           causal=causal and j == r, window=None,
+                           out=_bhsd(out), lse=lse)
+            outs.append(out)
+            lses.append(lse)
+        lse = torch.logsumexp(torch.stack(lses), dim=0)
+        out = sum(torch.exp(l - lse).transpose(1, 2)[..., None] * o.float()
+                  for l, o in zip(lses, outs)).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.r, ctx.causal, ctx.n = r, causal, n
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        s = q.shape[1]
+        dout = dout.contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        dq_j = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        for j in range(ctx.n):
+            blk = slice(j * s, (j + 1) * s)
+            _flash_backward(_bhsd(q), _bhsd(k[:, blk]), _bhsd(v[:, blk]),
+                            _bhsd(out), _bhsd(dout), lse,
+                            causal=ctx.causal and j == ctx.r, window=None,
+                            dq=_bhsd(dq_j), dk=_bhsd(dk[:, blk]),
+                            dv=_bhsd(dv[:, blk]))
+            dq += dq_j.float()
+        return dq.to(q.dtype), dk, dv, None, None
+
+
+def _seq_shard(q, k, v, kw):
+    """``(r, n)``: q's sequence is shard ``r`` of ``n`` equal ones, and K/V
+    are whole on every mesh dim that shards it, in the case
+    :class:`_SeqShardAttention` takes (``Skv == S``, no offset, no window);
+    else None."""
+    s = q.shape[1]
+    if (kw["window"] is not None or kw["pos_offset"] or k.shape[1] != s):
+        return None
+    mesh, coord = q.device_mesh, q.device_mesh.get_coordinate()
+    lo, size = 0, s
+    for i, p in enumerate(q.placements):
+        if p == Shard(1) and mesh.size(i) > 1:
+            if (k.placements[i] != Replicate()
+                    or v.placements[i] != Replicate() or size % mesh.size(i)):
+                return None
+            size //= mesh.size(i)
+            lo += coord[i] * size
+    return None if size == s else (lo // size, s // size)
+
+
+def _sharded_attention(q, k, v, **kw):
+    """:func:`blockwise_attention` of DTensors on each rank's local shard.
+    Attention is independent over batch and over heads, so the shards that
+    stay local are the batch (dim 0) and, where q, k and v all shard it on
+    the same mesh axis, the heads (dim 2). A sequence shard of q (dim 1)
+    stays too where K/V are whole on its mesh dims (sequence parallelism,
+    after ``kv_replicated_constraint``): each rank attends with its own
+    queries (:class:`_SeqShardAttention`). Any other sharding (a sequence
+    shard with a window, a Partial sum) is gathered first. The output has
+    q's local layout."""
+    mesh = q.device_mesh
+    seq = _seq_shard(q, k, v, kw)
+
+    def keep(i):
+        p = q.placements[i]
+        if p == Shard(0) or (p == Shard(2) and k.placements[i] == p
+                             and v.placements[i] == p):
+            return p
+        if p == Shard(1) and seq is not None:
+            return p
+        return Replicate()
+    pl = [keep(i) for i in range(mesh.ndim)]
+    kv_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    # where q's queries are split, each rank's dK/dV is a partial sum
+    kv_grad = [Partial() if p == Shard(1) else p for p in pl]
+    ql = q.redistribute(mesh, pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+              for t in (k, v))
+    if seq is None:
+        out = blockwise_attention(ql, kl, vl, **kw)
+    else:
+        out = _SeqShardAttention.apply(ql, kl, vl, seq[0], kw["causal"])
+    return DTensor.from_local(out, mesh, pl)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
@@ -370,9 +489,13 @@ def attention_block(p, x, positions, cfg, cache=None, pos=None):
             cache["k"][:, :s] = k
             cache["v"][:, :s] = v
         kk, vv = k, v
-        # sequence-parallel attention: one q chunk (its K/V all-gather is
-        # an identity on one card)
-        q_chunk = s if getattr(cfg, "seq_shard_attn", False) else cfg.q_chunk
+        q_chunk = cfg.q_chunk
+        if getattr(cfg, "seq_shard_attn", False):
+            # gather K/V over the seq axis before any head repeat: the
+            # all-gather moves n_kv_heads-sized tensors
+            kk = kv_replicated_constraint(kk)
+            vv = kv_replicated_constraint(vv)
+            q_chunk = s                      # one seq-sharded q block
         if (getattr(cfg, "repeat_kv", False)
                 and not _kernel_route(q, k, 0, True)):
             rep = q.shape[2] // k.shape[2]

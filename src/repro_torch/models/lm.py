@@ -48,6 +48,8 @@ from . import xlstm as X
 from .mla import MLAConfig, mla_block, mla_specs
 from .moe import MoEConfig, moe_apply, moe_specs
 from .specs import ParamSpec, load_reference, param, tree_map
+from ..sharding.rules import (activation_constraint, carry_context,
+                              unshard_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,7 +272,13 @@ def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
     elif seg.mlp == "moe":
         y, aux = moe_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.moe)
         x = x + y
-    return x, aux, new_cache
+    return _constrain_batch(x), aux, new_cache
+
+
+def _constrain_batch(x):
+    """Pin the activations' batch sharding (an identity outside a mesh
+    context and on plain tensors)."""
+    return activation_constraint(x)
 
 
 def _save_unbatched_products(ctx, op, *args, **kwargs):
@@ -300,7 +308,8 @@ def _maybe_remat(fn, cfg: LMConfig):
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        return _ckpt.checkpoint(carry_context(fn), *args,
+                                use_reentrant=False, **kw)
     return remat
 
 
@@ -310,7 +319,7 @@ def _shared_block_fwd(p, cfg: LMConfig, x, emb, positions, cache, pos):
     h = L.rmsnorm(p["norm1"], torch.cat([x, emb], dim=-1))
     y, _ = L.attention_block(p["attn"], h, positions, cfg, cache, pos)
     x = x + y
-    return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
+    return _constrain_batch(x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x)))
 
 
 def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
@@ -358,7 +367,7 @@ def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds=None):
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
-    return x
+    return _constrain_batch(x)
 
 
 def _head(params, cfg: LMConfig, x):
@@ -424,7 +433,7 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos: int):
 def _ce_sum(logits, labels):
     """Summed CE (fp32) over the valid labels and their count. logits
     [B,S,V], labels [B,S] (-1 = pad)."""
-    logits = logits.float()
+    logits = unshard_dim(logits.float(), -1)      # the gather reads all V
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     valid = labels >= 0
@@ -450,7 +459,7 @@ def chunked_ce(head, hidden, labels, chunk: int):
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for i in range(hidden.shape[1] // chunk):
         s, n = _ckpt.checkpoint(
-            lambda h, lab: _ce_sum(head(h), lab),
+            carry_context(lambda h, lab: _ce_sum(head(h), lab)),
             hidden[:, i * chunk:(i + 1) * chunk],
             labels[:, i * chunk:(i + 1) * chunk], use_reentrant=False)
         tot, cnt = tot + s, cnt + n

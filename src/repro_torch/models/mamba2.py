@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from .layers import rmsnorm_specs
 from .specs import param
+from ..sharding.rules import dim_constraint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +83,8 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     b  [B,S,G,N]   input maps;  c [B,S,G,N] output maps; G divides H
     Returns (y [B,S,H,P] float32, h_final [B,H,P,N] float32).
 
-    The reference pins the heads axis to the model axis of its mesh here
-    (``dim_constraint``); the port runs on one card and has no sharding
-    layer, so there is nothing to pin.
+    Inside a mesh context the heads axis is pinned to the mesh's model axis
+    (``dim_constraint``), as in the reference.
     """
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -95,10 +95,12 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
                          f"multiple of the chunk {l}")
     nc = s // l
 
-    xc = x.reshape(bsz, nc, l, h, p)
-    dtc = dt.reshape(bsz, nc, l, h)
-    bh = b.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3)
-    ch = c.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3)
+    xc = dim_constraint(x.reshape(bsz, nc, l, h, p), 3)   # heads -> model
+    dtc = dim_constraint(dt.reshape(bsz, nc, l, h), 3)
+    bh = dim_constraint(
+        b.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3), 3)
+    ch = dim_constraint(
+        c.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3), 3)
 
     adt = dtc * a                                          # [B,nc,L,H]
     a_cum = torch.cumsum(adt, dim=2)

@@ -13,8 +13,9 @@ them. Like ``layers.decode_attention``, the port reads only the visible
 cache rows ``[0, pos]``; the reference masks the rest with -1e30, whose
 softmax weights are exactly 0, so the sums are the same.
 
-The reference's ``seq_shard_attn`` K/V constraint is a sharding annotation,
-an identity on one card; only its single q chunk is kept.
+Under ``seq_shard_attn`` K/V go through ``kv_replicated_constraint`` (inside
+a mesh context, the all-gather of sequence-parallel attention) and q keeps
+its sequence shard, as in the reference (``layers._SeqShardAttention``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from .layers import apply_rope, blockwise_attention, rmsnorm, rmsnorm_specs
 from .specs import param
+from ..sharding.rules import kv_replicated_constraint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +92,11 @@ def mla_block(p, x, positions, cfg, cache=None, pos=None):
         # pad v's head dim up to the q/k head dim: one attention call
         dqk = m.qk_nope_dim + m.qk_rope_dim
         v_pad = F.pad(v, (0, dqk - m.v_head_dim))
-        q_chunk = s if getattr(cfg, "seq_shard_attn", False) else cfg.q_chunk
+        q_chunk = cfg.q_chunk
+        if getattr(cfg, "seq_shard_attn", False):
+            k = kv_replicated_constraint(k)
+            v_pad = kv_replicated_constraint(v_pad)
+            q_chunk = s
         out = blockwise_attention(q, k, v_pad, q_chunk=q_chunk,
                                   k_chunk=cfg.k_chunk)[..., : m.v_head_dim]
         if cache is not None:

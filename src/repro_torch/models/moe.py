@@ -15,15 +15,28 @@ run to run), the port inverts the sort, gathers each token's k
 contributions in their ``(token, j)`` order and sums them over j in float32.
 That is the reference's sum in another order, within float32 rounding, and
 it repeats bit for bit, also under ``torch.use_deterministic_algorithms``.
+
+Inside a mesh context whose ``model`` axis divides the experts and the
+sequence, ``moe_apply`` runs expert-parallel (``_moe_ep``, the reference's
+``shard_map``): each rank routes its own tokens, and an all-to-all over the
+model axis's process group carries the ``[n_ep, e_loc, cap, d]`` buffer to
+the ranks that hold those experts and back.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed._functional_collectives import (
+    all_to_all_single_autograd)
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .specs import param
+from ..sharding.rules import (_mesh_shape, batch_partition, context_mesh,
+                              placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,11 +137,17 @@ def _shared_ffn(p, x):
 def moe_apply(p, x, cfg: MoEConfig):
     """x [B,S,D] -> (y [B,S,D], aux_loss scalar float32).
 
-    The reference's single-device formulation. Its expert-parallel path
-    (``_moe_ep``: ``shard_map`` with an all-to-all over a mesh's model
-    axis) needs a device mesh, which the port does not have yet (ROADMAP
-    queue 1 item 11), so this always takes the single-device path.
+    Single-device formulation. Under a mesh context with n_experts and the
+    sequence divisible by the model axis, dispatch runs expert-parallel
+    (``_moe_ep``): tokens stay on their rank, only the top-k activations
+    cross the model axis.
     """
+    mesh = context_mesh()
+    if mesh is not None:
+        n_ep = _mesh_shape(mesh).get("model")
+        if (n_ep is not None and cfg.n_experts % n_ep == 0
+                and x.shape[1] % n_ep == 0):
+            return _moe_ep(p, x, cfg, mesh)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -138,6 +157,91 @@ def moe_apply(p, x, cfg: MoEConfig):
     buf, meta = _dispatch(xf, top_ids, top_p, cfg.n_experts, cap)
     y = _expert_ffn(p, buf).reshape(cfg.n_experts * cap, d)
     out = _combine(y, meta, t, cfg.top_k, x.dtype).reshape(b, s, d)
+    if cfg.n_shared:
+        out = out + _shared_ffn(p, x)
+    return out, aux
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of a tensor over the ranks of ``groups`` (the reference's
+    ``pmean``). Its result is the same on every rank and is used as a
+    replicated value, so each rank's share of the gradient is the
+    incoming gradient over the rank count; nothing is sent backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups, n):
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        ctx.n = n
+        return x / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _local(t, mesh, pl, grad_pl):
+    """The local shard of ``t`` (a plain tensor counts as replicated) laid
+    out as ``pl``; its gradient leaves as ``grad_pl``."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+    return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+
+def _moe_ep(p, x, cfg: MoEConfig, mesh):
+    """Expert-parallel MoE: tokens split over the batch axes x model(seq);
+    each rank routes its own tokens, an all-to-all on the model axis
+    regroups the top-k activations by expert shard, the local experts run,
+    the inverse all-to-all brings them back and the combine is local.
+    Shared experts run outside, on the DTensors. Returns DTensors: ``y``
+    laid out as the split tokens, ``aux`` replicated."""
+    b, s, d = x.shape
+    names = list(mesh.mesh_dim_names)
+    n_ep = _mesh_shape(mesh)["model"]
+    e, e_loc = cfg.n_experts, cfg.n_experts // n_ep
+    # the batch axes that divide b (the reference's fall-back)
+    bspec = batch_partition(mesh, 3, batch_size=b)[0]
+    batch_axes = (() if bspec is None else
+                  (bspec,) if isinstance(bspec, str) else bspec)
+    x_pl = placements(mesh, (bspec, "model", None))
+    # mesh dims over which the ranks hold different tokens: the gradients
+    # of what they share are partial sums there
+    split = [names.index(a) for a in batch_axes + ("model",)]
+    rep = [Replicate()] * mesh.ndim
+    shared_grad = [Partial() if i in split else Replicate()
+                   for i in range(mesh.ndim)]
+    exp_pl = placements(mesh, ("model", None, None))
+    exp_grad = [Shard(0) if names[i] == "model" else shared_grad[i]
+                for i in range(mesh.ndim)]
+
+    xl = _local(x, mesh, x_pl, x_pl)
+    pl = {"router": _local(p["router"], mesh, rep, shared_grad)}
+    for k in ("w_gate", "w_up", "w_down"):
+        pl[k] = _local(p[k], mesh, exp_pl, exp_grad)
+    b_loc, s_loc, _ = xl.shape
+    t = b_loc * s_loc
+    xf = xl.reshape(t, d)
+    top_p, top_ids, density, mean_prob = _route(pl, xf, cfg)
+    groups = [mesh.get_group(i) for i in split]
+    n = math.prod(mesh.size(i) for i in split)
+    aux = cfg.aux_loss_coef * e * torch.sum(
+        _MeanOver.apply(density, groups, n)
+        * _MeanOver.apply(mean_prob, groups, n))
+    cap = _capacity(t, cfg)
+    buf, meta = _dispatch(xf, top_ids, top_p, e, cap)           # [E, cap, d]
+    # EP all-to-all: tokens regroup onto their expert's shard
+    group = mesh.get_group(names.index("model"))
+    buf = all_to_all_single_autograd(
+        buf.reshape(n_ep, e_loc, cap, d).contiguous(), None, None, group)
+    buf = buf.transpose(0, 1).reshape(e_loc, n_ep * cap, d)
+    y = _expert_ffn(pl, buf)                                    # [e_loc,n*cap,d]
+    y = y.reshape(e_loc, n_ep, cap, d).transpose(0, 1)
+    y = all_to_all_single_autograd(y.contiguous(), None, None,
+                                   group).reshape(e * cap, d)
+    out = _combine(y, meta, t, cfg.top_k, xl.dtype).reshape(b_loc, s_loc, d)
+    out = DTensor.from_local(out, mesh, x_pl)
+    aux = DTensor.from_local(aux, mesh, rep)
     if cfg.n_shared:
         out = out + _shared_ffn(p, x)
     return out, aux

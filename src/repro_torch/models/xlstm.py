@@ -22,6 +22,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .layers import rmsnorm_specs
 from .specs import param
+from ..sharding.rules import carry_context, local_pointwise
 
 NEG = -1e30
 
@@ -41,7 +42,8 @@ def _chunked(body, state, n_chunks: int):
     outs = []
     for i in range(n_chunks):
         if torch.is_grad_enabled():
-            state, out = _ckpt.checkpoint(body, state, i, use_reentrant=False)
+            state, out = _ckpt.checkpoint(carry_context(body), state, i,
+                                          use_reentrant=False)
         else:
             state, out = body(state, i)
         outs.append(out)
@@ -90,7 +92,7 @@ def _mlstm_cell_step(state, inp):
     i/f [B,H]. Returns (state, h [B,H,dh])."""
     c, n, m = state
     q, k, v, ig, fg = inp
-    log_f = F.logsigmoid(fg)
+    log_f = local_pointwise(F.logsigmoid, fg)
     m_new = torch.maximum(log_f + m, ig)
     i_p = torch.exp(ig - m_new)
     f_p = torch.exp(log_f + m - m_new)
@@ -149,7 +151,7 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
         sl = slice(ci * l, (ci + 1) * l)
         qb, kb, vb = qh[:, :, sl], kh[:, :, sl], vh[:, :, sl]  # [B,H,L,dh]
         ib, fb = ih[:, :, sl], fh[:, :, sl]       # [B,H,L]
-        lf = F.logsigmoid(fb)
+        lf = local_pointwise(F.logsigmoid, fb)
         bcum = torch.cumsum(lf, dim=-1)           # b_t
         # D_tj = b_t - b_j + i_j  (j <= t)
         d_mat = bcum[..., :, None] - bcum[..., None, :] + ib[..., None, :]
@@ -246,7 +248,7 @@ def _slstm_cell_step(params_r, state, wx):
     zt, it, ft, ot = (pre[..., :dh], pre[..., dh:2 * dh],
                       pre[..., 2 * dh:3 * dh], pre[..., 3 * dh:])
     z = torch.tanh(zt)
-    log_f = F.logsigmoid(ft)
+    log_f = local_pointwise(F.logsigmoid, ft)
     m_new = torch.maximum(log_f + m, it)
     i_p = torch.exp(it - m_new)
     f_p = torch.exp(log_f + m - m_new)

@@ -1,0 +1,341 @@
+"""Logical-axis -> mesh-axis sharding rules (``repro.sharding.rules``), on
+``torch.distributed``'s DeviceMesh and DTensor.
+
+Every ParamSpec and cache spec carries logical axis names; this module maps
+them onto the mesh with the reference's two passes:
+
+* divisibility: a dim whose size the mapped mesh axes' product does not
+  divide falls back to fewer axes, then to replication (qwen3's 4 KV heads
+  on model=16);
+* no reuse: a mesh axis taken by an earlier dim of the same tensor is
+  dropped from later dims (left to right, greedy).
+
+``spec_partition`` returns the reference's ``PartitionSpec`` as a tuple, one
+entry per tensor dim: ``None``, one axis name, or a tuple of axis names. It
+reads only a ``{axis: size}`` view of the mesh (:func:`_mesh_shape`), so an
+object with a dict ``.shape`` stands in for a mesh. :func:`placements` turns
+such a tuple into DTensor placements, one per mesh dim: ``Shard(d)`` where
+the mesh axis shards tensor dim ``d``, else ``Replicate()``. A dim sharded
+over several mesh axes (``("pod", "data")``) is split major to minor in that
+order, as JAX splits it; DTensor splits in mesh order, so such an entry must
+name its axes in mesh order.
+
+The hooks (``activation_constraint``, ``kv_replicated_constraint``,
+``dim_constraint``) take the place of ``with_sharding_constraint``: inside
+:func:`set_context` each redistributes a DTensor to the layout the reference
+pins; on a plain tensor, or outside a context, each is an identity. Inside a
+context, plain tensors that meet DTensors (positions, masks, constants) count
+as replicated over the mesh (``implicit_replication``), as constants are
+under ``jit``.
+
+The context is thread-local, as the reference's is. Autograd runs a CUDA
+backward on a thread of its own, and recomputes checkpointed code there, so
+checkpointed code is wrapped in :func:`carry_context`: it runs under the
+context of the code that checkpointed it, wherever it runs.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from collections.abc import Mapping
+
+import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
+
+from ..models.specs import is_spec
+
+BATCH_AXES = ("pod", "data")
+
+# logical axis -> preferred mesh axes (tuple tried in order, greedy)
+BASE_RULES = {
+    "batch": (("pod", "data"),),
+    "cache_batch": (("pod", "data"),),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "expert": ("model",),
+    "cache_seq": ("model",),
+    # everything else replicated:
+    "embed": (), "head_dim": (), "head_dim2": (), "layers": (),
+    "kv_lora": (), "q_lora": (), "conv_k": (), "ssm_state": (),
+    "seq": (),
+}
+
+FSDP_RULES = dict(BASE_RULES)
+FSDP_RULES["embed"] = (("pod", "data"),)      # ZeRO-3-style param sharding
+
+
+def _mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a DeviceMesh, or ``mesh.shape`` where that
+    is already a mapping."""
+    if isinstance(mesh.shape, Mapping):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes_size(shape: dict, axes) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    return math.prod(shape[a] for a in axes)
+
+
+def _present(shape: dict, axes) -> tuple:
+    if isinstance(axes, str):
+        axes = (axes,)
+    return tuple(a for a in axes if a in shape)
+
+
+def spec_partition(mesh, spec, rules: dict) -> tuple:
+    """The reference's ``PartitionSpec`` of ``spec`` on ``mesh``, as a
+    tuple."""
+    shape = _mesh_shape(mesh)
+    used: set = set()
+    parts = []
+    for dim, ax in zip(spec.shape, spec.axes):
+        placed = None
+        for cand in rules.get(ax, ()):
+            cand = tuple(a for a in _present(shape, cand) if a not in used)
+            # drop trailing axes of the candidate until its product divides
+            while cand and dim % _axes_size(shape, cand) != 0:
+                cand = cand[:-1]
+            if cand:
+                placed = cand
+                break
+        if placed:
+            used.update(placed)
+            parts.append(placed if len(placed) > 1 else placed[0])
+        else:
+            parts.append(None)
+    return tuple(parts)
+
+
+def placements(mesh, spec) -> tuple:
+    """DTensor placements of the partition tuple ``spec`` on ``mesh``: one
+    per mesh dim, ``Shard(d)`` where that axis shards tensor dim ``d``."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"dim {d} is sharded over {axes}, not in the "
+                             f"mesh's order {tuple(names)}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims "
+                                 f"of {spec}")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a partition tuple (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
+
+
+def distribute(t, sharding: NamedSharding):
+    """``t`` (the same full tensor on every rank) as a DTensor laid out by
+    ``sharding``; each rank keeps its own shard, nothing is sent."""
+    return distribute_tensor(t, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
+
+
+def tree_shardings(mesh, specs, rules: dict):
+    """A :class:`NamedSharding` for every ParamSpec of ``specs``."""
+    if is_spec(specs):
+        return NamedSharding(mesh, spec_partition(mesh, specs, rules))
+    return {k: tree_shardings(mesh, v, rules) for k, v in specs.items()}
+
+
+def batch_partition(mesh, ndim: int, seq_axis: int | None = None,
+                    seq_mesh_axis: str = "model",
+                    batch_size: int | None = None, axes=BATCH_AXES) -> tuple:
+    """[B, ...] activations/inputs: batch over (pod, data), rest replicated;
+    optionally shard one more dim (sequence) over ``seq_mesh_axis``. A batch
+    size not divisible by the axes' product falls back to fewer axes (batch=1
+    long-context decode replicates)."""
+    shape = _mesh_shape(mesh)
+    b = _present(shape, axes)
+    if batch_size is not None:
+        while b and batch_size % _axes_size(shape, b) != 0:
+            b = b[:-1]
+    parts: list = [b if len(b) > 1 else (b[0] if b else None)]
+    parts += [None] * (ndim - 1)
+    if seq_axis is not None and seq_mesh_axis in shape:
+        parts[seq_axis] = seq_mesh_axis
+    return tuple(parts)
+
+
+def mesh_device(mesh):
+    """This rank's device on ``mesh``: the current CUDA device, or the
+    CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def local_range(mesh, spec, dim: int, n: int) -> range:
+    """The indices of tensor dim ``dim`` (of ``n``) that this rank holds
+    under the partition ``spec``, major mesh axis first."""
+    lo, size = 0, n
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements(mesh, spec)):
+        if p == Shard(dim):
+            k = mesh.size(i)
+            if size % k:
+                raise ValueError(f"{n} do not divide over {spec[dim]}")
+            size //= k
+            lo += coord[i] * size
+    return range(lo, lo + size)
+
+
+def local_pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, on each rank's
+    local shard (a partial sum gathered first). For elementwise ops DTensor
+    has no sharding rule for (log-sigmoid's backward)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return DTensor.from_local(fn(x.redistribute(mesh, pl).to_local()), mesh,
+                              pl)
+
+
+def unshard_dim(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank (a DTensor whose
+    mesh axes shard that dim gathers it; others as they are). For a gather
+    along a dim that is sharded, as a vocab-parallel head's logits are."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    pl = [Replicate() if p.is_shard(dim) else p for p in x.placements]
+    if list(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _constrain(x, spec):
+    """``x`` redistributed to ``spec`` on its mesh (DTensors only)."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = placements(x.device_mesh, spec)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def dim_constraint(x, axis: int, mesh_axis: str = "model"):
+    """Shard one activation dim over a mesh axis (no-op outside set_context
+    or when not divisible). Used for MoE expert buffers and SSM head
+    tensors."""
+    mesh = getattr(_ctx, "mesh", None)
+    if mesh is None:
+        return x
+    shape = _mesh_shape(mesh)
+    if mesh_axis not in shape or x.shape[axis] % shape[mesh_axis] != 0:
+        return x
+    parts = [None] * x.ndim
+    parts[axis] = mesh_axis
+    return _constrain(x, tuple(parts))
+
+
+# --------------------------------------------------------------- context ----
+
+_ctx = threading.local()
+
+def _implicit_replication():
+    """DTensor's ``implicit_replication``, entered only where the switch is
+    off: the library's turns it off on exit, which would end it for an
+    enclosing context (the switch is process-wide in some torch releases
+    and per thread in others). Reading the switch takes DTensor's private
+    ``_op_dispatcher._allow_implicit_replication``, the attribute the
+    library's context manager sets (torch 2.11 and 2.13);
+    ``tests/test_torch_sharding.py`` fails if it goes."""
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+def _state() -> tuple:
+    return (getattr(_ctx, "mesh", None), getattr(_ctx, "seq_shard", False),
+            getattr(_ctx, "extra_dp", False))
+
+
+@contextlib.contextmanager
+def set_context(mesh, enabled: bool = True, seq_shard: bool = False,
+                extra_dp: bool = False):
+    prev = _state()
+    _ctx.mesh = mesh if enabled else None
+    _ctx.seq_shard = seq_shard
+    _ctx.extra_dp = extra_dp
+    try:
+        with (_implicit_replication() if _ctx.mesh is not None
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        _ctx.mesh, _ctx.seq_shard, _ctx.extra_dp = prev
+
+
+def carry_context(fn):
+    """``fn`` run under the caller's current context wherever it is called
+    later (checkpointed code, which autograd recomputes on its own
+    thread)."""
+    mesh, seq_shard, extra_dp = _state()
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with set_context(mesh, seq_shard=seq_shard, extra_dp=extra_dp):
+            return fn(*args, **kwargs)
+    return run
+
+
+def context_mesh():
+    """The mesh of the innermost :func:`set_context`, or None."""
+    return getattr(_ctx, "mesh", None)
+
+
+def activation_constraint(x):
+    """batch -> (pod, data); optionally seq (dim 1) -> model.
+
+    Sequence parallelism (`seq_shard`) keeps every activation sharded over
+    the model axis on the sequence dim — the layout for archs whose head
+    counts don't divide the model axis (phi3 40H, minicpm3 40H, llava 56H):
+    per-token ops stay parallel over the model axis, and attention
+    all-gathers only K/V.
+    """
+    mesh = getattr(_ctx, "mesh", None)
+    if mesh is None:
+        return x
+    shape = _mesh_shape(mesh)
+    seq_axis = None
+    if (getattr(_ctx, "seq_shard", False) and x.ndim >= 3
+            and "model" in shape and x.shape[1] % shape["model"] == 0):
+        seq_axis = 1
+    axes = (("pod", "data", "model") if getattr(_ctx, "extra_dp", False)
+            else BATCH_AXES)
+    return _constrain(x, batch_partition(mesh, x.ndim, seq_axis,
+                                         batch_size=x.shape[0], axes=axes))
+
+
+def kv_replicated_constraint(x):
+    """Pin K/V to batch-only sharding (seq replicated) — the one all-gather
+    of sequence-parallel attention."""
+    mesh = getattr(_ctx, "mesh", None)
+    if mesh is None or not getattr(_ctx, "seq_shard", False):
+        return x
+    return _constrain(x, batch_partition(mesh, x.ndim,
+                                         batch_size=x.shape[0]))

@@ -21,6 +21,13 @@ corrections are host floats computed in float32, as the reference computes
 them. The :class:`AdamW` class (a fixed list of float32 parameters, used by
 the SNN trainer, PPO and the policy baseline) shares the bias corrections and
 the parameter step; its moment update keeps its own rounding order.
+
+DTensor leaves (a model on a mesh): each moment carries its parameter's
+placements, and the update, elementwise, runs on each rank's local shards
+of parameter, gradient and moments. What is not elementwise reduces over
+the whole tensor: the global norm (DTensor sums), and an int8 moment's
+per-channel absmax, all-reduced over the mesh axes that shard the last
+axis.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..device import resolve_device
 from ..models.specs import (ParamSpec, check_tree, is_spec, tree_leaves,
@@ -47,11 +56,16 @@ class AdamWConfig:
 
 # ---- moment storage ------------------------------------------------------------
 
-def _q8(x, sqrt_domain: bool = False):
-    """Per-channel (last axis) absmax int8. Returns ``(codes, scale)``."""
+def _q8(x, sqrt_domain: bool = False, groups=()):
+    """Per-channel (last axis) absmax int8. Returns ``(codes, scale)``.
+    ``x`` may be a shard of the channels: its absmax is all-reduced over
+    ``groups``."""
     if sqrt_domain:
         x = torch.sqrt(torch.clamp(x, min=0.0))
-    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
+    scale = amax / 127.0
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return codes, scale.float()
@@ -64,14 +78,27 @@ def _dq8(codes, scale, sqrt_domain: bool = False):
     return x
 
 
+def _scale_ones(p):
+    """An int8 moment's scales of ``p``, ``[..., 1]``: ones, beside ``p``
+    (a DTensor where ``p`` is one, replicated where ``p`` shards its last
+    axis)."""
+    if not isinstance(p, DTensor):
+        return torch.ones(p.shape[:-1] + (1,) if p.dim() else (1,),
+                          dtype=torch.float32, device=p.device)
+    loc = p.to_local()
+    pl = [Replicate() if q.is_shard(p.dim() - 1) else q
+          for q in p.placements]
+    return DTensor.from_local(
+        torch.ones(loc.shape[:-1] + (1,), dtype=torch.float32,
+                   device=loc.device), p.device_mesh, pl)
+
+
 def _zeros_state(p, tag: str):
     if tag == "int8":
-        return {"codes": torch.zeros(p.shape, dtype=torch.int8,
-                                     device=p.device),
-                "scale": torch.ones(p.shape[:-1] + (1,) if p.dim() else (1,),
-                                    dtype=torch.float32, device=p.device)}
+        return {"codes": torch.zeros_like(p, dtype=torch.int8),
+                "scale": _scale_ones(p)}
     dt = torch.bfloat16 if tag == "bf16" else torch.float32
-    return torch.zeros(p.shape, dtype=dt, device=p.device)
+    return torch.zeros_like(p, dtype=dt)
 
 
 def _read_state(s, tag: str, sqrt_domain: bool = False):
@@ -80,10 +107,11 @@ def _read_state(s, tag: str, sqrt_domain: bool = False):
     return s.float()
 
 
-def _write_state(s, val, tag: str, sqrt_domain: bool = False) -> None:
+def _write_state(s, val, tag: str, sqrt_domain: bool = False,
+                 groups=()) -> None:
     """Store ``val`` (float32) into the moment ``s`` in place."""
     if tag == "int8":
-        codes, scale = _q8(val, sqrt_domain)
+        codes, scale = _q8(val, sqrt_domain, groups)
         s["codes"].copy_(codes)
         s["scale"].copy_(scale)
     else:
@@ -178,6 +206,8 @@ def global_norm(tree) -> torch.Tensor:
     total = None
     for _, x in tree_leaves(tree):
         sq = torch.sum(torch.square(x.float()))
+        if isinstance(sq, DTensor):             # a partial sum on a shard
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -229,12 +259,37 @@ def _rows(tree, sl):
     return tree[sl]
 
 
+def _local(t):
+    """The local shard of a DTensor leaf (or int8 moment), or the tensor."""
+    if isinstance(t, dict):
+        return {k: _local(v) for k, v in t.items()}
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def placed_like(g, p):
+    """``g`` laid out as the parameter ``p`` (a DTensor gradient is a
+    partial sum over the ranks that split the batch: this all-reduces it);
+    a plain ``g`` as it is."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _channel_groups(p) -> list:
+    """The process groups of the mesh axes that shard ``p``'s last axis."""
+    if not isinstance(p, DTensor) or p.dim() == 0:
+        return []
+    return [p.device_mesh.get_group(i) for i, q in enumerate(p.placements)
+            if q.is_shard(p.dim() - 1)]
+
+
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step, in place. Returns ``(params, state)``: the same
     trees, updated. The arithmetic is elementwise in float32; a large leaf
     is updated in slices of whole rows (``_row_slices``), which gives the
-    same numbers with a slice's worth of temporaries."""
+    same numbers with a slice's worth of temporaries. DTensor leaves update
+    their local shards."""
     step = int(state["step"]) + 1
     state["step"].fill_(step)
     tag = cfg.state_dtype
@@ -247,6 +302,10 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     for path, p in tree_leaves(params):
         g, m_s, v_s = (at_path(t, path) for t in (grads, state["m"],
                                                   state["v"]))
+        groups = _channel_groups(p)
+        decay = p.dim() >= 2
+        p, g, m_s, v_s = (_local(t) for t in (p, placed_like(g, p), m_s,
+                                              v_s))
         for sl in _row_slices(p):
             pi = _rows(p, sl)
             g32 = _rows(g, sl).float()
@@ -255,10 +314,9 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
             mi, vi = _rows(m_s, sl), _rows(v_s, sl)
             m, v = _adam_moments(g32, _read_state(mi, tag),
                                  _read_state(vi, tag, True), cfg)
-            pi.copy_(_adam_param(pi.float(), m, v, c1, c2, lr, p.dim() >= 2,
-                                 cfg))
-            _write_state(mi, m, tag)
-            _write_state(vi, v, tag, True)
+            pi.copy_(_adam_param(pi.float(), m, v, c1, c2, lr, decay, cfg))
+            _write_state(mi, m, tag, groups=groups)
+            _write_state(vi, v, tag, True, groups)
     return params, state
 
 

@@ -15,6 +15,12 @@ Gradients come from ``torch.autograd.grad`` over the parameter leaves, which
 the step marks as requiring grad. The reference donates params and optimizer
 state; the port updates both in place (and the error state) and returns the
 same trees.
+
+On a mesh (DTensor parameters, a sharded batch, the step inside
+``sharding.rules.set_context``) each gradient is laid out as its parameter
+(the all-reduce of the partial sums over the batch's ranks), the int8
+compression takes each channel's absmax over the whole tensor (DTensor
+reductions), and the metrics come back as plain full values.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ from typing import Callable
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from .optim import (AdamWConfig, adamw_init, adamw_update, at_path,
-                    opt_state_specs)
+                    opt_state_specs, placed_like)
 from ..models.specs import tree_leaves, tree_map
 
 
@@ -60,8 +68,8 @@ def compress_grads(grads, error_state):
 
 
 def error_state_init(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def _rebuild(like, flat, path=()):
@@ -73,10 +81,16 @@ def _rebuild(like, flat, path=()):
 
 # ---- train step factory --------------------------------------------------------
 
+def _full(t):
+    t = t.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _value_and_grad(loss_fn, params, leaves, batch):
     loss, metrics = loss_fn(params, batch)
     grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
+    return _full(loss), {k: _full(v) for k, v in metrics.items()}, grads
 
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
@@ -91,8 +105,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         leaves = [p.requires_grad_() for _, p in flat]
         if tcfg.accum_steps > 1:
             n = tcfg.accum_steps
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss, seen = None, []
             for i in range(n):
                 mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]

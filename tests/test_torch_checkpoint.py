@@ -110,9 +110,10 @@ def test_atomicity_and_missing(tmp_path):
     assert not any(d.startswith(".tmp") for d in os.listdir(tmp_path))
     with pytest.raises(FileNotFoundError):
         p_store.restore(str(tmp_path / "nope"), {"x": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        p_store.restore(str(tmp_path), {"x": torch.zeros(4)},
-                        shardings={"x": None})
+    # a leaf whose sharding is None restores as a plain tensor
+    restored, _, _ = p_store.restore(str(tmp_path), {"x": torch.zeros(4)},
+                                     shardings={"x": None})
+    assert torch.equal(restored["x"], torch.arange(4.0))
 
 
 @pytest.mark.parametrize("state_dtype", ["fp32", "int8"])

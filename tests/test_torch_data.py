@@ -51,7 +51,33 @@ def test_reference_properties_hold():
     assert p_pipe.PipelineState().step == 0
 
 
-def test_mesh_is_not_ported():
-    cfg = p_pipe.DataConfig(vocab=10, batch=2, seq_len=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        p_pipe.batch_for_step(cfg, 0, mesh=object())
+@pytest.fixture
+def one_rank(tmp_path):
+    """A gloo world of this process alone."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("step", [0, 3])
+def test_batches_on_a_one_rank_mesh_equal_the_reference(one_rank, step):
+    """Over a 1 x 1 mesh: int32 DTensors whose rows are the reference's
+    sharded batch on its one-device mesh, exactly (each row from its own
+    shard seed, so not ``global_batch``)."""
+    from repro.launch.mesh import make_test_mesh as r_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+
+    rc = r_pipe.DataConfig(vocab=37, batch=4, seq_len=16, seed=2)
+    pc = p_pipe.DataConfig(vocab=37, batch=4, seq_len=16, seed=2)
+    got = p_pipe.batch_for_step(pc, step, make_test_mesh((1, 1)))
+    want = r_pipe.batch_for_step(rc, step, r_mesh((1, 1)))
+    for a, b in zip(got, want):
+        assert str(a.placements) == "(Shard(dim=0), Replicate())"
+        np.testing.assert_array_equal(a.to_local().numpy(), np.asarray(b))
+    buf = p_pipe.rows_for_step(pc, step, range(4))
+    np.testing.assert_array_equal(got[0].to_local().numpy(), buf[:, :-1])
+    assert not np.array_equal(buf, p_pipe.global_batch(pc, step))

@@ -29,6 +29,7 @@ sys.path.insert(0, SRC)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh"} <= set(names)
 for name in names:
     __import__(name)
 sys.path.insert(0, ROOT)

@@ -530,11 +530,51 @@ def test_launcher_restarts_from_its_checkpoint(tmp_path, capsys):
     assert sorted(os.listdir(tmp_path)) == ["step_3", "step_6"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "internlm2-1.8b", "--mesh", "2x4"], "item 11")])
-def test_launcher_refuses_what_is_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        p_launch.main(argv + ["--smoke", "--device", "cpu", "--steps", "1"])
+@pytest.fixture
+def one_rank(tmp_path):
+    """A gloo world of this process alone."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_launcher_on_a_one_rank_mesh_equals_the_unsharded(
+        one_rank, tmp_path, monkeypatch, capsys, restart):
+    """``--mesh 1x1`` (DTensor parameters, a sharded batch, the step in a
+    mesh context) gives the unsharded launcher's losses and parameters bit
+    for bit when both read the sharded batch's rows; a relaunch from its
+    checkpoint (3 steps, then to 6) equals 6 straight steps."""
+    from repro_torch.data import pipeline as p_pipe
+
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--batch", "2", "--seq",
+            "32", "--device", "cpu", "--steps", "6"]
+    mesh_losses, plain_losses = [], []
+    _record_losses(monkeypatch, p_launch, mesh_losses, traced=False)
+    if restart:
+        ckpt = ["--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "3"]
+        p_launch.main(argv[:-1] + ["3", "--mesh", "1x1"] + ckpt)
+        got = p_launch.main(argv + ["--mesh", "1x1"] + ckpt)
+        assert "restored checkpoint at step 3" in capsys.readouterr().out
+    else:
+        got = p_launch.main(argv + ["--mesh", "1x1"])
+    assert all(isinstance(t, torch.distributed.tensor.DTensor)
+               for _, t in _leaves(got))
+    mesh_losses = list(mesh_losses)
+
+    def rows(cfg, step, mesh=None):
+        buf = p_pipe.rows_for_step(cfg, step, range(cfg.batch))
+        return buf[:, :-1], buf[:, 1:]
+    monkeypatch.setattr(p_launch, "batch_for_step", rows)
+    _record_losses(monkeypatch, p_launch, plain_losses, traced=False)
+    want = p_launch.main(argv)
+    assert mesh_losses[-6:] == plain_losses
+    for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(a.to_local(), b), path
 
 
 @pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
