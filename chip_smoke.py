@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-restart   # only phase 12d
     python3 chip_smoke.py --moe-repeat      # only phase 15's MoE repeat
     python3 chip_smoke.py --mesh            # only phase 16
+    python3 chip_smoke.py --dryrun          # only phase 17
 
 Phases, each of which fails the run loudly:
 
@@ -146,8 +147,9 @@ Phases, each of which fails the run loudly:
     evaluate); ``run_scenario`` at ``benchmarks/fault_replace.py``'s full
     configuration (S-VGG16 on hier 2x2:4x4, budget 4096, deploy budget
     65536, threshold 0.02, migration weight 0.12, warm t0 0.005, the busiest
-    inter-chip link dropped, ``compare_cold=True``), identical with the
-    recorder on and off, its objectives the host evaluate's, with
+    inter-chip link dropped, ``compare_cold=True``), its objectives the
+    host evaluate's, identical with the recorder on and off at a sixteenth
+    of the budgets (a replacement included), with
     replacements, moved MB, maximum degradation, wall and scorer calls a
     second; the placement service at ``benchmarks/service.py``'s full
     configuration (S-ResNet18 on 4x4, balanced, SA budget 12000): cold, hit
@@ -278,7 +280,28 @@ Phases, each of which fails the run loudly:
     attention shape, 1 x 4096 bf16 in 4 sequence shards, each shard through
     ``layers._SeqShardAttention`` (r + 1 flash calls a shard, forward and
     backward) against one kernel call over the whole sequence, within
-    ``ATTN_REL_TOL``.
+    ``ATTN_REL_TOL``;
+17. the mesh analysed without running it, in a child process
+    (``--dryrun``): (a) ``launch.cells.build_cell`` for internlm2-1.8b at
+    full width, a 2 x 4096 train step on a 1 x 1 mesh of a one-rank world
+    of the ``fake`` backend, traced on fake card tensors
+    (``Cell.trace``), then the same step for real on a one-rank NCCL
+    mesh, laid out alike: the trace's flash ops against the real step's
+    launch counts (equal), its matrix-product FLOPs against
+    ``FlopCounterMode`` on the real step (within relative 1e-6), its
+    predicted peak against ``torch.cuda.max_memory_allocated`` and its
+    roofline fraction against the measured step wall (printed); (b)
+    ``launch.dryrun.run_cell`` at full width on a 256-rank fake world, the
+    ``(16, 16)`` production mesh, for internlm2-1.8b and
+    qwen3-moe-30b-a3b at ``train_4k`` (each record's summary and trace
+    seconds); (c) qwen3's traffic graph (``core.gpu_adapter.
+    traffic_from_trace``) on ``nvlink_cluster((4, 8))``, 256 GPUs: the
+    rank order against ``optimize_device_order`` by simulated annealing
+    with the card's scorer, and the repair of
+    ``benchmarks/tpu_placement.py``'s scrambled order by the population
+    SA. ``dryrun_launches`` in the ``kernels`` line: each kernel's
+    launches in (a)'s counted step and (c)'s searches; null for a kernel
+    neither runs.
 
 Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
@@ -3254,10 +3277,12 @@ def _flow_of(plan, noc):
 def _runtime_path(kernels):
     """Phase 11d: ``run_scenario`` at benchmarks/fault_replace.py's full
     configuration: S-VGG16 on hier 2x2:4x4, the busiest inter-chip link of
-    the seeded deployment dropped at step 2, ``compare_cold=True``; once
-    with the recorder (deploying itself) and once without (on the first
-    deployment's plan). Both results must be identical, and every objective
-    they record is the host evaluate's."""
+    the seeded deployment dropped at step 2, ``compare_cold=True``, with
+    the recorder (deploying itself); every objective it records is the
+    host evaluate's. At a sixteenth of the budgets, with the busiest
+    inter-chip link of that budget's deployment dropped, the scenario runs
+    twice, with the recorder (deploying itself) and without (on that
+    deployment): both results must be identical, with a replacement."""
     import numpy as np
     import torch
     from repro_torch.core import HierarchicalMesh
@@ -3272,11 +3297,14 @@ def _runtime_path(kernels):
     plan = deploy_model(cfg, hm, method="simulated_annealing", seed=0,
                         budget=fr["deploy_budget"], schedule="none")
     deploy_s = time.perf_counter() - t0
-    m = hm.evaluate(plan.graph, plan.placement.placement)
-    loads = np.zeros(hm.n_links)
-    for label, vol in m.link_traffic.items():
-        loads[hm.link_id_of(label)] = vol
-    lid = int(np.argmax(np.where(hm.interchip_mask(), loads, -1.0)))
+
+    def busiest_interchip_link(plan):
+        m = hm.evaluate(plan.graph, plan.placement.placement)
+        loads = np.zeros(hm.n_links)
+        for label, vol in m.link_traffic.items():
+            loads[hm.link_id_of(label)] = vol
+        return m, int(np.argmax(np.where(hm.interchip_mask(), loads, -1.0)))
+    m, lid = busiest_interchip_link(plan)
     kw = dict(method="simulated_annealing", objective="comm_cost",
               budget=fr["budget"], deploy_budget=fr["deploy_budget"],
               migration_weight=fr["migration_weight"],
@@ -3291,8 +3319,18 @@ def _runtime_path(kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts(kernels)
-    off = run_scenario(cfg, hm, scenario, plan=plan, **kw)
-    identical = on.to_dict() == off.to_dict()
+    cut = dict(kw, budget=fr["budget"] // 16,
+               deploy_budget=fr["deploy_budget"] // 16,
+               cold_budget=fr["deploy_budget"] // 16)
+    t0 = time.perf_counter()
+    cut_plan = deploy_model(cfg, hm, method="simulated_annealing", seed=0,
+                            budget=cut["deploy_budget"], schedule="none")
+    # the cut deployment's own busiest link, so that the pair recovers
+    cut_scenario = f"steps=6;fault=link:{busiest_interchip_link(cut_plan)[1]}@2"
+    cut_on = run_scenario(cfg, hm, cut_scenario, recorder=Recorder(), **cut)
+    cut_off = run_scenario(cfg, hm, cut_scenario, plan=cut_plan, **cut)
+    cut_s = time.perf_counter() - t0
+    identical = cut_on.to_dict() == cut_off.to_dict()
     calls = rec.counters.get("noc_batch.dispatches", 0)
     print(f"[runtime] hier 2x2:4x4 S-VGG16, link {lid} dropped at step 2: "
           f"replacements {on.n_replacements}, cold fallbacks "
@@ -3302,11 +3340,17 @@ def _runtime_path(kernels):
           f"{deploy_s!r} s); {calls} scorer calls = {calls / wall!r} a "
           f"second; launches {launches}")
     print("[runtime] recoveries " + json.dumps(on.recoveries))
-    print(f"[runtime] result identical with the recorder on and off: "
-          f"{identical}")
+    print(f"[runtime] budgets / 16 ({cut['budget']}, deploy "
+          f"{cut['deploy_budget']}), {cut_scenario}: replacements "
+          f"{cut_on.n_replacements}, final objective "
+          f"{cut_on.final_objective!r}; result identical with the recorder "
+          f"on and off: {identical} ({cut_s!r} s for both and the "
+          f"deployment)")
     if not identical:
         raise AssertionError("run_scenario differs with the recorder on and "
                              "off on the card")
+    if cut_on.n_replacements < 1:
+        raise AssertionError("the recorder on/off pair made no replacement")
     obj = as_objective("comm_cost")
     final = degrade(hm, links=on.samples[-1]["faults"]["links"])
     host_final = obj.from_metrics(
@@ -4119,6 +4163,7 @@ def _child(flag: str, label: str):
                              f"{out.returncode}:\n{out.stderr[-3000:]}")
     print(f"[{label}] child process: exit 0 in "
           f"{time.perf_counter() - t0!r} s")
+    return out.stdout
 
 
 # ---- training on a device mesh: DeviceMesh/DTensor, EP, elastic restore ------
@@ -4496,6 +4541,265 @@ def _mesh_phase():
           f"process); card {card}")
 
 
+# ---- the mesh analysed without running it: cells, dry run, device order -------
+
+DRYRUN_TRAIN = dict(arch="internlm2-1.8b", batch=2, seq=4096)
+DRYRUN_FLOP_TOL = 1e-6
+# the dry run's cells at full width on the (16, 16) production mesh
+DRYRUN_CELLS = ("internlm2-1.8b", "qwen3-moe-30b-a3b")
+
+
+def _fake_world(n: int):
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def _dryrun_trace_vs_real(card):
+    """Phase 17a: the traced 2 x 4096 step of internlm2-1.8b against the
+    same step run on the card, both on a 1 x 1 mesh laid out by the cell's
+    shardings."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core.trace_analysis import (analyze_trace, dot_flops,
+                                                 flash_flops)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.models.specs import materialize, tree_map
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    run = DRYRUN_TRAIN
+    shape = ShapeSpec("train_2x4096", run["seq"], run["batch"], "train")
+
+    _fake_world(1)
+    try:
+        cell = build_cell(run["arch"], shape, make_test_mesh((1, 1)))
+        t0 = time.perf_counter()
+        trace, memory = cell.trace()
+        trace_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    st = analyze_trace(trace)
+    n_fwd = sum(op.base == "flash_attention" and flash_flops(op) > 0
+                for op in trace.ops)
+    n_bwd = sum(op.base == "flash_attention_backward" and flash_flops(op) > 0
+                for op in trace.ops)
+    dots = sum(dot_flops(op) for op in trace.ops)
+    coll = dict(st["collectives"], by_link=D.collective_links(trace))
+    roof = D.roofline_terms(st["flops"], st["bytes"], coll,
+                            cell.model_flops, 1)
+    print(f"[dryrun] (a) traced {run['arch']} {run['batch']} x {run['seq']} "
+          f"train step on a fake 1 x 1 mesh in {trace_s!r} s: "
+          f"{len(trace.ops)} ops, flash {n_fwd} forward / {n_bwd} backward, "
+          f"matrix-product FLOPs {dots!r}, all FLOPs {st['flops']!r}, bytes "
+          f"{st['bytes']!r}, predicted peak "
+          f"{memory['peak_bytes_per_device']} bytes, roofline {roof}")
+
+    if "RANK" not in os.environ:
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dev = init_distributed()
+    kernels = (fa.flash_attention_kernel, fa.flash_attention_backward_kernel)
+    try:
+        mesh = make_test_mesh((1, 1))
+        real = build_cell(run["arch"], shape, mesh)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p_specs, o_specs, b_specs = real.arg_specs
+        p_sh, _, b_sh = real.in_shardings
+        params = materialize(p_specs, gen, device=dev)
+        params = {k: v for k, v in params.items()}
+
+        def placed(tree, sh):
+            if isinstance(tree, dict):
+                return {k: placed(v, sh[k]) for k, v in tree.items()}
+            return R.distribute(tree, sh)
+        params = placed(params, p_sh)
+        opt = adamw_init(params, AdamWConfig(state_dtype="fp32"))
+        vocab = real.arg_specs[0]["embed"]["table"].shape[0]
+        batch = {k: R.distribute(torch.randint(0, vocab, s.shape,
+                                               generator=gen, device=dev),
+                                 b_sh[k]) for k, s in b_specs.items()}
+        real.step_fn(params, opt, batch)              # warm-up
+        torch.cuda.synchronize()
+        _reset_counts(kernels)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            real.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        launches = _counts(kernels)
+        flops = counter.get_total_flops()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        real.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    got = (launches["flash_attention_kernel"],
+           launches["flash_attention_backward_kernel"])
+    gap = abs(dots - flops) / flops
+    pred = memory["peak_bytes_per_device"]
+    print(f"[dryrun] (a) the real step on a one-rank NCCL 1 x 1 mesh: flash "
+          f"launches {got[0]} forward / {got[1]} backward (trace {n_fwd} / "
+          f"{n_bwd}); FlopCounterMode {flops} FLOPs vs the trace's matrix "
+          f"products {dots!r} (relative gap {gap!r}, tolerance "
+          f"{DRYRUN_FLOP_TOL}); peak {peak} bytes vs predicted {pred} "
+          f"({(pred - peak) / peak!r} relative); step wall {wall!r} s, "
+          f"ideal {roof['ideal_compute_s']!r} s: measured fraction "
+          f"{roof['ideal_compute_s'] / wall!r} vs roofline fraction "
+          f"{roof['roofline_fraction']!r} (dominant {roof['dominant']}); "
+          f"card {card}")
+    print("[dryrun] " + json.dumps({
+        "phase": "17a", "model": run["arch"], "batch": run["batch"],
+        "seq": run["seq"], "trace_s": trace_s, "trace_ops": len(trace.ops),
+        "flash_traced": [n_fwd, n_bwd], "flash_launched": list(got),
+        "trace_matmul_flops": dots, "flop_counter_flops": flops,
+        "flop_rel_gap": gap, "trace_flops": st["flops"],
+        "trace_bytes": st["bytes"], "predicted_peak_bytes": pred,
+        "measured_peak_bytes": peak, "memory": memory,
+        "model_flops": cell.model_flops, "step_wall_s": wall,
+        "measured_fraction": roof["ideal_compute_s"] / wall,
+        "roofline": roof}))
+    if got != (n_fwd, n_bwd):
+        raise AssertionError(f"dryrun: the trace's flash ops {n_fwd} / "
+                             f"{n_bwd} are not the real step's launches "
+                             f"{got}")
+    if gap > DRYRUN_FLOP_TOL:
+        raise AssertionError(f"dryrun: the trace's matrix-product FLOPs "
+                             f"depart from FlopCounterMode's by {gap!r}")
+    return {"flash_attention": got[0], "flash_attention_backward": got[1]}
+
+
+def _dryrun_production(card):
+    """Phase 17b: ``run_cell`` at full width on the (16, 16) fake world;
+    returns qwen3's traffic graph on the mesh (for 17c)."""
+    import tempfile
+    from repro_torch.core.gpu_adapter import traffic_from_trace
+    from repro_torch.launch import dryrun as D
+    graphs = {}
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    for arch in DRYRUN_CELLS:
+        rec = D.run_cell(arch, "train_4k", False, out_dir, on_trace=lambda
+                         tr, mesh, a=arch: graphs.__setitem__(
+                             a, traffic_from_trace(tr, mesh)))
+        if not rec["ok"]:
+            raise AssertionError(f"dryrun: {arch} x train_4k failed: "
+                                 f"{rec['error']}\n{rec['traceback']}")
+        r = rec["roofline"]
+        print(f"[dryrun] (b) {arch} x train_4k x pod (256 ranks, fsdp "
+              f"{rec['fsdp']}): trace {rec['trace_s']} s, {rec['n_trace_ops']}"
+              f" ops, total {rec['total_s']} s; dominant {r['dominant']}, "
+              f"roofline fraction {r['roofline_fraction']!r}, useful FLOPs "
+              f"ratio {r['useful_flops_ratio']!r}; card {card}")
+        print(D.compiled_summary(rec))
+        print("[dryrun] " + json.dumps({
+            "phase": "17b", "arch": arch, "shape": "train_4k",
+            "fsdp": rec["fsdp"], "trace_s": rec["trace_s"],
+            "total_s": rec["total_s"], "memory": rec["memory"],
+            "cost": rec["cost"], "roofline": r,
+            "collectives": {k: rec["collectives"][k] for k in
+                            ("operand_bytes", "wire_bytes", "n_ops",
+                             "by_link", "by_axis")}}))
+    return graphs["qwen3-moe-30b-a3b"]
+
+
+def _dryrun_device_order(card, graph):
+    """Phase 17c: qwen3's traffic on 256 GPUs of ``nvlink_cluster((4,
+    8))``: the rank order against the paper's SA, and the repair of a
+    scrambled order; the kernels' launches counted."""
+    import numpy as np
+    from repro_torch.core import gpu_adapter as G
+    from repro_torch.core.placement.population import (
+        simulated_annealing_population)
+    from repro_torch.kernels import delta_cost as delta_mod
+    from repro_torch.kernels import noc_segsum
+    kernels = (noc_segsum.link_traffic, noc_segsum.link_traffic_routes,
+               delta_mod.delta_cost, delta_mod.sa_chains)
+    noc = G.nvlink_cluster((4, 8))
+    ranks = G.gpu_cores(noc)
+    base = G.ici_cost(graph, noc, ranks)
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    order, res = G.optimize_device_order(graph, noc,
+                                         method="simulated_annealing",
+                                         budget=4000, seed=0, init=ranks)
+    sa_s = time.perf_counter() - t0
+    sa_launches = _counts(kernels)
+    # the device-resident SA: 64 chains, chain 0 from the rank order, in
+    # one sa_chains launch
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    _, dres = G.optimize_device_order(graph, noc,
+                                      method="simulated_annealing",
+                                      budget=4000, seed=0, backend="device",
+                                      restarts=64, init=ranks)
+    dev_s = time.perf_counter() - t0
+    dev_launches = _counts(kernels)
+    scrambled = np.random.default_rng(0).permutation(graph.n)
+    bad = float(G.ici_cost_batch(graph, noc, scrambled[None, :])[
+        "comm_cost"][0])
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    repaired = simulated_annealing_population(graph, noc, iters=1500,
+                                              pop_size=8, init=scrambled,
+                                              seed=1)
+    rep_s = time.perf_counter() - t0
+    rep_launches = _counts(kernels)
+    rep = noc.evaluate(graph, repaired).comm_cost
+    print(f"[dryrun] (c) qwen3-moe-30b-a3b train_4k traffic on "
+          f"nvlink_cluster((4, 8)), {noc.n_cores} GPUs: rank order "
+          f"comm_cost {base['comm_cost']!r}, SA from it (4000 steps, the "
+          f"card's scorer) {res.comm_cost!r} in {sa_s!r} s, launches "
+          f"{sa_launches}; the device SA (64 chains x 4000 steps) "
+          f"{dres.comm_cost!r} in {dev_s!r} s, launches {dev_launches}; "
+          f"scrambled {bad!r} -> repaired {rep!r} (pop SA 8 x 1500) in "
+          f"{rep_s!r} s, launches {rep_launches}; card {card}")
+    launches = {k: sa_launches[k] + dev_launches[k] + rep_launches[k]
+                for k in sa_launches}
+    print("[dryrun] " + json.dumps({
+        "phase": "17c", "rank_order_cost": float(base["comm_cost"]),
+        "sa_cost": float(res.comm_cost), "sa_s": sa_s,
+        "device_sa_cost": float(dres.comm_cost), "device_sa_s": dev_s,
+        "scrambled_cost": bad, "repaired_cost": float(rep),
+        "repair_s": rep_s, "sa_launches": sa_launches,
+        "device_sa_launches": dev_launches,
+        "repair_launches": rep_launches}))
+    if dev_launches["sa_chains"] != 1:
+        raise AssertionError(f"dryrun: the device SA made "
+                             f"{dev_launches['sa_chains']} sa_chains "
+                             f"launches, not 1")
+    if not (res.comm_cost <= base["comm_cost"]
+            and dres.comm_cost <= base["comm_cost"] and rep < bad):
+        raise AssertionError("dryrun: the device-order search made the "
+                             "order worse")
+    return launches
+
+
+def _dryrun_phase():
+    """Phase 17 (``--dryrun``, in a child process)."""
+    t0 = time.perf_counter()
+    card = _card_line()
+    # each kernel's launches in the runs phase 17 counts, by the kernels
+    # line's names: 17a's counted step and 17c's searches
+    launches = _dryrun_trace_vs_real(card)
+    graph = _dryrun_production(card)
+    launches.update(_dryrun_device_order(card, graph))
+    print("[dryrun-launches] " + json.dumps(launches))
+    print(f"[dryrun] phase 17 in {time.perf_counter() - t0!r} s (this "
+          f"process); card {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4515,6 +4819,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mesh"]:
         _mesh_phase()
+        return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        _dryrun_phase()
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -4867,6 +5174,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _child("--mesh", "mesh")
     print(f"[mesh] phase 16 in {time.perf_counter() - t0!r} s")
+
+    # ---- phase 17: the mesh analysed without running it -----------------------
+    t0 = time.perf_counter()
+    out = _child("--dryrun", "dryrun")
+    dry = json.loads(next(line for line in out.splitlines()
+                          if line.startswith("[dryrun-launches] "))
+                     .split(" ", 1)[1])
+    for row in rows:              # null: a kernel phase 17 did not count
+        row["dryrun_launches"] = dry.get(row["name"])
+    print(f"[dryrun] phase 17 in {time.perf_counter() - t0!r} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,17 @@ All-bfloat16 inputs run on the tensor cores up to a head dim of 128 (bf16
 products with float32 sums, P and dS rounded to bf16 as operands; on CUDA
 cores with float32 arithmetic past it), any other mix on float32 copies on
 CUDA cores (see the source note).
+
+Fake tensors (``torch._subclasses.fake_tensor``) of the card launch nothing
+and count nothing: each wrapper checks them as it would real ones and calls
+its custom op, ``torch.ops.repro_torch.flash_attention`` or
+``flash_attention_backward``, whose fake implementation only stands for the
+outputs it writes. A dispatch mode, such as the op-trace recorder of
+``core/trace_analysis.py``, sees the call as one op with its shapes. A fake
+tensor takes this route on any device: a torch built without CUDA cannot
+take gradients of fake CUDA tensors (autograd asks CUDA for a device guard
+and the process aborts), so the dry run there traces fake CPU tensors. Real
+CPU tensors always take the plain version.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import FLOATS, _build, working_dtype
 
@@ -213,6 +225,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's log-sum-exp; without it the kernels write nothing more. CPU
     tensors take the plain version."""
     tensors = tuple(t for t in (q, k, v, out, lse) if t is not None)
+    if any(is_fake(t) for t in tensors):
+        _check(q, k, v, window, out)
+        _check_lse(q, lse)
+        if out is None:
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        torch.ops.repro_torch.flash_attention(q, k, v, out, lse, causal,
+                                              window)
+        return out
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      out=out, lse=lse)
@@ -282,6 +302,13 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
     grads = (dq, dk, dv)
     tensors = tuple(t for t in (q, k, v, out, dout, lse) + grads
                     if t is not None)
+    if any(is_fake(t) for t in tensors):
+        _check_backward(q, k, v, out, dout, lse, window, grads)
+        res = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+               if g is None else g for g, t in zip(grads, (q, k, v))]
+        torch.ops.repro_torch.flash_attention_backward(
+            q, k, v, out, dout, lse, *res, causal, window)
+        return tuple(res)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
                                               causal=causal, window=window,
@@ -337,12 +364,49 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
 flash_attention_backward_kernel.launches = 0
 
 
+# The two kernels as custom ops, for fake tensors only (the wrappers above
+# launch real ones directly): one op each in a trace, writing the outputs
+# they are given.
+
+@torch.library.custom_op("repro_torch::flash_attention",
+                         mutates_args=("out", "lse"))
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor | None, causal: bool,
+              window: int | None) -> None:
+    flash_attention_kernel(q, k, v, causal=causal, window=window, out=out,
+                           lse=lse)
+
+
+@_flash_op.register_fake
+def _(q, k, v, out, lse, causal, window):
+    return None
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=("dq", "dk", "dv"))
+def _flash_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor,
+                       lse: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                       dv: torch.Tensor, causal: bool,
+                       window: int | None) -> None:
+    flash_attention_backward_kernel(q, k, v, out, dout, lse, causal=causal,
+                                    window=window, dq=dq, dk=dk, dv=dv)
+
+
+@_flash_backward_op.register_fake
+def _(q, k, v, out, dout, lse, dq, dk, dv, causal, window):
+    return None
+
+
 def visible_pairs(s: int, causal: bool = True,
                   window: int | None = None) -> int:
     """The (query, key) pairs the mask leaves visible in one ``S x S``
-    head: the work the attention must do, for its bound."""
-    i = torch.arange(s, dtype=torch.int64)
-    hi = i + 1 if causal else torch.full_like(i, s)
-    lo = (i - window + 1).clamp(min=0) if window is not None else \
-        torch.zeros_like(i)
-    return int((hi - lo).clamp(min=0).sum().item())
+    head: the work the attention must do, for its bound. Closed forms in
+    integers, so a fake mode leaves them alone."""
+    if window is None:
+        return s * (s + 1) // 2 if causal else s * s
+    m = min(window, s)
+    if causal:                   # row i sees min(i + 1, window) keys
+        return m * (m + 1) // 2 + (s - m) * m
+    n = s - m                    # row i sees s - max(i - window + 1, 0)
+    return m * s + n * (n + 1) // 2 + n * (window - 1)

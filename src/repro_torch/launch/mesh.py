@@ -48,7 +48,11 @@ def init_distributed(device=None) -> torch.device:
 
 
 def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """``cuda`` on an NCCL world, and on a world of the ``fake`` backend
+    (the dry run's) where torch has CUDA; else ``cpu``."""
+    backend = dist.get_backend()
+    return "cuda" if backend == "nccl" or (
+        backend == "fake" and torch.cuda.is_available()) else "cpu"
 
 
 def make_production_mesh(*, multi_pod: bool = False, placement=None,

@@ -27,6 +27,8 @@ from . import layers as L
 from .lm import _maybe_remat, _stack, chunked_ce
 from .lm import to_reference_params  # noqa: F401  (the same for both)
 from .specs import ParamSpec, load_reference, param, tree_map
+from ..sharding.rules import (activation_constraint, gather_params,
+                              settle_grad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,22 +125,33 @@ def _layers(stack, n: int):
     return [tree_map(lambda a: a[i], stack) for i in range(n)]
 
 
+def _embed(params, cfg: EncDecConfig, tokens):
+    """The decoder's token embeddings, batch-sharded on a mesh (the
+    vocab-sharded lookup's masked partial sum is reduced here)."""
+    return settle_grad(activation_constraint(
+        L.embed(gather_params(params["embed"]), tokens).to(cfg.dtype)))
+
+
 def encode(params, cfg: EncDecConfig, frames):
     """frames [B,S_enc,d] -> encoded [B,S_enc,d] (bidirectional)."""
     x = frames.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(x, p):
+        p = gather_params(p)
         h = L.rmsnorm(p["norm1"], x)
         q, k, v = _attn_qkv(p["attn"], h, positions, cfg)
         y = L.blockwise_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
                                   k_chunk=cfg.k_chunk)
-        x = x + torch.einsum("bshk,hkd->bsd", y, p["attn"]["wo"])
-        return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
+        x = x + activation_constraint(
+            torch.einsum("bshk,hkd->bsd", y, p["attn"]["wo"]))
+        return activation_constraint(
+            x + activation_constraint(L.mlp(p["mlp"],
+                                            L.rmsnorm(p["norm2"], x))))
 
     for p in _layers(params["enc"], cfg.n_enc_layers):
         x = _maybe_remat(lambda xx, p=p: layer(xx, p), cfg)(x)
-    return L.rmsnorm(params["enc_norm"], x)
+    return L.rmsnorm(gather_params(params["enc_norm"]), x)
 
 
 def _dec_layer(p, cfg: EncDecConfig, x, enc_out, positions, cache, pos):
@@ -148,12 +161,13 @@ def _dec_layer(p, cfg: EncDecConfig, x, enc_out, positions, cache, pos):
     projects ``enc_out``, and a prefill stores that projection in the
     cache (``prefill`` sizes ``xk``/``xv`` to the source first). Returns
     ``(x, cache)``."""
+    p = gather_params(p)
     self_cache = None if cache is None else {"k": cache["k"],
                                              "v": cache["v"]}
     h = L.rmsnorm(p["norm1"], x)
     y, _ = L.attention_block(p["self_attn"], h, positions, cfg, self_cache,
                              pos)
-    x = x + y
+    x = x + activation_constraint(y)
     # cross attention
     h = L.rmsnorm(p["norm_x"], x)
     q = torch.einsum("bsd,dhk->bshk", h, p["cross_attn"]["wq"])
@@ -167,26 +181,29 @@ def _dec_layer(p, cfg: EncDecConfig, x, enc_out, positions, cache, pos):
             cache["xv"].copy_(xv)
     y = L.blockwise_attention(q, xk, xv, causal=False, q_chunk=cfg.q_chunk,
                               k_chunk=cfg.k_chunk)
-    x = x + torch.einsum("bshk,hkd->bsd", y, p["cross_attn"]["wo"])
-    x = x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
+    x = x + activation_constraint(
+        torch.einsum("bshk,hkd->bsd", y, p["cross_attn"]["wo"]))
+    x = activation_constraint(
+        x + activation_constraint(L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))))
     return x, cache
 
 
 def decode_train_hidden(params, cfg: EncDecConfig, tokens, enc_out):
     """The decoder's final-normed hidden states ``[B, S, d]`` over the whole
     of ``tokens`` (teacher forcing)."""
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for p in _layers(params["dec"], cfg.n_dec_layers):
         x = _maybe_remat(
             lambda xx, ee, p=p: _dec_layer(p, cfg, xx, ee, positions, None,
                                            None)[0], cfg)(x, enc_out)
-    return L.rmsnorm(params["final_norm"], x)
+    return L.rmsnorm(gather_params(params["final_norm"]), x)
 
 
 def decode_train(params, cfg: EncDecConfig, tokens, enc_out):
     """Logits ``[B, S, V]`` over the whole of ``tokens``."""
-    return decode_train_hidden(params, cfg, tokens, enc_out) @ params["head"]
+    return (decode_train_hidden(params, cfg, tokens, enc_out)
+            @ gather_params(params["head"]))
 
 
 # ------------------------------------------------------------------- loss ----
@@ -198,8 +215,8 @@ def encdec_loss(params, cfg: EncDecConfig, frames, tokens, labels):
     enc_out = encode(params, cfg, frames)
     hidden = decode_train_hidden(params, cfg, tokens, enc_out)
     labels = torch.as_tensor(labels, device=hidden.device)
-    ce = chunked_ce(lambda h: h @ params["head"], hidden, labels,
-                    cfg.logit_chunk)
+    ce = chunked_ce(lambda h: h @ gather_params(params["head"]), hidden,
+                    labels, cfg.logit_chunk)
     zero = torch.zeros((), device=hidden.device)
     return ce, {"ce": ce, "aux": zero, "mtp": zero}
 
@@ -211,7 +228,7 @@ def _run_cached(params, cfg: EncDecConfig, cache, x, enc_out, positions,
     caches = _layers(cache["dec"], cfg.n_dec_layers)
     for p, c in zip(_layers(params["dec"], cfg.n_dec_layers), caches):
         x, _ = _dec_layer(p, cfg, x, enc_out, positions, c, pos)
-    return L.rmsnorm(params["final_norm"], x)
+    return L.rmsnorm(gather_params(params["final_norm"]), x)
 
 
 def prefill(params, cfg: EncDecConfig, frames, tokens, cache):
@@ -234,20 +251,20 @@ def prefill(params, cfg: EncDecConfig, frames, tokens, cache):
         if tuple(dec[name].shape) != shape:
             dec[name] = torch.zeros(shape, dtype=dec[name].dtype,
                                     device=dec[name].device)
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run_cached(params, cfg, cache, x, enc_out, positions, None)
-    return x[:, -1:] @ params["head"], cache
+    return x[:, -1:] @ gather_params(params["head"]), cache
 
 
 def decode_step(params, cfg: EncDecConfig, cache, tokens, pos: int):
     """One decode step. tokens [B,1]; pos: the current index (int).
     Returns ``(logits [B, 1, V], cache)``."""
     pos = int(pos)
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     x = _run_cached(params, cfg, cache, x, None, positions, pos)
-    return x @ params["head"], cache
+    return x @ gather_params(params["head"]), cache
 
 
 # --------------------------------------------------- reference parameters ----

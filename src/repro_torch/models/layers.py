@@ -38,10 +38,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
-from ..sharding.rules import kv_replicated_constraint
+from ..sharding.rules import kv_replicated_constraint, write_seq
 from .specs import param
 
 NEG_INF = -1e30
@@ -281,8 +282,9 @@ def _kernel_route(q, k, pos_offset: int, causal: bool,
     to take (the kernels carry the reference's custom VJP): ``Skv == S`` at
     ``pos_offset == 0``, causal with or without a window, or non-causal
     without one (then no mask depends on a position, so any such call is
-    the kernel's function)."""
-    return (q.device.type == "cuda" and pos_offset == 0
+    the kernel's function). Fake tensors take the same route, so that a
+    dry run's trace holds the kernels."""
+    return ((q.device.type == "cuda" or is_fake(q)) and pos_offset == 0
             and k.shape[1] == q.shape[1] and (causal or window is None))
 
 
@@ -436,6 +438,26 @@ def _sharded_attention(q, k, v, **kw):
     return DTensor.from_local(out, mesh, pl)
 
 
+def _sharded_decode(q, k_cache, v_cache, pos: int, window):
+    """:func:`decode_attention` of DTensors on each rank's local shard: the
+    batch (dim 0) and heads (dim 2) stay split where q and both caches
+    split them on the same mesh axis; anything else (a cache split over
+    its sequence) is gathered first. The output has q's local layout."""
+    mesh = q.device_mesh
+
+    def keep(i):
+        p = q.placements[i]
+        if p in (Shard(0), Shard(2)) and (k_cache.placements[i] == p
+                                          and v_cache.placements[i] == p):
+            return p
+        return Replicate()
+    pl = [keep(i) for i in range(mesh.ndim)]
+    ql, kl, vl = (t.redistribute(mesh, pl).to_local()
+                  for t in (q, k_cache, v_cache))
+    out = decode_attention(ql, kl, vl, pos, window=window)
+    return DTensor.from_local(out, mesh, pl)
+
+
 def decode_attention(q, k_cache, v_cache, pos: int, *,
                      window: int | None = None):
     """Single-step decode: q [B,1,H,D], caches [B,Smax,HKV,D], pos int.
@@ -443,8 +465,11 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     Attends to cache entries ``pos - window < j <= pos`` (the caller has
     already written the current token at ``pos``). The reference masks the
     rest of the cache with -1e30, whose softmax weights are exactly 0; the
-    port reads only the visible slice, which gives the same sums.
+    port reads only the visible slice, which gives the same sums. On
+    DTensors it runs on each rank's local shard (:func:`_sharded_decode`).
     """
+    if isinstance(q, DTensor):
+        return _sharded_decode(q, k_cache, v_cache, pos, window)
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     rep = h // hkv
@@ -480,14 +505,14 @@ def attention_block(p, x, positions, cfg, cache=None, pos=None):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and s == 1:
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        write_seq(cache["k"], pos, k)
+        write_seq(cache["v"], pos, v)
         out = decode_attention(q, cache["k"], cache["v"], pos,
                                window=cfg.window)
     else:
         if cache is not None:
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
+            write_seq(cache["k"], 0, k)
+            write_seq(cache["v"], 0, v)
         kk, vv = k, v
         q_chunk = cfg.q_chunk
         if getattr(cfg, "seq_shard_attn", False):

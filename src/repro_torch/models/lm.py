@@ -21,7 +21,9 @@ Entry points:
 Layers are rematerialised as ``cfg.remat`` says (``_maybe_remat``): ``full``
 checkpoints each layer, ``dots`` saves only the outputs of matrix products
 with no batch dimension (the reference's
-``dots_with_no_batch_dims_saveable``).
+``dots_with_no_batch_dims_saveable``). Every use of parameters goes through
+``sharding.rules.gather_params`` (ZeRO-3's gather under ``FSDP_RULES``, an
+identity otherwise), a layer's inside its rematerialised body.
 
 Ported: attention and MLA blocks with a dense (SwiGLU), MoE or no MLP,
 Mamba2 and xLSTM (mLSTM, sLSTM) blocks, and zamba2's hybrid shared
@@ -49,7 +51,7 @@ from .mla import MLAConfig, mla_block, mla_specs
 from .moe import MoEConfig, moe_apply, moe_specs
 from .specs import ParamSpec, load_reference, param, tree_map
 from ..sharding.rules import (activation_constraint, carry_context,
-                              unshard_dim)
+                              gather_params, settle_grad, unshard_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,19 +267,24 @@ def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
         y, new_cache = X.slstm_block(p["mix"], h, cfg.xlstm, cache)
     else:
         raise ValueError(seg.kind)
-    x = x + y
+    x = x + _constrain_batch(y)
     aux = None
     if seg.mlp == "dense":
-        x = x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
+        x = x + _constrain_batch(L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x)))
     elif seg.mlp == "moe":
         y, aux = moe_apply(p["mlp"], L.rmsnorm(p["norm2"], x), cfg.moe)
-        x = x + y
+        x = x + _constrain_batch(y)
     return _constrain_batch(x), aux, new_cache
 
 
 def _constrain_batch(x):
     """Pin the activations' batch sharding (an identity outside a mesh
-    context and on plain tensors)."""
+    context and on plain tensors). Applied to each sublayer's output before
+    the residual add too: a product contracted over heads or the MLP width
+    leaves a partial sum over ``model``, which is all-reduced there, as
+    Megatron's row-parallel layers do; left partial, DTensor carried it into
+    the next norm and gathered the next layer's products over the whole
+    batch."""
     return activation_constraint(x)
 
 
@@ -316,10 +323,12 @@ def _maybe_remat(fn, cfg: LMConfig):
 def _shared_block_fwd(p, cfg: LMConfig, x, emb, positions, cache, pos):
     """Zamba2 shared block: attention over concat(x, emb) + MLP, residual to
     x."""
+    p = gather_params(p)
     h = L.rmsnorm(p["norm1"], torch.cat([x, emb], dim=-1))
     y, _ = L.attention_block(p["attn"], h, positions, cfg, cache, pos)
-    x = x + y
-    return _constrain_batch(x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x)))
+    x = x + _constrain_batch(y)
+    return _constrain_batch(
+        x + _constrain_batch(L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))))
 
 
 def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
@@ -339,14 +348,15 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
         p_layer = tree_map(lambda a: a[li], p_stack)
         if cache is None:
             body = _maybe_remat(
-                lambda xx, pl=p_layer: _layer_fwd(pl, seg, cfg, xx,
-                                                  positions, None, pos)[:2],
+                lambda xx, pl=p_layer: _layer_fwd(gather_params(pl), seg,
+                                                  cfg, xx, positions, None,
+                                                  pos)[:2],
                 cfg)
             x, a = body(x)
         else:
             c_layer = tree_map(lambda a: a[li], cache)
-            x, a, _ = _layer_fwd(p_layer, seg, cfg, x, positions, c_layer,
-                                 pos)
+            x, a, _ = _layer_fwd(gather_params(p_layer), seg, cfg, x,
+                                 positions, c_layer, pos)
         if a is not None:
             aux = a if aux is None else aux + a
         if per and (li + 1) % per == 0:
@@ -364,16 +374,18 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
 
 
 def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds=None):
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    x = settle_grad(_constrain_batch(
+        L.embed(gather_params(params["embed"]), tokens).to(cfg.dtype)))
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
-    return _constrain_batch(x)
+        x = _constrain_batch(torch.cat([prefix_embeds.to(cfg.dtype), x],
+                                       dim=1))
+    return x
 
 
 def _head(params, cfg: LMConfig, x):
     table = (params["embed"]["table"].T if cfg.tie_embeddings
              else params["head"])
-    return x @ table
+    return x @ gather_params(table)
 
 
 def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
@@ -388,7 +400,7 @@ def forward(params, cfg: LMConfig, tokens, prefix_embeds=None,
                                  shared=params.get("shared"), emb=emb0)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rmsnorm(params["final_norm"], x)
+    x = L.rmsnorm(gather_params(params["final_norm"]), x)
     if return_hidden:
         return x, aux_total
     return _head(params, cfg, x), aux_total
@@ -407,7 +419,7 @@ def _run_cached(params, cfg: LMConfig, cache, x, positions, pos=None):
             shared_cache=cache.get("shared"))
     if "shared" in cache:
         new_cache["shared"] = cache["shared"]
-    return L.rmsnorm(params["final_norm"], x), new_cache
+    return L.rmsnorm(gather_params(params["final_norm"]), x), new_cache
 
 
 def prefill(params, cfg: LMConfig, tokens, cache, prefix_embeds=None):
@@ -488,8 +500,10 @@ def _mtp_loss(params, cfg: LMConfig, hidden, labels):
     """DeepSeek-V3 MTP (depth 1): predict token t+2 from ``(h_t,
     emb(t+1))`` through one attention (MLA) + dense layer, its CE unchunked
     as in the reference."""
-    p = params["mtp"]
-    emb_next = L.embed(params["embed"], labels.clamp(min=0)).to(cfg.dtype)
+    p = gather_params(params["mtp"])
+    emb_next = settle_grad(_constrain_batch(
+        L.embed(gather_params(params["embed"]),
+                labels.clamp(min=0)).to(cfg.dtype)))
     cat = torch.cat([L.rmsnorm(p["norm_h"], hidden),
                      L.rmsnorm(p["norm_e"], emb_next)], dim=-1)
     h = cat @ p["proj"]

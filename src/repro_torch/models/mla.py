@@ -11,7 +11,8 @@ r]``, ``kr [B, Smax, dr]``): per-head scores ``(q_nope W_uk) . c + q_rope .
 k_rope`` and values ``(p . c) W_uv``, in float32 as the reference computes
 them. Like ``layers.decode_attention``, the port reads only the visible
 cache rows ``[0, pos]``; the reference masks the rest with -1e30, whose
-softmax weights are exactly 0, so the sums are the same.
+softmax weights are exactly 0, so the sums are the same. On a mesh it runs
+on each rank's local shard, as ``layers.decode_attention`` does.
 
 Under ``seq_shard_attn`` K/V go through ``kv_replicated_constraint`` (inside
 a mesh context, the all-gather of sequence-parallel attention) and q keeps
@@ -23,10 +24,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .layers import apply_rope, blockwise_attention, rmsnorm, rmsnorm_specs
 from .specs import param
-from ..sharding.rules import kv_replicated_constraint
+from ..sharding.rules import kv_replicated_constraint, write_seq
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +81,8 @@ def mla_block(p, x, positions, cfg, cache=None, pos=None):
                     cfg.rope_theta)[:, :, 0, :]                 # [B,S,dr]
 
     if cache is not None and s == 1:
-        cache["ckv"][:, pos] = ckv[:, 0]
-        cache["kr"][:, pos] = kr[:, 0]
+        write_seq(cache["ckv"], pos, ckv)
+        write_seq(cache["kr"], pos, kr)
         out = _absorbed_decode(p, q_nope, q_rope, cache["ckv"], cache["kr"],
                                pos, m)
     else:
@@ -100,16 +102,51 @@ def mla_block(p, x, positions, cfg, cache=None, pos=None):
         out = blockwise_attention(q, k, v_pad, q_chunk=q_chunk,
                                   k_chunk=cfg.k_chunk)[..., : m.v_head_dim]
         if cache is not None:
-            cache["ckv"][:, :s] = ckv
-            cache["kr"][:, :s] = kr
+            write_seq(cache["ckv"], 0, ckv)
+            write_seq(cache["kr"], 0, kr)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return out, cache
+
+
+def _sharded_absorbed_decode(p, q_nope, q_rope, ckv, kr, pos: int,
+                             m: MLAConfig):
+    """:func:`_absorbed_decode` of DTensors on each rank's local shard, as
+    ``layers._sharded_decode`` does: the batch stays split where q and
+    both caches split it on one mesh axis, and the heads where q and
+    ``w_uk``/``w_uv`` split them; anything else (a cache split over its
+    sequence, heads a mesh axis does not divide) is gathered first. The
+    output has q's local layout."""
+    mesh = q_nope.device_mesh
+    w = {k: p[k] if isinstance(p[k], DTensor) else
+         DTensor.from_local(p[k], mesh, [Replicate()] * mesh.ndim)
+         for k in ("w_uk", "w_uv")}
+
+    def keep(i):
+        pq = q_nope.placements[i]
+        if pq == Shard(0) and all(t.placements[i] == Shard(0)
+                                  for t in (q_rope, ckv, kr)):
+            return pq
+        if pq == Shard(2) and q_rope.placements[i] == pq and all(
+                t.placements[i] == Shard(1) for t in w.values()):
+            return pq
+        return Replicate()
+    pl_q = [keep(i) for i in range(mesh.ndim)]
+    pl_c = [pq if pq == Shard(0) else Replicate() for pq in pl_q]
+    pl_w = [Shard(1) if pq == Shard(2) else Replicate() for pq in pl_q]
+    ql, rl = (t.redistribute(mesh, pl_q).to_local() for t in (q_nope, q_rope))
+    cl, kl = (t.redistribute(mesh, pl_c).to_local() for t in (ckv, kr))
+    wl = {k: t.redistribute(mesh, pl_w).to_local() for k, t in w.items()}
+    out = _absorbed_decode(wl, ql, rl, cl, kl, pos, m)
+    return DTensor.from_local(out, mesh, pl_q)
 
 
 def _absorbed_decode(p, q_nope, q_rope, ckv, kr, pos: int, m: MLAConfig):
     """Latent-cache decode. q_nope [B,1,H,dn], q_rope [B,1,H,dr], ckv
     [B,Smax,r], kr [B,Smax,dr] with the current token at ``pos`` -> out
-    [B,1,H,dv], over the cache rows [0, pos] in float32."""
+    [B,1,H,dv], over the cache rows [0, pos] in float32. On DTensors it
+    runs on each rank's local shard (:func:`_sharded_absorbed_decode`)."""
+    if isinstance(q_nope, DTensor):
+        return _sharded_absorbed_decode(p, q_nope, q_rope, ckv, kr, pos, m)
     scale = 1.0 / ((m.qk_nope_dim + m.qk_rope_dim) ** 0.5)
     # absorb W_uk into q: q_eff [B,H,r]
     q_eff = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])[:, 0]

@@ -72,6 +72,14 @@ def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)       # round up to 8
 
 
+def _counts(ids, e: int):
+    """How many of ``ids`` name each of ``e`` experts: ``torch.bincount(ids,
+    minlength=e)``, as a sum of integers into a tensor of static shape (a
+    fake tensor holds no ids to size bincount's result by)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _route(p, xf, cfg: MoEConfig):
     """Router: returns (top_p [T,k], top_ids [T,k], density [E],
     mean_prob [E]), all float32 but the ids."""
@@ -81,8 +89,7 @@ def _route(p, xf, cfg: MoEConfig):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_ids = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-    density = torch.bincount(top_ids.reshape(-1), minlength=e).float() / (
-        t * k)
+    density = _counts(top_ids.reshape(-1), e).float() / (t * k)
     return top_p, top_ids, density, probs.mean(dim=0)
 
 
@@ -96,7 +103,7 @@ def _dispatch(xf, top_ids, top_p, e: int, cap: int):
     order = torch.sort(flat_expert, stable=True).indices
     se, st, sg = flat_expert[order], flat_token[order], top_p.reshape(-1)[
         order]
-    counts = torch.bincount(se, minlength=e)
+    counts = _counts(se, e)
     offsets = torch.cumsum(counts, 0) - counts                  # exclusive
     pos = torch.arange(t * k, device=xf.device) - offsets[se]   # in expert
     keep = pos < cap
@@ -140,7 +147,8 @@ def moe_apply(p, x, cfg: MoEConfig):
     Single-device formulation. Under a mesh context with n_experts and the
     sequence divisible by the model axis, dispatch runs expert-parallel
     (``_moe_ep``): tokens stay on their rank, only the top-k activations
-    cross the model axis.
+    cross the model axis. Other DTensor inputs (a decode step's one token
+    a row) take ``_moe_gathered_tokens``.
     """
     mesh = context_mesh()
     if mesh is not None:
@@ -148,6 +156,8 @@ def moe_apply(p, x, cfg: MoEConfig):
         if (n_ep is not None and cfg.n_experts % n_ep == 0
                 and x.shape[1] % n_ep == 0):
             return _moe_ep(p, x, cfg, mesh)
+    if isinstance(x, DTensor):
+        return _moe_gathered_tokens(p, x, cfg)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -157,6 +167,44 @@ def moe_apply(p, x, cfg: MoEConfig):
     buf, meta = _dispatch(xf, top_ids, top_p, cfg.n_experts, cap)
     y = _expert_ffn(p, buf).reshape(cfg.n_experts * cap, d)
     out = _combine(y, meta, t, cfg.top_k, x.dtype).reshape(b, s, d)
+    if cfg.n_shared:
+        out = out + _shared_ffn(p, x)
+    return out, aux
+
+
+def _moe_gathered_tokens(p, x, cfg: MoEConfig):
+    """The single-device formulation on a mesh where the tokens do not
+    split for ``_moe_ep`` (a decode step's ``[B, 1, D]``): every rank
+    gathers all tokens and routes and dispatches them as one device does
+    (the same capacity, so the same drops), runs the experts of its own
+    shard where ``model`` divides them, and an all-gather over ``model``
+    brings every expert's output back for the combine. The result is
+    laid out as ``x``."""
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    t = b * s
+    rep = [Replicate()] * mesh.ndim
+    names = list(mesh.mesh_dim_names)
+    n_ep = _mesh_shape(mesh).get("model", 1)
+    split = cfg.n_experts % n_ep == 0
+    exp_pl = placements(mesh, ("model", None, None)) if split else rep
+    xf = _local(x, mesh, rep, rep).reshape(t, d)
+    pl = {"router": _local(p["router"], mesh, rep, rep)}
+    for k in ("w_gate", "w_up", "w_down"):
+        pl[k] = _local(p[k], mesh, exp_pl, exp_pl)
+    top_p, top_ids, density, mean_prob = _route(pl, xf, cfg)
+    aux = cfg.aux_loss_coef * cfg.n_experts * torch.sum(density * mean_prob)
+    cap = _capacity(t, cfg)
+    buf, meta = _dispatch(xf, top_ids, top_p, cfg.n_experts, cap)
+    if split:
+        e_loc = cfg.n_experts // n_ep
+        r = mesh.get_local_rank(names.index("model"))
+        buf = buf[r * e_loc:(r + 1) * e_loc]
+    y = DTensor.from_local(_expert_ffn(pl, buf), mesh, exp_pl)
+    y = y.full_tensor().reshape(cfg.n_experts * cap, d)
+    out = _combine(y, meta, t, cfg.top_k, x.dtype).reshape(b, s, d)
+    out = DTensor.from_local(out, mesh, rep).redistribute(mesh, x.placements)
+    aux = DTensor.from_local(aux, mesh, rep)
     if cfg.n_shared:
         out = out + _shared_ffn(p, x)
     return out, aux

@@ -28,6 +28,15 @@ context, plain tensors that meet DTensors (positions, masks, constants) count
 as replicated over the mesh (``implicit_replication``), as constants are
 under ``jit``.
 
+Under ``FSDP_RULES`` (ZeRO-3) the parameters are sharded on ``embed`` over
+the batch axes, and DTensor cannot propagate the attention projections'
+einsum over such weights. Inside ``set_context(..., fsdp=True)`` the models
+therefore take each layer's parameters through :func:`gather_params` where
+they slice it out of the stack, inside the rematerialised body, so that a
+recomputation gathers again: an all-gather over ``("pod", "data")`` to the
+``BASE_RULES`` layout, whose backward reduce-scatters the gradients back
+to the parameters' shards.
+
 The context is thread-local, as the reference's is. Autograd runs a CUDA
 backward on a thread of its own, and recomputes checkpointed code there, so
 checkpointed code is wrapped in :func:`carry_context`: it runs under the
@@ -227,6 +236,34 @@ def unshard_dim(x, dim: int):
     return x.redistribute(x.device_mesh, pl)
 
 
+def write_seq(cache, start: int, value):
+    """``cache[:, start:start + n] = value`` in place, ``n`` being
+    ``value.shape[1]``: a prompt's or a decode step's rows of a serving
+    cache ``[B, S, ...]``. On a DTensor cache each rank writes the rows of
+    its own shard (indexing a dim the mesh shards would write into a
+    gathered copy and lose the rows)."""
+    n = value.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, start:start + n] = value
+        return
+    mesh = cache.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim)
+    pl = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    v = value.redistribute(mesh, pl).to_local()
+    local = cache.to_local()
+    off, size = 0, cache.shape[1]    # this rank's rows: torch.chunk's split
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            chunk = -(-size // mesh.size(i))
+            off += coord[i] * chunk
+            size = max(0, min(chunk, size - coord[i] * chunk))
+    lo, hi = max(start, off), min(start + n, off + local.shape[1])
+    if lo < hi:
+        local[:, lo - off:hi - off] = v[:, lo - start:hi - start]
+
+
 def _constrain(x, spec):
     """``x`` redistributed to ``spec`` on its mesh (DTensors only)."""
     if not isinstance(x, DTensor):
@@ -235,6 +272,18 @@ def _constrain(x, spec):
     if tuple(x.placements) == pl:
         return x
     return x.redistribute(x.device_mesh, pl)
+
+
+def settle_grad(x):
+    """``x`` as it is; on a DTensor, its gradient is laid out as ``x`` is
+    (a partial sum reduced) before it flows further back. For the
+    vocab-sharded embedding lookup, whose masked partial sum cannot take a
+    partial-sum gradient."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = x.placements
+    return DTensor.from_local(x.to_local(grad_placements=pl), x.device_mesh,
+                              pl, run_check=False)
 
 
 def dim_constraint(x, axis: int, mesh_axis: str = "model"):
@@ -271,36 +320,65 @@ def _implicit_replication():
 
 def _state() -> tuple:
     return (getattr(_ctx, "mesh", None), getattr(_ctx, "seq_shard", False),
-            getattr(_ctx, "extra_dp", False))
+            getattr(_ctx, "extra_dp", False), getattr(_ctx, "fsdp", False))
 
 
 @contextlib.contextmanager
 def set_context(mesh, enabled: bool = True, seq_shard: bool = False,
-                extra_dp: bool = False):
+                extra_dp: bool = False, fsdp: bool = False):
     prev = _state()
     _ctx.mesh = mesh if enabled else None
     _ctx.seq_shard = seq_shard
     _ctx.extra_dp = extra_dp
+    _ctx.fsdp = fsdp
     try:
         with (_implicit_replication() if _ctx.mesh is not None
               else contextlib.nullcontext()):
             yield
     finally:
-        _ctx.mesh, _ctx.seq_shard, _ctx.extra_dp = prev
+        _ctx.mesh, _ctx.seq_shard, _ctx.extra_dp, _ctx.fsdp = prev
 
 
 def carry_context(fn):
     """``fn`` run under the caller's current context wherever it is called
     later (checkpointed code, which autograd recomputes on its own
     thread)."""
-    mesh, seq_shard, extra_dp = _state()
+    mesh, seq_shard, extra_dp, fsdp = _state()
     if mesh is None:
         return fn
 
     def run(*args, **kwargs):
-        with set_context(mesh, seq_shard=seq_shard, extra_dp=extra_dp):
+        with set_context(mesh, seq_shard=seq_shard, extra_dp=extra_dp,
+                         fsdp=fsdp):
             return fn(*args, **kwargs)
     return run
+
+
+def _gathered(t):
+    """A DTensor parameter with its shards over the batch axes gathered
+    (``FSDP_RULES`` -> ``BASE_RULES``: only ``embed`` differs, and no
+    parameter of the base layout is sharded over a batch axis)."""
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names
+    pl = [Replicate() if names[i] in BATCH_AXES and p.is_shard() else p
+          for i, p in enumerate(t.placements)]
+    if list(t.placements) == pl:
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+def gather_params(tree):
+    """ZeRO-3's gather: inside ``set_context(..., fsdp=True)``, every
+    DTensor leaf of ``tree`` (a parameter tensor or a dict of them) laid
+    out as ``BASE_RULES`` lays it out, an all-gather over ``("pod",
+    "data")`` whose backward is the gradients' reduce-scatter; elsewhere
+    ``tree`` as it is."""
+    if not getattr(_ctx, "fsdp", False):
+        return tree
+    if isinstance(tree, Mapping):
+        return {k: gather_params(v) for k, v in tree.items()}
+    return _gathered(tree)
 
 
 def context_mesh():

@@ -125,7 +125,9 @@ def test_contract_errors():
 
 @pytest.mark.parametrize("s,causal,window", [(1, True, None), (37, True, None),
                                              (37, True, 5), (64, False, 10),
-                                             (64, False, None)])
+                                             (64, False, None), (20, True, 64),
+                                             (20, False, 64), (33, False, 1),
+                                             (33, True, 1)])
 def test_visible_pairs_counts_the_mask(s, causal, window):
     i = np.arange(s)[:, None]
     j = np.arange(s)[None, :]

@@ -29,7 +29,10 @@ sys.path.insert(0, SRC)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh"} <= set(names)
+assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
+        "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+        "repro_torch.core.trace_analysis",
+        "repro_torch.core.gpu_adapter"} <= set(names)
 for name in names:
     __import__(name)
 sys.path.insert(0, ROOT)

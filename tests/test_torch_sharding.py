@@ -284,6 +284,9 @@ def _np(tree, prefix, out):
         out[prefix + "/" + "/".join(p.key for p in path)] = np.asarray(leaf)
 
 
+FSDP_CLIP = 0.5      # the FSDP step's global-norm clip; the norm exceeds it
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Inputs from the reference, the 8-rank gloo world's results (one
@@ -303,6 +306,7 @@ def world(tmp_path_factory):
         jax.random.PRNGKey(1), (8, 16), 0, cfg.vocab))
     inp["step/labels"] = np.asarray(jax.random.randint(
         jax.random.PRNGKey(2), (8, 16), 0, cfg.vocab))
+    inp["fsdp/clip"] = np.array(FSDP_CLIP)
     mcfg = r_moe.MoEConfig(n_experts=8, top_k=2, d_ff=32,
                            capacity_factor=4.0)
     _np(materialize(jax.random.PRNGKey(0),
@@ -351,6 +355,49 @@ def _inp_tree(inp, prefix):
     return out
 
 
+def _single_device_steps(inp, **adam):
+    """One AdamW step (``AdamWConfig(lr=1e-3, **adam)``) of internlm2's
+    smoke config on one device, the reference's and the port's: for each,
+    ``(params, grads, loss, m, v)``, the trees flat by path under
+    ``step/params``, ``step/grads``, ``m`` and ``v``."""
+    rcfg = r_reg.get_smoke_config("internlm2-1.8b")
+    pcfg = p_reg.get_smoke_config("internlm2-1.8b")
+    rparams = _inp_tree(inp, "params")
+    batch = {k: inp[f"step/{k}"] for k in ("tokens", "labels")}
+    rt = r_step.TrainConfig(adam=r_optim.AdamWConfig(lr=1e-3, **adam))
+    rstep = r_step.make_train_step(
+        lambda p, bt: r_lm.lm_loss(p, rcfg, bt["tokens"], bt["labels"]), rt)
+    rjp = jax.tree_util.tree_map(jnp.asarray, rparams)
+    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    r1, ropt, rm = jax.jit(rstep)(rjp, r_optim.adamw_init(rjp, rt.adam),
+                                  rbatch)
+    rg = jax.jit(jax.grad(lambda p: r_lm.lm_loss(
+        p, rcfg, rbatch["tokens"], rbatch["labels"])[0]))(rjp)
+    pt = p_step.TrainConfig(adam=p_optim.AdamWConfig(lr=1e-3, **adam))
+    pp = p_lm.from_reference_params(pcfg, rparams, device="cpu")
+    pb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    leaves = [t.requires_grad_() for _, t in p_specs.tree_leaves(pp)]
+    pg = torch.autograd.grad(
+        p_lm.lm_loss(pp, pcfg, pb["tokens"], pb["labels"])[0], leaves)
+    p1, popt, pm = p_step.make_train_step(
+        lambda p, bt: p_lm.lm_loss(p, pcfg, bt["tokens"], bt["labels"]),
+        pt)(pp, p_optim.adamw_init(pp, pt.adam), pb)
+
+    def named(prefix, tree):
+        return {"/".join((prefix,) + path): np.asarray(
+            t.detach() if isinstance(t, torch.Tensor) else t)
+            for path, t in p_specs.tree_leaves(tree)}
+    return {
+        "reference": (named("step/params", r1), named("step/grads", rg),
+                      float(rm["loss"]), named("m", ropt["m"]),
+                      named("v", ropt["v"])),
+        "port": (named("step/params", p1),
+                 {"/".join(("step/grads",) + path): g.numpy()
+                  for (path, _), g in zip(p_specs.tree_leaves(pp), pg)},
+                 float(pm["loss"]), named("m", popt["m"]),
+                 named("v", popt["v"]))}
+
+
 def test_sharded_train_step_matches_single_device(world):
     """2 x 4 mesh against the port's and the reference's single-device
     steps. The gradients the step took within 1e-5 of each gradient's
@@ -360,45 +407,11 @@ def test_sharded_train_step_matches_single_device(world):
     parameters within 2e-3 and loss within 1e-3; the moments carry the
     parameters' placements."""
     ranks = _case(world, "step")
-    inp = world["inputs"]
-    rcfg = r_reg.get_smoke_config("internlm2-1.8b")
-    pcfg = p_reg.get_smoke_config("internlm2-1.8b")
-    rparams = _inp_tree(inp, "params")
-    batch = {k: inp[f"step/{k}"] for k in ("tokens", "labels")}
-    rt = r_step.TrainConfig(adam=r_optim.AdamWConfig(lr=1e-3))
-    rstep = r_step.make_train_step(
-        lambda p, bt: r_lm.lm_loss(p, rcfg, bt["tokens"], bt["labels"]), rt)
-    rjp = jax.tree_util.tree_map(jnp.asarray, rparams)
-    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    r1, _, rm = jax.jit(rstep)(rjp, r_optim.adamw_init(rjp, rt.adam), rbatch)
-    rg = jax.jit(jax.grad(lambda p: r_lm.lm_loss(
-        p, rcfg, rbatch["tokens"], rbatch["labels"])[0]))(rjp)
-    pt = p_step.TrainConfig(adam=p_optim.AdamWConfig(lr=1e-3))
-    pp = p_lm.from_reference_params(pcfg, rparams, device="cpu")
-    pb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
-    leaves = [t.requires_grad_() for _, t in p_specs.tree_leaves(pp)]
-    pg = torch.autograd.grad(
-        p_lm.lm_loss(pp, pcfg, pb["tokens"], pb["labels"])[0], leaves)
-    p1, _, pm = p_step.make_train_step(
-        lambda p, bt: p_lm.lm_loss(p, pcfg, bt["tokens"], bt["labels"]),
-        pt)(pp, p_optim.adamw_init(pp, pt.adam), pb)
-
-    def named(prefix, leaves_of):
-        return {"/".join((prefix,) + path): np.asarray(t)
-                for path, t in leaves_of}
-    single = {
-        "reference": (named("step/params", p_specs.tree_leaves(r1)),
-                      named("step/grads", p_specs.tree_leaves(rg)),
-                      float(rm["loss"])),
-        "port": ({"/".join(("step/params",) + path): t.detach().numpy()
-                  for path, t in p_specs.tree_leaves(p1)},
-                 {"/".join(("step/grads",) + path): g.numpy()
-                  for (path, _), g in zip(p_specs.tree_leaves(pp), pg)},
-                 float(pm["loss"]))}
+    single = _single_device_steps(world["inputs"])
     for r, res in enumerate(ranks):
         assert str(res["step/opt_placements"][0]) == \
             "(Replicate(), Replicate())"
-        for who, (params, grads, loss) in single.items():
+        for who, (params, grads, loss, _, _) in single.items():
             assert len(grads) == len(params)
             ggap = max(float(np.abs(res[k] - g).max() / np.abs(g).max())
                        for k, g in grads.items())
@@ -409,6 +422,82 @@ def test_sharded_train_step_matches_single_device(world):
                   f"entry, MAXDIFF {gap:.3g} LOSSDIFF {lgap:.3g}")
             assert ggap < 1e-5
             assert gap < 2e-3 and lgap < 1e-3
+
+
+def test_fsdp_layout_trains_as_the_replicated_step(world):
+    """ZeRO-3 in the same world: the step of
+    ``test_sharded_train_step_matches_single_device`` with the parameters
+    laid out by ``FSDP_RULES`` (``embed`` over ``data``) and
+    ``set_context(..., fsdp=True)``, each layer's parameters gathered
+    where they are used. Its gradients within 1e-5 of each one's largest
+    entry, and its loss within 1e-6, of the replicated step's; the
+    gradients keep the parameters' shards. The update it made on the
+    sharded leaves (AdamW, global-norm clip ``FSDP_CLIP``, which the
+    gradients' norm exceeds twice over) against the same step on one device, the
+    port's and the reference's: each first and second moment within 1e-5
+    of its largest entry (they carry the clip's scale), the parameters
+    within the reference test's 2e-3."""
+    ranks = _case(world, "fsdp")
+    clip = FSDP_CLIP
+    single = _single_device_steps(world["inputs"], grad_clip=clip)
+    for who, (_, grads, _, _, _) in single.items():
+        norm = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                           for g in grads.values()))
+        assert norm > 2 * clip, (who, norm)
+    for r, res in enumerate(ranks):
+        assert [str(x) for x in res["fsdp/placements"]] == [
+            "(Shard(dim=1), Shard(dim=2))"] * 2
+        grads = [k for k in res if k.startswith("fsdp/grads/")]
+        assert len(grads) == len([k for k in res
+                                  if k.startswith("step/grads/")])
+        ggap = max(float(np.abs(res[k] - res[k.replace("fsdp/", "step/")])
+                         .max() / np.abs(res[k.replace("fsdp/", "step/")])
+                         .max()) for k in grads)
+        lgap = abs(float(res["fsdp/loss"]) - float(res["step/loss"]))
+        print(f"rank {r}: fsdp vs replicated GRADDIFF {ggap:.3g} of the "
+              f"largest entry, LOSSDIFF {lgap:.3g}")
+        assert ggap < 1e-5 and lgap < 1e-6
+        for who, (params, _, _, m, v) in single.items():
+            assert len(params) == len(grads) == len(m) == len(v)
+            mgap = max(float(np.abs(res["fsdp/" + k] - w).max()
+                             / np.abs(w).max())
+                       for k, w in list(m.items()) + list(v.items()))
+            gap = max(float(np.abs(res[k.replace("step/", "fsdp/")] - w)
+                            .max()) for k, w in params.items())
+            print(f"rank {r} fsdp vs {who}: MOMENTDIFF {mgap:.3g} of the "
+                  f"largest entry, MAXDIFF {gap:.3g}")
+            assert mgap < 1e-5 and gap < 2e-3
+
+
+@pytest.mark.parametrize("arch,kv,path,cache_pl", [
+    ("internlm2-1.8b", 2, "_sharded_decode", "(Shard(dim=1), Shard(dim=2))"),
+    ("internlm2-1.8b", 4, "_sharded_decode", "(Shard(dim=1), Shard(dim=3))"),
+    ("qwen3-moe-30b-a3b", None, "_moe_gathered_tokens", None),
+    ("minicpm3-4b", None, "_sharded_absorbed_decode", None),
+    ("zamba2-2.7b", None, "_sharded_decode", None)])
+def test_serving_on_the_mesh_matches_one_device(world, arch, kv, path,
+                                                cache_pl):
+    """``prefill`` of 8 tokens and one ``decode_step`` on the 2 x 4 mesh,
+    parameters and caches laid out by a serving cell's rules, against
+    the same calls on one device: the prefill's and the decode's logits
+    and every cache within 1e-5 of the largest entry. internlm2's caches
+    (stacked over layers) split over the sequence (2 kv heads) and over
+    heads (4); the decode went through the sharded path each family
+    has."""
+    ranks = _case(world, "decode")
+    key = f"decode/{arch}/{kv}"
+    names = ["_moe_gathered_tokens", "_sharded_absorbed_decode",
+             "_sharded_decode"]
+    for r, res in enumerate(ranks):
+        gaps = [float(res[f"{key}/{k}_gap"])
+                for k in ("prefill", "decode", "cache")]
+        ran = dict(zip(names, res[f"{key}/ran"].tolist()))
+        print(f"rank {r} {arch} kv {kv}: prefill, decode, cache gaps "
+              f"{gaps}, sharded paths {ran}")
+        assert max(gaps) < 1e-5
+        assert ran[path] > 0
+        if cache_pl is not None:
+            assert str(res[f"{key}/cache_placements"]) == cache_pl
 
 
 @pytest.mark.parametrize("kv,wk", [(2, "(Replicate(), Replicate())"),

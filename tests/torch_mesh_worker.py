@@ -94,6 +94,72 @@ def case_step(inp, out, mesh):
         [str(opt["m"]["embed"]["table"].placements)])
 
 
+def case_fsdp(inp, out, mesh):
+    """``case_step``'s step with the parameters laid out by ``FSDP_RULES``
+    (ZeRO-3: ``embed`` over ``data``) inside ``set_context(mesh,
+    fsdp=True)``, AdamW with the global-norm clip ``fsdp/clip``; its
+    loss, the gradients it took, the parameters and moments it left (full
+    tensors) are kept."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules as R
+    from repro_torch.train import step as S
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+
+    cfg = get_smoke_config("internlm2-1.8b")
+    params = lm.from_reference_params(cfg, _tree(inp, "params"),
+                                      device="cpu")
+    paths = [path for path, _ in S.tree_leaves(params)]
+    shardings = R.tree_shardings(mesh, lm.lm_specs(cfg), R.FSDP_RULES)
+    params = {path: R.distribute(t, _at(shardings, path))
+              for path, t in S.tree_leaves(params)}
+    params = _nest(params)
+    bsh = R.NamedSharding(mesh, R.batch_partition(mesh, 2))
+    batch = {k: R.distribute(torch.from_numpy(inp[f"step/{k}"]).long(), bsh)
+             for k in ("tokens", "labels")}
+    tcfg = S.TrainConfig(adam=AdamWConfig(
+        lr=1e-3, grad_clip=float(inp["fsdp/clip"])))
+    step = S.make_train_step(
+        lambda p, bt: lm.lm_loss(p, cfg, bt["tokens"], bt["labels"]), tcfg)
+    value_and_grad, taken = S._value_and_grad, []
+
+    def recorded(*a):
+        res = value_and_grad(*a)
+        taken.append(res[2])
+        return res
+    S._value_and_grad = recorded
+    try:
+        with R.set_context(mesh, fsdp=True):
+            p2, opt, m = step(params, adamw_init(params, tcfg.adam), batch)
+    finally:
+        S._value_and_grad = value_and_grad
+    out["fsdp/loss"] = m["loss"].numpy()
+    out.update({"/".join(("fsdp/grads",) + path): _full(g)
+                for path, g in zip(paths, taken[0])})
+    out.update(_flat(p2, "fsdp/params"))
+    out.update(_flat(opt["m"], "fsdp/m"))
+    out.update(_flat(opt["v"], "fsdp/v"))
+    out["fsdp/placements"] = np.array(
+        [str(params["seg0"]["attn"]["wq"].placements),
+         str(taken[0][paths.index(("seg0", "attn", "wq"))].placements)])
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _nest(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
 def case_sharded_params(inp, out, mesh):
     """Parameters laid out by ``BASE_RULES`` (tensor parallel over
     ``model``), two steps of AdamW with global-norm clipping, int8 moments
@@ -242,6 +308,91 @@ def case_families(inp, out, mesh):
             for a, b in zip(dgrads, grads)))
 
 
+def case_decode(inp, out, mesh):
+    """Serving on the mesh: a prompt of 8 through ``prefill``, then one
+    ``decode_step``, with parameters and caches laid out as a serving
+    cell lays them out (``launch.cells._pick_rules``), against the same
+    calls on one device. internlm2's smoke config with 2 kv heads (the
+    caches split over their sequence, gathered for attention) and with 4
+    (the caches split over heads, attention on each rank's own heads),
+    qwen3-moe (each decode token's MoE on gathered tokens) and minicpm3
+    (MLA's absorbed decode on local shards) and zamba2 (Mamba2's states
+    and the shared block's caches). Kept: each output's largest
+    gap over its largest entry, and how often each sharded path ran."""
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.cells import _pick_rules
+    from repro_torch.models import layers, lm, mla, moe
+    from repro_torch.models.specs import materialize, tree_leaves
+    from repro_torch.sharding import rules as R
+
+    def place(t, h):
+        return (R.distribute(t, h) if isinstance(h, R.NamedSharding)
+                else {k: place(t[k], h[k]) for k in t})
+
+    def gap_abs(a, b):
+        return float(np.abs(_full(a).astype(np.float64)
+                            - b.float().numpy()).max()
+                     / max(float(b.float().abs().max()), 1e-30))
+
+    ran = {}
+    paths = {(layers, "_sharded_decode"), (mla, "_sharded_absorbed_decode"),
+             (moe, "_moe_gathered_tokens")}
+    real = {name: getattr(mod, name) for mod, name in paths}
+
+    def counting(name):
+        def fn(*a, **kw):
+            ran[name] = ran.get(name, 0) + 1
+            return real[name](*a, **kw)
+        return fn
+    rng = np.random.default_rng(7)
+    cases = (("internlm2-1.8b", 2), ("internlm2-1.8b", 4),
+             ("qwen3-moe-30b-a3b", None), ("minicpm3-4b", None),
+             ("zamba2-2.7b", None))
+    try:
+        for mod, name in paths:
+            setattr(mod, name, counting(name))
+        for arch, kv in cases:
+            cfg = get_smoke_config(arch)
+            if kv is not None:
+                cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+            key = f"decode/{arch}/{kv}"
+            params = materialize(lm.lm_specs(cfg),
+                                 torch.Generator().manual_seed(0),
+                                 device="cpu")
+            c_specs = lm.cache_specs(cfg, 4, 16)
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8)))
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1)))
+            with torch.no_grad():
+                cache = materialize(c_specs, device="cpu")
+                want_p, cache = lm.prefill(params, cfg, prompt, cache)
+                want_d, cache = lm.decode_step(params, cfg, cache, nxt, 8)
+            rules = _pick_rules(cfg, mesh, False, "decode")
+            dparams = place(params, R.tree_shardings(
+                mesh, lm.lm_specs(cfg), rules))
+            c_sh = R.tree_shardings(mesh, c_specs, rules)
+            dcache = place(materialize(c_specs, device="cpu"), c_sh)
+            bsh = R.NamedSharding(mesh, R.batch_partition(mesh, 2))
+            ran.clear()
+            with torch.no_grad(), R.set_context(mesh):
+                got_p, dcache = lm.prefill(dparams, cfg,
+                                           R.distribute(prompt, bsh), dcache)
+                got_d, dcache = lm.decode_step(dparams, cfg, dcache,
+                                               R.distribute(nxt, bsh), 8)
+            out[f"{key}/prefill_gap"] = np.array(gap_abs(got_p, want_p))
+            out[f"{key}/decode_gap"] = np.array(gap_abs(got_d, want_d))
+            out[f"{key}/cache_gap"] = np.array(max(
+                gap_abs(a, b) for (_, a), (_, b) in
+                zip(tree_leaves(dcache), tree_leaves(cache))))
+            out[f"{key}/ran"] = np.array(
+                [ran.get(name, 0) for name in sorted(real)])
+            out[f"{key}/cache_placements"] = np.array(str(
+                dcache["seg0"][next(iter(dcache["seg0"]))].placements))
+    finally:
+        for mod, name in paths:
+            setattr(mod, name, real[name])
+
+
 def case_moe(inp, out, mesh):
     """MoE expert parallelism: forward and gradients of ``sum(y * ct) +
     aux``."""
@@ -355,9 +506,11 @@ def run(rank, d):
     inp = dict(np.load(os.path.join(d, "inputs.npz")))
     out = {}
     mesh = make_test_mesh((2, 4), ("data", "model"))
-    for name, case in (("step", case_step), ("tp", case_sharded_params),
+    for name, case in (("step", case_step), ("fsdp", case_fsdp),
+                       ("tp", case_sharded_params),
                        ("seq", case_seq_shard),
                        ("families", case_families),
+                       ("decode", case_decode),
                        ("moe", case_moe), ("batch", case_batches),
                        ("launch", case_launch)):
         try:
