@@ -285,16 +285,21 @@ Phases, each of which fails the run loudly:
     (``--dryrun``): (a) ``launch.cells.build_cell`` for internlm2-1.8b at
     full width, a 2 x 4096 train step on a 1 x 1 mesh of a one-rank world
     of the ``fake`` backend, traced on fake card tensors
-    (``Cell.trace``), then the same step for real on a one-rank NCCL
-    mesh, laid out alike: the trace's flash ops against the real step's
-    launch counts (equal), its matrix-product FLOPs against
+    (``Cell.trace``) unrolled and with its layers folded
+    (``models.loop``: three of 24 traced, the middle one counted 22
+    times), then the same step for real on a one-rank NCCL mesh, laid out
+    alike: the folded trace's flash ops, each times its count, against
+    the real step's launch counts (equal), its FLOPs against the unrolled
+    trace's (equal) and its matrix-product FLOPs against
     ``FlopCounterMode`` on the real step (within relative 1e-6), its
-    predicted peak against ``torch.cuda.max_memory_allocated`` and its
-    roofline fraction against the measured step wall (printed); (b)
-    ``launch.dryrun.run_cell`` at full width on a 256-rank fake world, the
-    ``(16, 16)`` production mesh, for internlm2-1.8b and
-    qwen3-moe-30b-a3b at ``train_4k`` (each record's summary and trace
-    seconds); (c) qwen3's traffic graph (``core.gpu_adapter.
+    predicted peak against ``torch.cuda.max_memory_allocated`` (within
+    ``DRYRUN_PEAK_TOL``) and its roofline fraction against the measured
+    step wall (printed); (b) ``launch.dryrun.run_cell`` at full width on a
+    256-rank fake world, the ``(16, 16)`` production mesh, for
+    internlm2-1.8b, qwen3-moe-30b-a3b, zamba2-2.7b and xlstm-125m at
+    ``train_4k``, folded (each record's summary, trace seconds on the
+    host's CPU, ops recorded and the unrolled count they stand for); (c)
+    qwen3's traffic graph (``core.gpu_adapter.
     traffic_from_trace``) on ``nvlink_cluster((4, 8))``, 256 GPUs: the
     rank order against ``optimize_device_order`` by simulated annealing
     with the card's scorer, and the repair of
@@ -4545,8 +4550,11 @@ def _mesh_phase():
 
 DRYRUN_TRAIN = dict(arch="internlm2-1.8b", batch=2, seq=4096)
 DRYRUN_FLOP_TOL = 1e-6
+# the folded trace's peak against the real step's
+DRYRUN_PEAK_TOL = 0.2
 # the dry run's cells at full width on the (16, 16) production mesh
-DRYRUN_CELLS = ("internlm2-1.8b", "qwen3-moe-30b-a3b")
+DRYRUN_CELLS = ("internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
+                "xlstm-125m")
 
 
 def _fake_world(n: int):
@@ -4577,27 +4585,36 @@ def _dryrun_trace_vs_real(card):
 
     _fake_world(1)
     try:
-        cell = build_cell(run["arch"], shape, make_test_mesh((1, 1)))
-        t0 = time.perf_counter()
-        trace, memory = cell.trace()
-        trace_s = time.perf_counter() - t0
+        traced = {}
+        for fold in (False, True):      # unrolled, then its layers folded
+            cell = build_cell(run["arch"], shape, make_test_mesh((1, 1)))
+            t0 = time.perf_counter()
+            traced[fold] = cell.trace(fold=fold) + (time.perf_counter()
+                                                    - t0,)
     finally:
         dist.destroy_process_group()
+    trace, memory, trace_s = traced[True]
     st = analyze_trace(trace)
-    n_fwd = sum(op.base == "flash_attention" and flash_flops(op) > 0
-                for op in trace.ops)
-    n_bwd = sum(op.base == "flash_attention_backward" and flash_flops(op) > 0
-                for op in trace.ops)
-    dots = sum(dot_flops(op) for op in trace.ops)
+    unrolled = analyze_trace(traced[False][0])
+    n_fwd = sum(op.count for op in trace.ops
+                if op.base == "flash_attention" and flash_flops(op) > 0)
+    n_bwd = sum(op.count for op in trace.ops
+                if op.base == "flash_attention_backward"
+                and flash_flops(op) > 0)
+    dots = sum(dot_flops(op) * op.count for op in trace.ops)
     coll = dict(st["collectives"], by_link=D.collective_links(trace))
     roof = D.roofline_terms(st["flops"], st["bytes"], coll,
                             cell.model_flops, 1)
     print(f"[dryrun] (a) traced {run['arch']} {run['batch']} x {run['seq']} "
-          f"train step on a fake 1 x 1 mesh in {trace_s!r} s: "
-          f"{len(trace.ops)} ops, flash {n_fwd} forward / {n_bwd} backward, "
-          f"matrix-product FLOPs {dots!r}, all FLOPs {st['flops']!r}, bytes "
-          f"{st['bytes']!r}, predicted peak "
-          f"{memory['peak_bytes_per_device']} bytes, roofline {roof}")
+          f"train step on a fake 1 x 1 mesh, layers folded, in {trace_s!r} "
+          f"s: {len(trace.ops)} ops recorded for {trace.n_unrolled}, flash "
+          f"{n_fwd} forward / {n_bwd} backward, matrix-product FLOPs "
+          f"{dots!r}, all FLOPs {st['flops']!r}, bytes {st['bytes']!r}, "
+          f"predicted peak {memory['peak_bytes_per_device']} bytes, roofline "
+          f"{roof}; unrolled in {traced[False][2]!r} s: "
+          f"{len(traced[False][0].ops)} ops, FLOPs {unrolled['flops']!r}, "
+          f"bytes {unrolled['bytes']!r}, predicted peak "
+          f"{traced[False][1]['peak_bytes_per_device']} bytes")
 
     if "RANK" not in os.environ:
         import socket
@@ -4663,6 +4680,13 @@ def _dryrun_trace_vs_real(card):
     print("[dryrun] " + json.dumps({
         "phase": "17a", "model": run["arch"], "batch": run["batch"],
         "seq": run["seq"], "trace_s": trace_s, "trace_ops": len(trace.ops),
+        "unrolled_ops": trace.n_unrolled,
+        "unrolled_trace_s": traced[False][2],
+        "unrolled_trace_ops": len(traced[False][0].ops),
+        "unrolled_flops": unrolled["flops"],
+        "unrolled_bytes": unrolled["bytes"],
+        "unrolled_peak_bytes":
+            traced[False][1]["peak_bytes_per_device"],
         "flash_traced": [n_fwd, n_bwd], "flash_launched": list(got),
         "trace_matmul_flops": dots, "flop_counter_flops": flops,
         "flop_rel_gap": gap, "trace_flops": st["flops"],
@@ -4678,6 +4702,14 @@ def _dryrun_trace_vs_real(card):
     if gap > DRYRUN_FLOP_TOL:
         raise AssertionError(f"dryrun: the trace's matrix-product FLOPs "
                              f"depart from FlopCounterMode's by {gap!r}")
+    if st["flops"] != unrolled["flops"]:
+        raise AssertionError(f"dryrun: the folded trace counts "
+                             f"{st['flops']!r} FLOPs, the unrolled "
+                             f"{unrolled['flops']!r}")
+    if abs(pred - peak) > DRYRUN_PEAK_TOL * peak:
+        raise AssertionError(f"dryrun: the folded trace's peak {pred} is "
+                             f"not within {DRYRUN_PEAK_TOL} of the real "
+                             f"step's {peak}")
     return {"flash_attention": got[0], "flash_attention_backward": got[1]}
 
 
@@ -4698,14 +4730,18 @@ def _dryrun_production(card):
                                  f"{rec['error']}\n{rec['traceback']}")
         r = rec["roofline"]
         print(f"[dryrun] (b) {arch} x train_4k x pod (256 ranks, fsdp "
-              f"{rec['fsdp']}): trace {rec['trace_s']} s, {rec['n_trace_ops']}"
-              f" ops, total {rec['total_s']} s; dominant {r['dominant']}, "
-              f"roofline fraction {r['roofline_fraction']!r}, useful FLOPs "
-              f"ratio {r['useful_flops_ratio']!r}; card {card}")
+              f"{rec['fsdp']}): trace {rec['trace_s']} s (host CPU), "
+              f"{rec['n_trace_ops']} ops recorded for "
+              f"{rec['n_unrolled_ops']}, total {rec['total_s']} s; dominant "
+              f"{r['dominant']}, roofline fraction "
+              f"{r['roofline_fraction']!r}, useful FLOPs ratio "
+              f"{r['useful_flops_ratio']!r}; card {card}")
         print(D.compiled_summary(rec))
         print("[dryrun] " + json.dumps({
             "phase": "17b", "arch": arch, "shape": "train_4k",
             "fsdp": rec["fsdp"], "trace_s": rec["trace_s"],
+            "n_trace_ops": rec["n_trace_ops"],
+            "n_unrolled_ops": rec["n_unrolled_ops"],
             "total_s": rec["total_s"], "memory": rec["memory"],
             "cost": rec["cost"], "roofline": r,
             "collectives": {k: rec["collectives"][k] for k in

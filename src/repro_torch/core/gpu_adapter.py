@@ -45,6 +45,7 @@ class CollectiveOp:
     group_size: int           # devices participating per group
     source_target_pairs: list | None = None
     group_ranks: tuple = ()   # the ranks of this device's group
+    count: int = 1            # runs of it in the step (a folded loop's)
 
     @property
     def operand_bytes(self) -> float:
@@ -86,7 +87,7 @@ def trace_collectives(trace) -> list:
             op.outputs
         out_b = sum(float(np.prod(d[0])) * d[2] for d in descs)
         out.append(CollectiveOp(a["kind"], out_b, a["group_size"], None,
-                                tuple(a["group_ranks"])))
+                                tuple(a["group_ranks"]), op.count))
     return out
 
 
@@ -97,13 +98,13 @@ def collective_bytes(trace) -> dict:
     for op in ops:
         d = by_kind.setdefault(op.kind, {"count": 0, "operand_bytes": 0.0,
                                          "wire_bytes": 0.0})
-        d["count"] += 1
-        d["operand_bytes"] += op.operand_bytes
-        d["wire_bytes"] += op.wire_bytes
+        d["count"] += op.count
+        d["operand_bytes"] += op.operand_bytes * op.count
+        d["wire_bytes"] += op.wire_bytes * op.count
     total_operand = sum(d["operand_bytes"] for d in by_kind.values())
     total_wire = sum(d["wire_bytes"] for d in by_kind.values())
     return {"by_kind": by_kind, "operand_bytes": total_operand,
-            "wire_bytes": total_wire, "n_ops": len(ops)}
+            "wire_bytes": total_wire, "n_ops": sum(op.count for op in ops)}
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +181,7 @@ def traffic_from_trace(trace, mesh) -> LogicalGraph:
         if axis is None:
             continue
         target = a2a_traffic if op.kind == "all-to-all" else axis_traffic
-        target[axis] = target.get(axis, 0.0) + op.wire_bytes
+        target[axis] = target.get(axis, 0.0) + op.wire_bytes * op.count
     return collective_traffic_graph(tuple(mesh.shape), axis_traffic,
                                     a2a_traffic)
 

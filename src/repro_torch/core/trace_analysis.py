@@ -33,8 +33,8 @@ fake tensors of another fake mode.
 * ``bytes``: each op's operand plus output bytes (eager execution: one
   kernel, one HBM round trip per op), skipping views, allocations and
   other ops that move no data (the reference's ``_SKIP_BYTES_OPS``);
-* ``n_dots``, and ``unknown_trip_whiles`` (always 0: an eager trace is
-  unrolled);
+* ``n_dots``, and ``unknown_trip_whiles`` (always 0: every loop's trip
+  count is known);
 * ``collectives``: ``by_kind`` (``count``, ``operand_bytes``,
   ``wire_bytes`` under the reference's kind names), totals and ``n_ops``,
   with the reference's ring model (``_collective_entry``) unchanged.
@@ -42,6 +42,27 @@ fake tensors of another fake mode.
 Every collective keeps the size and ranks of its process group, resolved
 from the op's group name, so that ``core.gpu_adapter.traffic_from_trace``
 can attribute it to the mesh dim it ran on.
+
+**Loops.** A recorder that folds (``fold=True``, on fake tensors) makes
+``models.loop.scan`` trace the first and the last iteration of each loop
+the models route through it, and one more that it counts for the ``n -
+2`` between them (``TraceOp.count``; nested loops multiply), as the
+reference's walker multiplies a ``while`` body by its trip count. Every
+figure above is summed over ops times their count. The backward of the
+traced iteration runs once too: each autograd node created inside a
+folded iteration is known by its sequence number, and every op run while
+autograd executes that node takes the iteration's count; a checkpointed
+body's recomputation takes the count of the call it repeats
+(``models.loop.recomputed``). The engine's accumulation of the gradients
+that every iteration sends to one tensor made outside the loop (a layer's
+slice of a stacked parameter, a chunk's slice of a sequence) runs once
+where the unrolled step runs it ``n - 1`` times more; the recorder adds
+those ``add`` ops (:meth:`TraceRecorder.fold`). Storages an iteration
+leaves alive count ``n`` times until they die (saved activations,
+per-step outputs; the carry too where autograd records it, since the
+unrolled step keeps every iteration's), so the peak stays that of the
+unrolled step. Without folding, or on real tensors, the loops run as
+they are.
 """
 from __future__ import annotations
 
@@ -53,6 +74,7 @@ import weakref
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -87,13 +109,16 @@ _WRITE_ONLY_OPS = {"new_zeros", "new_ones", "new_full", "zeros_like",
 @dataclasses.dataclass
 class TraceOp:
     """One recorded op: its name (``namespace.op.overload``), its tensor
-    inputs and outputs as ``(shape, dtype, itemsize)``, and ``attrs``: the
+    inputs and outputs as ``(shape, dtype, itemsize)``, ``attrs`` (the
     collective's ``kind``, ``group_size``, ``group_ranks`` and
-    ``group_name``; the flash kernel's ``causal`` and ``window``."""
+    ``group_name``; the flash kernel's ``causal`` and ``window``), and
+    ``count``: the times the unrolled step runs it (the trip counts of the
+    folded loops it ran in)."""
     name: str
     inputs: list
     outputs: list
     attrs: dict = dataclasses.field(default_factory=dict)
+    count: int = 1
 
     @property
     def base(self) -> str:
@@ -106,6 +131,11 @@ class Trace:
     storages alive at once."""
     ops: list
     peak_bytes: int = 0
+
+    @property
+    def n_unrolled(self) -> int:
+        """The ops the unrolled step runs (each op times its count)."""
+        return sum(op.count for op in self.ops)
 
 
 def _desc(t: torch.Tensor) -> tuple:
@@ -178,6 +208,56 @@ def _in_dtensor_bookkeeping() -> bool:
     return False
 
 
+_STRIDED_SIZES: dict = {}
+
+
+def _memoize_strided_shard_sizes(on: bool):
+    """While a recorder records, remember DTensor's
+    ``_StridedShard.local_shard_size_and_offset`` by its arguments: it
+    sizes a strided shard (a view merging dims sharded over different
+    mesh dims, as the batch over pod and data with a sequence or heads
+    over model) by splitting an index tensor of the dim's length in host
+    ops, each of which passes through the recorder, and the
+    ``(2, 16, 16)`` mesh's training cells ask for the same sizes many
+    times."""
+    from torch.distributed.tensor import placement_types as pt
+    cls = getattr(pt, "_StridedShard", None)
+    fn = getattr(cls, "local_shard_size_and_offset", None)
+    if fn is None:
+        return
+    orig = getattr(fn, "_uncached", None)
+    if not on:
+        if orig is not None:
+            cls.local_shard_size_and_offset = orig
+        return
+    if orig is not None:
+        return
+
+    def cached(self, *args, **kwargs):
+        try:
+            key = (self, args, tuple(sorted(kwargs.items())))
+            hash(key)
+        except TypeError:            # symbolic sizes
+            return fn(self, *args, **kwargs)
+        hit = _STRIDED_SIZES.get(key)
+        if hit is None:
+            hit = _STRIDED_SIZES[key] = fn(self, *args, **kwargs)
+        size, offset = hit
+        return size, list(offset) if isinstance(offset, list) else offset
+    cached._uncached = fn
+    cls.local_shard_size_and_offset = cached
+
+
+def _seq_peek() -> int:
+    """The sequence number autograd gives the next node it creates on this
+    thread."""
+    return torch._C._autograd._get_sequence_nr()
+
+
+def _in_backward() -> bool:
+    return torch._C._current_graph_task_id() != -1
+
+
 class TraceRecorder(TorchDispatchMode):
     """Records the local ops of one rank into ``self.ops``
     (:class:`TraceOp`), and the bytes of the tensor storages they create.
@@ -188,20 +268,47 @@ class TraceRecorder(TorchDispatchMode):
     propagation) run unrecorded. ``None``: real tensors, run as they
     are.
     ``track``: tensors alive when recording starts (the step's arguments,
-    local shards), counted in the live bytes until they die."""
+    local shards), counted in the live bytes until they die.
+    ``fold``: fold the loops of ``models.loop.scan`` (fake tensors
+    only): one iteration recorded, counted by the trip count."""
 
-    def __init__(self, fake_mode=None, track=()):
+    def __init__(self, fake_mode=None, track=(), fold: bool = False):
         super().__init__()
         self.fake_mode = fake_mode
+        self.folds = bool(fold) and fake_mode is not None
         self.ops: list = []
         self.live = 0
         self.peak = 0
         self._seen: dict = {}
+        self._mult = 1            # the trip counts of the folds entered
+        self._ranges: list = []   # (first, end, count) of node numbers
+        self._node_count: dict = {}
+        self._task_base: dict = {}
+        self._fresh: list = []    # storages made in each open fold
+        self._alias_count: dict = {}  # node number -> its loop's context
+        self._recompute: list = []  # (count, open folds) of a recompute
+        self._dispatching = 0     # inside __torch_dispatch__
+        self._paused = False
+        self._prev_folder = None
         for t in track:
             self._track(t)
 
     def trace(self) -> Trace:
         return Trace(self.ops, self.peak)
+
+    def __enter__(self):
+        from ..models import loop
+        self._prev_folder = loop._folder
+        if self.folds:
+            loop._folder = self
+        _memoize_strided_shard_sizes(True)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from ..models import loop
+        loop._folder = self._prev_folder
+        _memoize_strided_shard_sizes(False)
+        return super().__exit__(*exc)
 
     # -- storages -------------------------------------------------------
     def _track(self, t):
@@ -218,12 +325,163 @@ class TraceRecorder(TorchDispatchMode):
             return
         n = st.nbytes()
         self._seen[key] = n
+        if self._fresh:
+            self._fresh[-1].add(key)
         self.live += n
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key)
 
     def _free(self, key):
         self.live -= self._seen.pop(key, 0)
+
+    # -- folded loops ---------------------------------------------------
+    def fold(self, body, carry, n: int):
+        """``n`` steps of a ``models.loop.scan`` under this recorder:
+        ``body(carry)`` once, its ops (and their backward) counted ``n``
+        times. Returns the carry and the ``n`` per-step outputs.
+
+        Where autograd records, every tensor that enters the iteration's
+        graph from outside goes through an alias made at the loop's
+        boundary, and every tensor that leaves it (the carry, the per-step
+        outputs) through one made inside: aliases run no op in the
+        backward, and they make every gradient slot take its arrivals from
+        one side of the boundary only, so the engine's accumulations there
+        count what the unrolled step's do, but for one: a tensor from
+        outside takes the gradients of ``n`` iterations in the unrolled
+        step, ``n - 1`` accumulations more than the one traced, which the
+        recorder adds as ``add`` ops of the gradient's size in a backward
+        run outside the loop (:meth:`_external_alias`)."""
+        grad = torch.is_grad_enabled() and not _in_backward()
+        outer = self._mult
+        mode = None
+        if grad:
+            carry = self._alias_tree(carry)
+            first = _seq_peek()
+            mode = _AliasExternals(self, first, outer, n,
+                                   {id(t) for t in _tensors(carry)})
+        self._mult = outer * n
+        fresh: set = set()
+        self._fresh.append(fresh)
+        peak0, self.peak = self.peak, self.live
+        try:
+            if mode is None:
+                carry, y = body(carry)
+            else:
+                with mode:
+                    carry, y = body(carry)
+                carry, y = self._alias_tree(carry), self._alias_tree(y)
+        finally:
+            self._mult = outer
+            self._fresh.pop()
+            fold_peak = self.peak
+            self.peak = max(peak0, fold_peak)
+        if mode is not None:
+            self._ranges.append((first, _seq_peek(), outer * n))
+            self._node_count.clear()
+        # what the iteration left alive, n times; a carry autograd does not
+        # keep (no gradient to take) once
+        outs = {id(t.untyped_storage()) for t in _leaves(y)}
+        once = {id(t.untyped_storage()) for t in _leaves(
+            [t for t in _tensors(carry) if not t.requires_grad])} - outs
+        extra = 0
+        for key in fresh:
+            if key in self._seen and key not in once:
+                extra += self._seen[key] * (n - 1)
+                self._seen[key] *= n
+        self.live += extra
+        self.peak = max(self.peak, fold_peak + extra)
+        if self._fresh:
+            self._fresh[-1].update(fresh)
+        self._paused = True
+        try:
+            rest = _detached(y)
+        finally:
+            self._paused = False
+        return carry, [y] + [rest] * (n - 1)
+
+    def _alias(self, t):
+        """An alias of ``t`` (an autograd node that runs no op), made
+        unrecorded."""
+        self._paused = True
+        try:
+            return torch.ops.aten.alias(t)
+        finally:
+            self._paused = False
+
+    def _alias_tree(self, tree):
+        from torch.utils._pytree import tree_map
+        return tree_map(lambda t: self._alias(t) if isinstance(
+            t, torch.Tensor) and t.requires_grad else t, tree)
+
+    def _outside(self, count: int) -> bool:
+        """In a backward run where ``count`` (a loop's context) is: the
+        engine accumulates what every iteration sends."""
+        task = torch._C._current_graph_task_id()
+        return self._task_base.setdefault(task, self._mult) <= count
+
+    def _accumulations(self, grad, count: int):
+        """``count`` gradient accumulations of ``grad``'s size."""
+        if isinstance(grad, DTensor):
+            grad = grad._local_tensor
+        d = _desc(grad)
+        self.ops.append(TraceOp("aten.add.Tensor", [d, d], [d], {}, count))
+
+    def _external_alias(self, t, count: int, n: int):
+        """The alias through which a loop (context ``count``, ``n`` trips)
+        reads ``t``, made outside it: the unrolled step accumulates the
+        gradients of ``n`` iterations into ``t``'s, ``n - 1`` adds more
+        than the one iteration traced."""
+        a = self._alias(t)
+        self._alias_count[a.grad_fn._sequence_nr()] = count
+
+        def pre(grad_outputs):
+            g = grad_outputs[0]
+            if g is not None and self._outside(count):
+                self._accumulations(g, count * (n - 1))
+        a.grad_fn.register_prehook(pre)
+        return a
+
+    def recomputable(self, fn):
+        """``models.loop.recomputed``: ``fn`` whose recomputation (a call
+        in a backward) counts as the call it repeats."""
+        count = self._count()
+
+        def run(*args, **kwargs):
+            if not _in_backward():
+                return fn(*args, **kwargs)
+            self._recompute.append((count, self._mult))
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._recompute.pop()
+        return run
+
+    def _count(self) -> int:
+        """The count of an op dispatched now: the trip counts of the open
+        folds and, in a backward, of the folded iteration that made the
+        autograd node being run, or of the call a recomputation repeats (a
+        backward started inside a fold, as a microbatch's, counts that
+        fold's trips once)."""
+        if not _in_backward():
+            return self._mult
+        if self._recompute:
+            count, mult = self._recompute[-1]
+            return count * (self._mult // mult)
+        task = torch._C._current_graph_task_id()
+        base = self._task_base.setdefault(task, self._mult)
+        node = torch._C._current_autograd_node()
+        m = base
+        if node is not None and self._ranges:
+            m = max(m, self._node_mult(node._sequence_nr()))
+        return m * (self._mult // base)
+
+    def _node_mult(self, seq: int) -> int:
+        m = self._alias_count.get(seq) or self._node_count.get(seq)
+        if m is None:
+            m = max((c for lo, hi, c in self._ranges if lo <= seq < hi),
+                    default=1)
+            self._node_count[seq] = m
+        return m
 
     # -- dispatch -------------------------------------------------------
     def _foreign(self, tensors) -> bool:
@@ -234,7 +492,13 @@ class TraceRecorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
-        kwargs = kwargs or {}
+        self._dispatching += 1
+        try:
+            return self._dispatch(func, args, kwargs or {})
+        finally:
+            self._dispatching -= 1
+
+    def _dispatch(self, func, args, kwargs):
         ins = _tensors((args, kwargs))
         if self._foreign(ins) or _in_dtensor_bookkeeping():
             return func(*args, **kwargs)
@@ -243,6 +507,8 @@ class TraceRecorder(TorchDispatchMode):
         else:
             with self.fake_mode:
                 out = func(*args, **kwargs)
+        if self._paused:
+            return out
         outs = _tensors(out)
         base = func._schema.name.split("::")[-1]
         attrs = _collective_attrs(func, args) or {}
@@ -257,8 +523,68 @@ class TraceRecorder(TorchDispatchMode):
         for t in outs:
             self._track(t)
         self.ops.append(TraceOp(str(func), [_desc(t) for t in ins],
-                                [_desc(t) for t in outs], attrs))
+                                [_desc(t) for t in outs], attrs,
+                                self._count() if self.folds else 1))
         return out
+
+
+class _AliasExternals(TorchFunctionMode):
+    """Inside a folded iteration, each tensor made before it (a node
+    numbered below ``first``, or a leaf) that requires grad is read
+    through one alias (:meth:`TraceRecorder._external_alias`)."""
+
+    def __init__(self, rec, first: int, count: int, n: int, internal):
+        super().__init__()
+        self.rec, self.first, self.count, self.n = rec, first, count, n
+        self.internal = internal
+        self.aliases: dict = {}
+
+    def _sub(self, t):
+        if (not isinstance(t, torch.Tensor) or not t.requires_grad
+                or id(t) in self.internal):
+            return t
+        fn = t.grad_fn
+        if fn is not None and fn._sequence_nr() >= self.first:
+            return t
+        hit = self.aliases.get(id(t))
+        if hit is None:
+            hit = self.aliases[id(t)] = (t, self.rec._external_alias(
+                t, self.count, self.n))
+            self.internal.add(id(hit[1]))
+        return hit[1]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        # the recorder's own calls, below autograd (torch 2.11 routes the
+        # calls a dispatch mode makes through the torch-function modes),
+        # and ATen ops are left alone; autograd's entries take the tensors
+        # to differentiate as they are
+        if (self.rec._dispatching
+                or isinstance(func, (torch._ops.OpOverload,
+                                     torch._ops.OpOverloadPacket))
+                or func in _AUTOGRAD_ENTRIES or not torch.is_grad_enabled()
+                or _in_backward()):
+            return func(*args, **kwargs)
+        from torch.utils._pytree import tree_map
+        args, kwargs = tree_map(self._sub, (args, kwargs))
+        return func(*args, **kwargs)
+
+
+_AUTOGRAD_ENTRIES = {torch.autograd.grad, torch.autograd.backward,
+                     torch.Tensor.backward}
+
+
+def _leaves(tree) -> list:
+    """The local tensors of a pytree (a DTensor's shard)."""
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in _tensors(tree)]
+
+
+def _detached(tree):
+    """``tree`` with every tensor that requires grad detached."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
+                    and t.requires_grad else t, tree)
 
 
 # ---------------------------------------------------------------- costs ----
@@ -294,7 +620,8 @@ def flash_flops(op: TraceOp) -> float:
 
 def collective_entry(op: TraceOp) -> dict:
     """The reference's ``_collective_entry`` on a recorded collective:
-    ``{"count", "operand_bytes", "wire_bytes"}``, ring model."""
+    ``{"count", "operand_bytes", "wire_bytes"}``, ring model, for one run
+    of it (callers multiply by ``op.count``)."""
     kind = op.attrs["kind"]
     group = op.attrs["group_size"]
     g = max(group, 1)
@@ -343,17 +670,18 @@ def analyze_trace(trace) -> dict:
     n_dots = 0
     coll: dict = {}
     for op in ops:
+        c = op.count
         if "kind" in op.attrs:
             d = coll.setdefault(op.attrs["kind"], {"count": 0.0,
                                                    "operand_bytes": 0.0,
                                                    "wire_bytes": 0.0})
             for k, v in collective_entry(op).items():
-                d[k] += v
+                d[k] += v * c
         f = dot_flops(op)
         if f:
-            n_dots += 1
-        flops += f + flash_flops(op)
-        bytes_ += op_bytes(op)
+            n_dots += c
+        flops += (f + flash_flops(op)) * c
+        bytes_ += op_bytes(op) * c
     return {
         "flops": flops,
         "bytes": bytes_,

@@ -5,8 +5,10 @@ input shape) dry-run cell (``repro.launch.cells``).
 :meth:`Cell.trace` runs the step once on fake tensors (``FakeTensorMode``)
 laid out as DTensors over ``mesh``, under the op-trace recorder of
 ``core/trace_analysis.py``: **nothing is allocated anywhere**, so a 671B
-model's step is traced on a laptop. ``mesh`` is a DeviceMesh, usually over a
-world of the ``fake`` backend of the production mesh's size
+model's step is traced on a laptop. The models' loops are folded there
+(``models/loop.py``: a middle iteration traced once and counted for all
+but the first and last). ``mesh`` is a DeviceMesh, usually over a world
+of the ``fake`` backend of the production mesh's size
 (``launch/dryrun.py``). The tensors are fake tensors on the mesh's device:
 ``cuda`` where torch has CUDA; on a torch without it, CPU, since autograd
 there cannot take gradients of fake CUDA tensors. Either way the step takes
@@ -77,16 +79,19 @@ class Cell:
             return tuple(_fake_tree(s, sh, dev) for s, sh in
                          zip(self.arg_specs, self.in_shardings))
 
-    def trace(self):
-        """Run the step once on :attr:`args` under the recorder. Returns
-        ``(trace, memory)``: the :class:`..core.trace_analysis.Trace` of
-        this rank's ops, and the memory figures of the reference's
-        ``memory_analysis()`` in bytes of this rank's local tensors
-        (arguments, outputs, temporaries at the peak, outputs that are
-        arguments updated in place)."""
+    def trace(self, fold: bool = True):
+        """Run the step once on :attr:`args` under the recorder, its loops
+        folded (one iteration traced, counted by the trip count) unless
+        ``fold`` is False. Returns ``(trace, memory)``: the
+        :class:`..core.trace_analysis.Trace` of this rank's ops, and the
+        memory figures of the reference's ``memory_analysis()`` in bytes of
+        this rank's local tensors (arguments, outputs, temporaries at the
+        peak, outputs that are arguments updated in place). Call it once a
+        cell: the step updates :attr:`args` in place."""
         args = self.args
         arg_storages = _storages(args)
-        rec = TraceRecorder(self.fake_mode, track=_tensor_leaves(args))
+        rec = TraceRecorder(self.fake_mode, track=_tensor_leaves(args),
+                            fold=fold)
         with rec:
             out = self.step_fn(*args)
         trace = rec.trace()

@@ -60,8 +60,8 @@ def collective_links(trace) -> dict:
         if "kind" in op.attrs:
             e = collective_entry(op)
             d = out[link_of(op.attrs["group_ranks"])]
-            d["operand_bytes"] += e["operand_bytes"]
-            d["wire_bytes"] += e["wire_bytes"]
+            d["operand_bytes"] += e["operand_bytes"] * op.count
+            d["wire_bytes"] += e["wire_bytes"] * op.count
     return out
 
 
@@ -78,8 +78,9 @@ def collective_axes(trace, mesh) -> dict:
         name = "other" if d is None else mesh.mesh_dim_names[d]
         e = out.setdefault(name, {}).setdefault(
             op.attrs["kind"], {"count": 0, "operand_bytes": 0.0})
-        e["count"] += 1
-        e["operand_bytes"] += collective_entry(op)["operand_bytes"]
+        e["count"] += op.count
+        e["operand_bytes"] += (collective_entry(op)["operand_bytes"]
+                               * op.count)
     return out
 
 
@@ -128,6 +129,7 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
             "build_s": round(t1 - t0, 2),
             "trace_s": round(t2 - t1, 2),
             "n_trace_ops": len(trace.ops),
+            "n_unrolled_ops": trace.n_unrolled,
             "memory": memory,
             "cost": {"flops_per_device": flops_dev,
                      "bytes_per_device": bytes_dev,

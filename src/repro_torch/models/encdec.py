@@ -13,7 +13,7 @@ runs them causal (``layers.blockwise_attention``); cross-attention over a
 source of another length (decode's one-token query, a prompt shorter than
 the source) runs the reference's chunked algorithm. Layers are
 rematerialised as ``cfg.remat`` says, with ``lm._maybe_remat``; the
-reference's ``lax.scan`` over stacked layers is a Python loop. Caches are
+reference's ``lax.scan`` over stacked layers is ``loop.scan``. Caches are
 written in place and the same dicts are returned. As in the reference, the
 dtype and window attributes are class attributes, not fields.
 """
@@ -26,6 +26,7 @@ import torch
 from . import layers as L
 from .lm import _maybe_remat, _stack, chunked_ce
 from .lm import to_reference_params  # noqa: F401  (the same for both)
+from .loop import scan
 from .specs import ParamSpec, load_reference, param, tree_map
 from ..sharding.rules import (activation_constraint, gather_params,
                               settle_grad)
@@ -120,9 +121,9 @@ def _attn_qkv(p, x, positions, cfg: EncDecConfig, rope: bool = True):
     return q, k, v
 
 
-def _layers(stack, n: int):
-    """The ``n`` layers of a stacked parameter tree, one dict each."""
-    return [tree_map(lambda a: a[i], stack) for i in range(n)]
+def _layer(stack, i: int):
+    """Layer ``i`` of a stacked parameter (or cache) tree."""
+    return tree_map(lambda a: a[i], stack)
 
 
 def _embed(params, cfg: EncDecConfig, tokens):
@@ -149,8 +150,11 @@ def encode(params, cfg: EncDecConfig, frames):
             x + activation_constraint(L.mlp(p["mlp"],
                                             L.rmsnorm(p["norm2"], x))))
 
-    for p in _layers(params["enc"], cfg.n_enc_layers):
-        x = _maybe_remat(lambda xx, p=p: layer(xx, p), cfg)(x)
+    def step(x, i):
+        p = _layer(params["enc"], i)
+        return _maybe_remat(lambda xx: layer(xx, p), cfg)(x), None
+
+    x, _ = scan(step, x, cfg.n_enc_layers)
     return L.rmsnorm(gather_params(params["enc_norm"]), x)
 
 
@@ -193,10 +197,13 @@ def decode_train_hidden(params, cfg: EncDecConfig, tokens, enc_out):
     of ``tokens`` (teacher forcing)."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for p in _layers(params["dec"], cfg.n_dec_layers):
-        x = _maybe_remat(
-            lambda xx, ee, p=p: _dec_layer(p, cfg, xx, ee, positions, None,
-                                           None)[0], cfg)(x, enc_out)
+    def step(x, i):
+        p = _layer(params["dec"], i)
+        return _maybe_remat(
+            lambda xx, ee: _dec_layer(p, cfg, xx, ee, positions, None,
+                                      None)[0], cfg)(x, enc_out), None
+
+    x, _ = scan(step, x, cfg.n_dec_layers)
     return L.rmsnorm(gather_params(params["final_norm"]), x)
 
 
@@ -225,9 +232,11 @@ def encdec_loss(params, cfg: EncDecConfig, frames, tokens, labels):
 
 def _run_cached(params, cfg: EncDecConfig, cache, x, enc_out, positions,
                 pos):
-    caches = _layers(cache["dec"], cfg.n_dec_layers)
-    for p, c in zip(_layers(params["dec"], cfg.n_dec_layers), caches):
-        x, _ = _dec_layer(p, cfg, x, enc_out, positions, c, pos)
+    def step(x, i):
+        return _dec_layer(_layer(params["dec"], i), cfg, x, enc_out,
+                          positions, _layer(cache["dec"], i), pos)[0], None
+
+    x, _ = scan(step, x, cfg.n_dec_layers)
     return L.rmsnorm(gather_params(params["final_norm"]), x)
 
 

@@ -43,6 +43,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
 from ..sharding.rules import kv_replicated_constraint, write_seq
+from .loop import scan
 from .specs import param
 
 NEG_INF = -1e30
@@ -160,7 +161,9 @@ def _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal, k_chunk):
     m_run = torch.full((b, hkv, rep, cq), NEG_INF, device=q.device)
     l_run = torch.zeros(b, hkv, rep, cq, device=q.device)
     acc = torch.zeros(b, hkv, rep, cq, d, device=q.device)
-    for idx in range(skv // ck):
+
+    def step(carry, idx):
+        m_run, l_run, acc = carry
         k_blk = k[:, idx * ck:(idx + 1) * ck].float()
         v_blk = v[:, idx * ck:(idx + 1) * ck].float()
         kpos = kpos0 + idx * ck + torch.arange(ck, device=q.device)
@@ -172,7 +175,9 @@ def _flash_fwd_impl(q, k, v, qpos0, kpos0, window, causal, k_chunk):
         l_run = l_run * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p,
                                                     v_blk)
-        m_run = m_new
+        return (m_new, l_run, acc), None
+
+    (m_run, l_run, acc), _ = scan(step, (m_run, l_run, acc), skv // ck)
     l_safe = l_run.clamp_min(1e-30)
     out = acc / l_safe[..., None]
     lse = m_run + torch.log(l_safe)
@@ -199,20 +204,23 @@ def _flash_bwd(qpos0, kpos0, window, causal, k_chunk, res, dout):
     qpos = qpos0 + torch.arange(cq, device=q.device)
     delta = torch.einsum("bqgrd,bqgrd->bgrq", og, dog)    # rowsum(dO*O)
     dq = torch.zeros(b, cq, hkv, rep, d, device=q.device)
-    dks, dvs = [], []
-    for idx in range(skv // ck):
+
+    def step(dq, idx):
         k_blk = k[:, idx * ck:(idx + 1) * ck].float()
         v_blk = v[:, idx * ck:(idx + 1) * ck].float()
         kpos = kpos0 + idx * ck + torch.arange(ck, device=q.device)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_blk)
         s = _mask_scores(s * scale, qpos, kpos, window, causal)
         p = torch.exp(s - lse[..., None])                 # exact softmax
-        dvs.append(torch.einsum("bgrqk,bqgrd->bkgd", p, dog))
+        dv_blk = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
         dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v_blk)
         ds = p * (dp - delta[..., None]) * scale
         dq = dq + torch.einsum("bgrqk,bkgd->bqgrd", ds, k_blk)
-        dks.append(torch.einsum("bgrqk,bqgrd->bkgd", ds, qg))
-    dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+        return dq, (torch.einsum("bgrqk,bqgrd->bkgd", ds, qg), dv_blk)
+
+    dq, blocks = scan(step, dq, skv // ck)
+    dk = torch.cat([blk[0] for blk in blocks], dim=1)
+    dv = torch.cat([blk[1] for blk in blocks], dim=1)
     return (dq.reshape(b, cq, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

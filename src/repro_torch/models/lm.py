@@ -4,7 +4,8 @@ serving forward and the training loss.
 A model is a tuple of :class:`Segment`s (block kind, mlp kind, count).
 Consecutive layers of a segment share structure, so their parameters are
 stacked on a leading "layers" axis, as in the reference; the reference's
-``lax.scan`` over that axis is a Python loop here.
+``lax.scan`` over that axis is ``models.loop.scan`` here, a Python loop
+that a dry run's trace folds.
 
 Entry points:
 
@@ -47,6 +48,7 @@ from torch.utils import checkpoint as _ckpt
 from . import layers as L
 from . import mamba2 as M
 from . import xlstm as X
+from .loop import recomputed, scan
 from .mla import MLAConfig, mla_block, mla_specs
 from .moe import MoEConfig, moe_apply, moe_specs
 from .specs import ParamSpec, load_reference, param, tree_map
@@ -315,7 +317,7 @@ def _maybe_remat(fn, cfg: LMConfig):
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return _ckpt.checkpoint(carry_context(fn), *args,
+        return _ckpt.checkpoint(carry_context(recomputed(fn)), *args,
                                 use_reentrant=False, **kw)
     return remat
 
@@ -341,35 +343,50 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
     slice g of ``shared_cache`` and rematerialised on its own. Returns
     ``(x, aux, cache)``, aux the sum of the layers' auxiliary losses (None
     where no layer has one); each layer and application writes its slice
-    of the stacked caches in place."""
+    of the stacked caches in place.
+
+    The layers go through ``models.loop.scan`` (the reference's
+    ``lax.scan``), one period a step: ``hybrid_period`` layers (a loop of
+    their own) and the shared block in a hybrid segment, else one layer;
+    layers past the last whole period run after it."""
     per = cfg.hybrid_period if seg.kind == "mamba2" else 0
-    aux = None
-    for li in range(seg.count):
+    k = per or 1
+
+    def layer(x, li):
         p_layer = tree_map(lambda a: a[li], p_stack)
         if cache is None:
             body = _maybe_remat(
-                lambda xx, pl=p_layer: _layer_fwd(gather_params(pl), seg,
-                                                  cfg, xx, positions, None,
-                                                  pos)[:2],
-                cfg)
-            x, a = body(x)
-        else:
-            c_layer = tree_map(lambda a: a[li], cache)
-            x, a, _ = _layer_fwd(gather_params(p_layer), seg, cfg, x,
-                                 positions, c_layer, pos)
+                lambda xx: _layer_fwd(gather_params(p_layer), seg, cfg, xx,
+                                      positions, None, pos)[:2], cfg)
+            return body(x)
+        c_layer = tree_map(lambda a: a[li], cache)
+        x, a, _ = _layer_fwd(gather_params(p_layer), seg, cfg, x, positions,
+                             c_layer, pos)
+        return x, a
+
+    def period(x, g):
+        x, auxes = scan(lambda xx, j: layer(xx, g * k + j), x, k)
+        if per and cache is None:
+            x = _maybe_remat(
+                lambda xx, ee: _shared_block_fwd(shared, cfg, xx, ee,
+                                                 positions, None, pos),
+                cfg)(x, emb)
+        elif per:
+            x = _shared_block_fwd(shared, cfg, x, emb, positions,
+                                  tree_map(lambda a: a[g], shared_cache),
+                                  pos)
+        return x, auxes
+
+    n = seg.count // k
+    x, ys = scan(period, x, n)
+    auxes = [a for y in ys for a in y]
+    for li in range(n * k, seg.count):
+        x, a = layer(x, li)
+        auxes.append(a)
+    aux = None
+    for a in auxes:
         if a is not None:
             aux = a if aux is None else aux + a
-        if per and (li + 1) % per == 0:
-            g = li // per
-            if cache is None:
-                x = _maybe_remat(
-                    lambda xx, ee: _shared_block_fwd(shared, cfg, xx, ee,
-                                                     positions, None, pos),
-                    cfg)(x, emb)
-            else:
-                x = _shared_block_fwd(shared, cfg, x, emb, positions,
-                                      tree_map(lambda a: a[g], shared_cache),
-                                      pos)
     return x, aux, cache
 
 
@@ -469,12 +486,15 @@ def chunked_ce(head, hidden, labels, chunk: int):
         return _token_ce(head(hidden), labels)
     tot = torch.zeros((), device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
-    for i in range(hidden.shape[1] // chunk):
+
+    def step(carry, i):
         s, n = _ckpt.checkpoint(
-            carry_context(lambda h, lab: _ce_sum(head(h), lab)),
+            carry_context(recomputed(lambda h, lab: _ce_sum(head(h), lab))),
             hidden[:, i * chunk:(i + 1) * chunk],
             labels[:, i * chunk:(i + 1) * chunk], use_reentrant=False)
-        tot, cnt = tot + s, cnt + n
+        return (carry[0] + s, carry[1] + n), None
+
+    (tot, cnt), _ = scan(step, (tot, cnt), hidden.shape[1] // chunk)
     return tot / cnt.clamp(min=1)
 
 

@@ -18,10 +18,12 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .layers import rmsnorm_specs
+from .loop import scan
 from .specs import param
-from ..sharding.rules import dim_constraint
+from ..sharding.rules import on_local_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +85,11 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     b  [B,S,G,N]   input maps;  c [B,S,G,N] output maps; G divides H
     Returns (y [B,S,H,P] float32, h_final [B,H,P,N] float32).
 
-    Inside a mesh context the heads axis is pinned to the mesh's model axis
-    (``dim_constraint``), as in the reference.
+    On DTensors the scan runs on each rank's local shard, the heads on the
+    mesh's model axis (:func:`_sharded_ssd`).
     """
+    if isinstance(x, DTensor):
+        return _sharded_ssd(x, dt, a, b, c, chunk, h0)
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -95,12 +99,10 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
                          f"multiple of the chunk {l}")
     nc = s // l
 
-    xc = dim_constraint(x.reshape(bsz, nc, l, h, p), 3)   # heads -> model
-    dtc = dim_constraint(dt.reshape(bsz, nc, l, h), 3)
-    bh = dim_constraint(
-        b.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3), 3)
-    ch = dim_constraint(
-        c.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3), 3)
+    xc = x.reshape(bsz, nc, l, h, p)
+    dtc = dt.reshape(bsz, nc, l, h)
+    bh = b.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3)
+    ch = c.reshape(bsz, nc, l, g, n).repeat_interleave(rep, dim=3)
 
     adt = dtc * a                                          # [B,nc,L,H]
     a_cum = torch.cumsum(adt, dim=2)
@@ -121,10 +123,11 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     chunk_decay = torch.exp(a_cum[:, :, -1, :])           # [B,nc,H]
     h_prev = (torch.zeros(bsz, h, p, n, device=x.device) if h0 is None
               else h0)
-    before = []
-    for ci in range(nc):
-        before.append(h_prev)
-        h_prev = h_prev * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    def step(h_prev, ci):
+        return (h_prev * chunk_decay[:, ci, :, None, None] + states[:, ci],
+                h_prev)
+
+    h_prev, before = scan(step, h_prev, nc)
     h_before = torch.stack(before, dim=1)                 # [B,nc,H,P,N]
 
     # contribution of the carried state: exp(a_cum_i) C_i . H_prev
@@ -135,9 +138,35 @@ def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None):
     return y, h_prev
 
 
+def _sharded_ssd(x, dt, a, b, c, chunk: int, h0=None):
+    """:func:`ssd_chunked` of DTensors on each rank's local shards
+    (``sharding.rules.on_local_shards``): the scan is independent over
+    batch rows and heads, which go on the model axis where they divide
+    it, as the reference pins them (its ``dim_constraint``, which would
+    gather the batch here). ``b``/``c`` are repeated to one map a head
+    first, as the reference does. DTensor's own einsums over the chunked
+    layout merge sharded dims into strided shards, whose bookkeeping and
+    reshuffles cost seconds an op at 4096 tokens."""
+    h, g = x.shape[2], b.shape[2]
+    b, c = (t.repeat_interleave(h // g, dim=2) for t in (b, c))
+    return on_local_shards(
+        lambda *t: ssd_chunked(*t[:5], chunk, t[5]),
+        (x, dt, a, b, c, h0),
+        ((0, 2), (0, 2), (None, 0), (0, 2), (0, 2), (0, 1)),
+        ((0, 2), (0, 1)), h)
+
+
 def ssd_step(h, x, dt, a, b, c):
     """Single decode step. h [B,H,P,N]; x [B,H,P]; dt [B,H]; b/c [B,G,N].
-    Returns (h_new float32, y [B,H,P] float32)."""
+    Returns (h_new float32, y [B,H,P] float32). On DTensors it runs on each
+    rank's local shards, as :func:`ssd_chunked` does."""
+    if isinstance(x, DTensor):
+        heads, g = x.shape[1], b.shape[1]
+        b, c = (t.repeat_interleave(heads // g, dim=1) for t in (b, c))
+        return on_local_shards(
+            lambda x, h, *rest: ssd_step(h, x, *rest), (x, h, dt, a, b, c),
+            ((0, 1), (0, 1), (0, 1), (None, 0), (0, 1), (0, 1)),
+            ((0, 1), (0, 1)), heads)
     g = b.shape[1]
     rep = h.shape[1] // g
     bh = b.repeat_interleave(rep, dim=1)                  # [B,H,N]
@@ -153,6 +182,16 @@ def _causal_conv(x, w, b, conv_state=None, return_state=False):
     """Depthwise causal conv. x [B,S,C], w [K,C]. If conv_state [B,K-1,C] is
     given (decode, S==1) uses it and returns the next window;
     ``return_state`` also returns the trailing window during prefill."""
+    if isinstance(x, DTensor):
+        # depthwise over channels, causal over positions: each rank's own
+        # rows and channels (DTensor's pad lays out a shard wrongly in
+        # torch 2.11)
+        outs = on_local_shards(
+            lambda *t: tuple(o for o in _causal_conv(*t, return_state)
+                             if o is not None),
+            (x, w, b, conv_state), ((0, 2), (None, 1), (None, 0), (0, 2)),
+            ((0, 2), (0, 2)), x.shape[2])
+        return outs[0], (outs[1] if len(outs) > 1 else None)
     k = w.shape[0]
     if conv_state is not None and x.shape[1] == 1:
         window = torch.cat([conv_state, x], dim=1)        # [B,K,C]

@@ -2,7 +2,7 @@
 (scalar memory, recurrent mixing).
 
 Both cells are the exact stabilised recurrences of the xLSTM formulation.
-The reference's ``lax.scan`` over time is a Python loop here, in chunks:
+The reference's ``lax.scan`` over time is ``loop.scan`` here, in chunks:
 each chunk's body runs under ``torch.utils.checkpoint`` while autograd
 records (the reference's ``jax.checkpoint``, whatever ``cfg.remat`` says),
 so only chunk-boundary states are saved for the backward. Decode carries
@@ -18,11 +18,15 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import checkpoint as _ckpt
 
 from .layers import rmsnorm_specs
+from .loop import recomputed, scan
 from .specs import param
-from ..sharding.rules import carry_context, local_pointwise
+from ..sharding.rules import (carry_context, local_pointwise,
+                              model_axis_splits, on_local_shards,
+                              settle_grad)
 
 NEG = -1e30
 
@@ -36,18 +40,15 @@ class XLSTMConfig:
 
 
 def _chunked(body, state, n_chunks: int):
-    """``state, out_i = body(state, i)`` over chunks ``i``, each under
-    non-reentrant checkpoint while autograd records. Returns ``(state,
-    [out_i])``."""
-    outs = []
-    for i in range(n_chunks):
+    """``state, out_i = body(state, i)`` over chunks ``i`` (``loop.scan``),
+    each under non-reentrant checkpoint while autograd records. Returns
+    ``(state, [out_i])``."""
+    def chunk(st, i):
         if torch.is_grad_enabled():
-            state, out = _ckpt.checkpoint(carry_context(body), state, i,
-                                          use_reentrant=False)
-        else:
-            state, out = body(state, i)
-        outs.append(out)
-    return state, outs
+            return _ckpt.checkpoint(carry_context(recomputed(body)), st, i,
+                                    use_reentrant=False)
+        return body(st, i)
+    return scan(chunk, state, n_chunks)
 
 
 def _chunk_len(s: int, chunk: int) -> int:
@@ -56,9 +57,16 @@ def _chunk_len(s: int, chunk: int) -> int:
 
 
 def _head_norm(h_seq, scale, shape, dtype):
+    """Per-head RMSNorm of ``h_seq [B, S, H, dh]``, flattened to ``shape``
+    ``[B, S, H * dh]``. On a DTensor the flat output's gradient is laid out
+    as the output is (``settle_grad``) before the flattening's backward
+    splits the heads again: the next product's backward may shard that
+    gradient's flat dim over more ranks than there are heads (4 heads, a
+    model axis of 16), which a head split cannot take."""
     hn = h_seq.float()
     var = hn.square().mean(dim=-1, keepdim=True)
-    return (hn * torch.rsqrt(var + 1e-5) * scale).reshape(shape).to(dtype)
+    return settle_grad(
+        (hn * torch.rsqrt(var + 1e-5) * scale).reshape(shape).to(dtype))
 
 
 # ---------------------------------------------------------------- mLSTM ----
@@ -81,10 +89,23 @@ def mlstm_specs(d: int, cfg: XLSTMConfig, dtype=torch.bfloat16):
     }
 
 
-def _mlstm_init_state(b, h, dh, device):
-    return (torch.zeros(b, h, dh, dh, device=device),
-            torch.zeros(b, h, dh, device=device),
-            torch.full((b, h), NEG, device=device))
+def _state_like(x, shape, fill: float):
+    """A float32 state ``[B, *shape]`` filled with ``fill``, its batch
+    rows laid out as ``x``'s: on a DTensor, each rank's own rows (a plain
+    tensor would count as the whole batch on every rank, and the first
+    step's products would run on all of it)."""
+    if not isinstance(x, DTensor):
+        return torch.full((x.shape[0],) + shape, fill, device=x.device)
+    pl = [p if p == Shard(0) else Replicate() for p in x.placements]
+    local = torch.full((x._local_tensor.shape[0],) + shape, fill,
+                       device=x.device)
+    return DTensor.from_local(local, x.device_mesh, pl, run_check=False)
+
+
+def _mlstm_init_state(x, h, dh):
+    """The mLSTM's zero state (C, n, m) for the batch rows of ``x``."""
+    return (_state_like(x, (h, dh, dh), 0.0), _state_like(x, (h, dh), 0.0),
+            _state_like(x, (h,), NEG))
 
 
 def _mlstm_cell_step(state, inp):
@@ -110,15 +131,15 @@ def mlstm_scan_recurrent(q, k, v, ig, fg, state=None, chunk: int = 64):
     final (C, n, m))."""
     b, s, h, dh = q.shape
     if state is None:
-        state = _mlstm_init_state(b, h, dh, q.device)
+        state = _mlstm_init_state(q, h, dh)
     l = _chunk_len(s, chunk)
 
     def body(st, ci):
-        hs = []
-        for t in range(ci * l, (ci + 1) * l):
-            st, h_t = _mlstm_cell_step(st, (q[:, t], k[:, t], v[:, t],
-                                            ig[:, t], fg[:, t]))
-            hs.append(h_t)
+        def step(st, j):
+            t = ci * l + j
+            return _mlstm_cell_step(st, (q[:, t], k[:, t], v[:, t], ig[:, t],
+                                         fg[:, t]))
+        st, hs = scan(step, st, l)
         return st, torch.stack(hs, dim=1)
 
     state, hs = _chunked(body, tuple(state), s // l)
@@ -131,11 +152,24 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
     stabilised (C, n, m) state.
 
     q/k/v [B,S,H,dh] float32 (k pre-scaled 1/sqrt(dh)), gates ig/fg
-    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)).
+    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)). DTensors go op by
+    op, but where the model axis splits neither their batch rows nor
+    their heads evenly (a multi-pod mesh's 8 rows a data shard and 4
+    heads on a model axis of 16: DTensor splits the merged rows x heads
+    of a product there, and its backward cannot split them back) the scan
+    runs on each rank's local shards (``sharding.rules.on_local_shards``).
     """
+    if isinstance(q, DTensor) and not model_axis_splits(q, 0, q.shape[2]):
+        out = on_local_shards(
+            lambda q, k, v, ig, fg, *st: _flat(mlstm_scan(
+                q, k, v, ig, fg, None if st[0] is None else st, chunk)),
+            (q, k, v, ig, fg) + tuple(state or (None,) * 3),
+            ((0, 2),) * 5 + ((0, 1),) * 3, ((0, 2),) + ((0, 1),) * 3,
+            q.shape[2])
+        return out[0], out[1:]
     b, s, h, dh = q.shape
     if state is None:
-        state = _mlstm_init_state(b, h, dh, q.device)
+        state = _mlstm_init_state(q, h, dh)
     l = _chunk_len(s, chunk)
     nc = s // l
 
@@ -152,7 +186,8 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
         qb, kb, vb = qh[:, :, sl], kh[:, :, sl], vh[:, :, sl]  # [B,H,L,dh]
         ib, fb = ih[:, :, sl], fh[:, :, sl]       # [B,H,L]
         lf = local_pointwise(F.logsigmoid, fb)
-        bcum = torch.cumsum(lf, dim=-1)           # b_t
+        bcum = local_pointwise(lambda t: torch.cumsum(t, dim=-1), lf,
+                               whole=-1)          # b_t
         # D_tj = b_t - b_j + i_j  (j <= t)
         d_mat = bcum[..., :, None] - bcum[..., None, :] + ib[..., None, :]
         d_mat = d_mat.masked_fill(~causal, NEG)
@@ -258,6 +293,37 @@ def _slstm_cell_step(params_r, state, wx):
     return (h_new, c_new, n_new, m_new), h_new
 
 
+def slstm_scan(wx, r, bg, state, chunk: int = 64):
+    """The sLSTM recurrence over ``wx [B,S,H,4dh]`` (input
+    pre-activations) from ``state`` (h, c, n, m, each ``[B,H,dh]``), in
+    chunks of steps. Returns (h [B,S,H,dh], final state). DTensors go op
+    by op, or on local shards where the model axis splits neither their
+    rows nor their heads evenly, as in :func:`mlstm_scan` (``r`` and
+    ``bg`` per head)."""
+    if (isinstance(wx, DTensor)
+            and not model_axis_splits(wx, 0, wx.shape[2])):
+        out = on_local_shards(
+            lambda wx, r, bg, *st: _flat(slstm_scan(wx, r, bg, st, chunk)),
+            (wx, r, bg) + tuple(state),
+            ((0, 2), (None, 0), (None, 0)) + ((0, 1),) * 4,
+            ((0, 2),) + ((0, 1),) * 4, wx.shape[2])
+        return out[0], out[1:]
+    l = _chunk_len(wx.shape[1], chunk)
+
+    def body(st, ci):
+        st, hs = scan(lambda st, j: _slstm_cell_step(
+            (r, bg), st, wx[:, ci * l + j]), st, l)
+        return st, torch.stack(hs, dim=1)
+
+    state, hs = _chunked(body, tuple(state), wx.shape[1] // l)
+    return torch.cat(hs, dim=1), state
+
+
+def _flat(out):
+    """``(h, state)`` as one tuple."""
+    return (out[0],) + tuple(out[1])
+
+
 def slstm_block(p, x, cfg: XLSTMConfig, cache=None):
     """x [B,S,d]. cache: {"h","c","n","m"} each [B,H,dh]; decode (S == 1)
     reads and advances it, prefill starts from it and fills it, in place.
@@ -277,20 +343,10 @@ def slstm_block(p, x, cfg: XLSTMConfig, cache=None):
         if cache is not None:
             state = (cache["h"], cache["c"], cache["n"], cache["m"])
         else:
-            state = tuple(torch.zeros(b, h, dh, device=x.device)
+            state = tuple(_state_like(wx, (h, dh), 0.0)
                           for _ in range(3)) + (
-                torch.full((b, h, dh), NEG, device=x.device),)
-        l = _chunk_len(s, cfg.chunk)
-
-        def body(st, ci):
-            hs = []
-            for t in range(ci * l, (ci + 1) * l):
-                st, h_t = _slstm_cell_step((r, bg), st, wx[:, t])
-                hs.append(h_t)
-            return st, torch.stack(hs, dim=1)
-
-        state, hs = _chunked(body, state, s // l)
-        h_seq = torch.cat(hs, dim=1)
+                _state_like(wx, (h, dh), NEG),)
+        h_seq, state = slstm_scan(wx, r, bg, state, cfg.chunk)
     if cache is not None:
         for key, t in zip(("h", "c", "n", "m"), state):
             cache[key].copy_(t)

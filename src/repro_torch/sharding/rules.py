@@ -51,7 +51,7 @@ import threading
 from collections.abc import Mapping
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
 
@@ -211,16 +211,98 @@ def local_range(mesh, spec, dim: int, n: int) -> range:
     return range(lo, lo + size)
 
 
-def local_pointwise(fn, x):
-    """``fn(x)`` for an elementwise ``fn``; on a DTensor, on each rank's
-    local shard (a partial sum gathered first). For elementwise ops DTensor
-    has no sharding rule for (log-sigmoid's backward)."""
+def local_pointwise(fn, x, whole: int | None = None):
+    """``fn(x)`` for an elementwise ``fn``, or one along dim ``whole`` only
+    (a cumulative sum); on a DTensor, on each rank's local shard (a partial
+    sum, and a shard of dim ``whole``, gathered first). For ops DTensor
+    has no sharding rule for (log-sigmoid's backward; the flip in a
+    cumulative sum's backward, torch 2.11)."""
     if not isinstance(x, DTensor):
         return fn(x)
     mesh = x.device_mesh
-    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    whole = None if whole is None else whole % x.ndim
+    pl = [Replicate() if p.is_partial() or (whole is not None
+                                            and p.is_shard(whole)) else p
+          for p in x.placements]
     return DTensor.from_local(fn(x.redistribute(mesh, pl).to_local()), mesh,
                               pl)
+
+
+def on_local_shards(fn, args, dims, out_dims, n_heads: int):
+    """``fn(*args)`` on each rank's local shards, for a computation that is
+    independent over batch rows and heads (a recurrent scan). ``dims``
+    gives each arg's ``(batch dim, heads dim)``, either None; the first
+    arg is a DTensor with a batch dim. The batch is split as the
+    activations are (``activation_constraint``: over the batch axes, the
+    model axis too under ``extra_dp``, as far as they divide it). The
+    mesh's model axis, where no batch shard sits, splits every arg with a
+    heads dim over heads where ``n_heads`` divide it, else over batch rows
+    where they divide it. Any other shard is gathered first; an arg
+    without the dim a mesh dim splits is whole there, its gradient a
+    partial sum. Plain tensors count as replicated.
+    ``out_dims``: each output's ``(batch dim, heads dim)``, laid out as
+    the args are. Returns the outputs as DTensors (a tuple, as ``fn``
+    returns them)."""
+    first = args[0]
+    mesh = first.device_mesh
+    batch, heads = _scan_split(first, dims[0][0], n_heads)
+
+    def placed(bd, hd, grad=False):
+        out = []
+        for bt, h in zip(batch, heads):
+            if bt:
+                out.append(Shard(bd) if bd is not None
+                           else Partial() if grad else Replicate())
+            elif h:
+                out.append(Shard(hd) if hd is not None
+                           else Partial() if grad else Replicate())
+            else:
+                out.append(Replicate())
+        return out
+
+    def local(t, bd, hd):
+        if t is None:
+            return None
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placed(bd, hd)).to_local(
+            grad_placements=placed(bd, hd, grad=True))
+
+    outs = fn(*(local(t, *d) for t, d in zip(args, dims)))
+    return tuple(DTensor.from_local(o, mesh, placed(*d))
+                 for o, d in zip(outs, out_dims))
+
+
+def _scan_split(t, bdim: int, n_heads: int):
+    """For each mesh dim of DTensor ``t``'s mesh: does it split the batch
+    rows, does it split the heads (:func:`on_local_shards`)."""
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    axes = (("pod", "data", "model") if getattr(_ctx, "extra_dp", False)
+            else BATCH_AXES)
+    spec = batch_partition(mesh, 1, batch_size=t.shape[bdim], axes=axes)
+    batch = [p == Shard(0) for p in placements(mesh, spec)]
+    split = math.prod(mesh.size(i) for i, bt in enumerate(batch) if bt)
+    heads = [False] * mesh.ndim
+    for i, name in enumerate(names):
+        if name != "model" or batch[i]:
+            continue
+        if n_heads % mesh.size(i) == 0:
+            heads[i] = True
+        elif t.shape[bdim] % (split * mesh.size(i)) == 0:
+            batch[i] = True
+    return batch, heads
+
+
+def model_axis_splits(t, bdim: int, n_heads: int) -> bool:
+    """Whether the model axis of DTensor ``t``'s mesh can split its batch
+    rows (``bdim``) or its ``n_heads`` heads evenly, once the batch axes
+    have split the rows."""
+    mesh = t.device_mesh
+    batch, heads = _scan_split(t, bdim, n_heads)
+    return all(batch[i] or heads[i] for i, name in
+               enumerate(mesh.mesh_dim_names or ()) if name == "model")
 
 
 def unshard_dim(x, dim: int):

@@ -9,7 +9,8 @@ One factory serves every architecture family: the caller supplies
   sent as per-channel int8 codes times a scale, and what that drops is added
   to the next step's gradient;
 * microbatch gradient accumulation (``accum_steps``): the reference's
-  ``lax.scan`` over microbatches is a loop summing float32 gradients.
+  ``lax.scan`` over microbatches is ``models.loop.scan`` summing float32
+  gradients.
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves, which
 the step marks as requiring grad. The reference donates params and optimizer
@@ -33,6 +34,7 @@ from torch.distributed.tensor import DTensor
 
 from .optim import (AdamWConfig, adamw_init, adamw_update, at_path,
                     opt_state_specs, placed_like)
+from ..models.loop import scan
 from ..models.specs import tree_leaves, tree_map
 
 
@@ -106,13 +108,18 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         if tcfg.accum_steps > 1:
             n = tcfg.accum_steps
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-            loss, seen = None, []
-            for i in range(n):
+
+            def micro(carry, i):
                 mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
                       for k, x in batch.items()}
                 l, metrics, g = _value_and_grad(loss_fn, params, leaves, mb)
                 for a, gi in zip(acc, g):
                     a.add_(gi.float())
+                return carry, (l, metrics)
+
+            _, outs = scan(micro, None, n)
+            loss, seen = None, []
+            for l, metrics in outs:
                 loss = l if loss is None else loss + l
                 seen.append(metrics)
             grads = [a / n for a in acc]

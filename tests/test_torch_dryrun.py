@@ -114,3 +114,28 @@ def test_roofline_terms_by_link():
     assert t["dominant"] == "collective_s"
     assert D.link_of(range(8, 16)) == "nvlink"
     assert D.link_of([0, 8]) == "ib"
+
+
+def test_xlstm_trains_on_a_model_axis_wider_than_its_heads():
+    """xlstm-125m cut to d_model 256, vocab 4096 and its own mLSTM ->
+    sLSTM order, 8 x 64 tokens on a (1, 8) mesh of an 8-rank fake world:
+    4 heads on a model axis of 8. The head norm's flat gradient came back
+    sharded over 8 ranks on the head dim and the backward's head split
+    raised; now the training cell traces."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core.trace_analysis import analyze_trace
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = dataclasses.replace(
+        get_config("xlstm-125m"), d_model=256, vocab=4096,
+        segments=(Segment("mlstm", "none", 1), Segment("slstm", "none", 1)))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        cell = build_cell("xlstm-125m", ShapeSpec("x", 64, 8, "train"),
+                          make_test_mesh((1, 8)), cfg=cfg)
+        trace, memory = cell.trace()
+    finally:
+        dist.destroy_process_group()
+    assert analyze_trace(trace)["flops"] > 0
+    assert memory["peak_bytes_per_device"] > memory["argument_bytes"] > 0

@@ -609,6 +609,24 @@ def test_families_on_the_mesh_match_one_device(world, arch):
         assert gap < 1e-4
 
 
+def test_xlstm_on_a_model_axis_wider_than_its_heads_matches_one_device(
+        world):
+    """xlstm-125m's mLSTM -> sLSTM cut laid out as its training cell lays
+    it out on a (1, 8) mesh, 4 heads on a model axis of 8 (its backward's
+    head split raised before the head norm's gradient was pinned): loss
+    within 1e-5 relative and every gradient within 1e-5 of its largest
+    entry (at least 1, as in the families' hold) of the one-device
+    step."""
+    ranks = _case(world, "xlstm")
+    for res in ranks:
+        single, mesh = res["xlstm/loss"]
+        gap = float(res["xlstm/grad_gap"])
+        print(f"xlstm (1, 8): loss {mesh!r} vs {single!r}, gradient gap "
+              f"{gap:.3g}")
+        assert abs(mesh - single) <= 1e-5 * abs(single)
+        assert gap <= 1e-5
+
+
 def test_moe_expert_parallel_matches_single_device_and_reference(world):
     """Forward within 1e-5 of the port's single-device path and of the
     reference's ``moe_apply``; gradients (of ``sum(y * ct) + aux``, with

@@ -226,3 +226,117 @@ def test_smoke_train_cell_flops_equal_the_reference_walker():
     port = res["flops"] - sum(TA.flash_flops(op) for op in flash) + dense
     assert port == ref["flops"]
     assert memory["peak_bytes_per_device"] > memory["argument_bytes"] > 0
+
+
+REF_RECURRENT = """
+import os, sys, json
+sys.path.insert(0, SRC)
+from repro.configs import registry as R
+from repro.launch.cells import build_cell
+from repro.launch.mesh import make_test_mesh
+from repro.core.hlo_analysis import analyze_hlo
+R.SHAPES["tiny"] = R.ShapeSpec("tiny", 64, 8, "train")
+out = {}
+for arch in ("zamba2-2.7b", "xlstm-125m"):
+    cell = build_cell(arch, "tiny", make_test_mesh((8, 1)),
+                      cfg=R.get_smoke_config(arch))
+    out[arch] = analyze_hlo(cell.lower().compile().as_text())["flops"]
+print(json.dumps(out))
+"""
+
+
+def _port_smoke_cell(arch):
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        cfg = get_smoke_config(arch)
+        cell = build_cell(arch, ShapeSpec("tiny", 64, 8, "train"),
+                          make_test_mesh((8, 1)), cfg=cfg)
+        trace, _ = cell.trace()
+    finally:
+        dist.destroy_process_group()
+    return cfg, trace
+
+
+def _dense_attention(trace):
+    """The flash ops' FLOPs counted the reference's way (its dense block
+    computes every (q, k) pair; its backward's rowsum(dO * O) is a dot),
+    less the port's count."""
+    dense = 0.0
+    for op in trace.ops:
+        if not TA.flash_flops(op):
+            continue
+        b, h, s, d = op.inputs[0][0]
+        per = 4 * d * s * s if op.base == "flash_attention" else (
+            10 * d * s * s + 2 * s * d)
+        dense += (per * b * h - TA.flash_flops(op)) * op.count
+    return dense
+
+
+@pytest.fixture(scope="module")
+def ref_recurrent():
+    """The reference walker's FLOPs a device of zamba2's and xlstm's smoke
+    train cells on 8 host devices (one subprocess)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    out = subprocess.run([sys.executable, "-c", f"SRC = {SRC!r}\n"
+                          + textwrap.dedent(REF_RECURRENT)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_smoke_zamba2_cell_flops_equal_the_reference_walker(ref_recurrent):
+    """zamba2-2.7b's smoke train cell (4 Mamba2 layers in periods of 2,
+    the shared attention block twice, 8 x 64 tokens on an (8, 1) mesh):
+    the port's FLOPs a device equal the reference walker's on the
+    reference's own cell once two things are counted the reference's
+    way. Attention, as in
+    ``test_smoke_train_cell_flops_equal_the_reference_walker``. And the
+    SSD: in the backward of its two three-operand einsums over the
+    chunked layout (``bclh,bclhn,bclhp->bchpn`` and
+    ``bclh,bclhn,bchpn->bclhp``), the gradient of the per-position decay
+    ends in a product over the state dim ``N`` of two ``[B, nc, L, H,
+    N]`` tensors that XLA runs as a dot (``2 B nc L H N`` FLOPs) and torch
+    as a multiply and a sum (elementwise, not counted): two a layer."""
+    cfg, trace = _port_smoke_cell("zamba2-2.7b")
+    ssm = cfg.ssm
+    heads = cfg.d_model * ssm.expand // ssm.head_dim
+    b_local, nc = 8 // 8, 64 // ssm.chunk
+    decay_dots = cfg.n_layers * 2 * (2 * b_local * nc * ssm.chunk * heads
+                                     * ssm.d_state)
+    port = TA.analyze_trace(trace)["flops"]
+    assert port + _dense_attention(trace) + decay_dots == \
+        ref_recurrent["zamba2-2.7b"]
+
+
+def test_smoke_xlstm_cell_flops_match_the_reference_walker(ref_recurrent):
+    """xlstm-125m's smoke train cell (5 mLSTM and 2 sLSTM layers, chunks
+    of 16 steps, 8 x 64 tokens on an (8, 1) mesh) against the reference
+    walker on the reference's own cell. Itemised: the port's matrix
+    products over a contracted dim of size 1 (outer products: each sLSTM
+    step's recurrent-weight gradient, the mLSTM's normaliser terms), which
+    XLA runs as multiplies; and the mLSTM denominator's ``sum(w * scores)``
+    over a chunk, which the port runs as a multiply and a sum and XLA as a
+    dot (``2 B H L L`` FLOPs a chunk, forward and rematerialised). What
+    remains is in the mLSTM's chunk products: XLA unrolls the 4-trip
+    chunk loop, folds the products against the zero initial state and
+    pairs the three-operand contractions its own way; it is not itemised
+    yet and is held within 1% of the reference's count (0.24% on this
+    cell)."""
+    cfg, trace = _port_smoke_cell("xlstm-125m")
+    def contracted(op):
+        lhs = op.inputs[1] if op.base in ("addmm", "baddbmm") else \
+            op.inputs[0]
+        return lhs[0][-1]
+    outer = sum(TA.dot_flops(op) * op.count for op in trace.ops
+                if TA.dot_flops(op) and contracted(op) == 1)
+    x = cfg.xlstm
+    n_mlstm = sum(s.count for s in cfg.segments if s.kind == "mlstm")
+    b_local, nc = 8 // 8, 64 // x.chunk
+    den = n_mlstm * nc * 2 * (2 * b_local * x.n_heads * x.chunk * x.chunk)
+    port = TA.analyze_trace(trace)["flops"] - outer + den
+    assert port == pytest.approx(ref_recurrent["xlstm-125m"], rel=1e-2)

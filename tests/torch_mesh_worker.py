@@ -308,6 +308,53 @@ def case_families(inp, out, mesh):
             for a, b in zip(dgrads, grads)))
 
 
+def case_xlstm(inp, out, mesh):
+    """xlstm-125m cut to d_model 256, vocab 4096 and its own mLSTM -> sLSTM
+    order, 8 x 64 tokens, on a ``(1, 8)`` mesh laid out as its training
+    cell lays it out (4 heads on a model axis of 8): loss and gradients on
+    the mesh and on one device."""
+    import dataclasses
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize, tree_leaves
+    from repro_torch.sharding import rules as R
+
+    mesh8 = make_test_mesh((1, 8))
+    cfg = dataclasses.replace(
+        get_config("xlstm-125m"), d_model=256, vocab=4096,
+        segments=(lm.Segment("mlstm", "none", 1),
+                  lm.Segment("slstm", "none", 1)))
+    cell = build_cell("xlstm-125m", ShapeSpec("x", 64, 8, "train"), mesh8,
+                      cfg=cfg)
+    p_sh, _, b_sh = cell.in_shardings
+    params = materialize(lm.lm_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = np.random.default_rng(5)
+    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64)))
+                for _ in range(2))
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    loss = lm.lm_loss(params, cfg, tok, lab)[0]
+    grads = torch.autograd.grad(loss, leaves)
+
+    def placed(tree, sh):
+        if isinstance(tree, dict):
+            return {k: placed(v, sh[k]) for k, v in tree.items()}
+        return R.distribute(tree.detach(), sh)
+    dp = placed(params, p_sh)
+    dleaves = [t.requires_grad_() for _, t in tree_leaves(dp)]
+    with R.set_context(mesh8, extra_dp=cfg.prefer_dp):
+        dloss = lm.lm_loss(dp, cfg, R.distribute(tok, b_sh["tokens"]),
+                           R.distribute(lab, b_sh["labels"]))[0]
+        dgrads = torch.autograd.grad(dloss, dleaves)
+    out["xlstm/loss"] = np.array([float(loss), float(_full(dloss))])
+    out["xlstm/grad_gap"] = np.array(max(
+        float(np.abs(_full(a) - b.numpy()).max()
+              / max(1.0, float(b.abs().max())))
+        for a, b in zip(dgrads, grads)))
+
+
 def case_decode(inp, out, mesh):
     """Serving on the mesh: a prompt of 8 through ``prefill``, then one
     ``decode_step``, with parameters and caches laid out as a serving
@@ -510,6 +557,7 @@ def run(rank, d):
                        ("tp", case_sharded_params),
                        ("seq", case_seq_shard),
                        ("families", case_families),
+                       ("xlstm", case_xlstm),
                        ("decode", case_decode),
                        ("moe", case_moe), ("batch", case_batches),
                        ("launch", case_launch)):
