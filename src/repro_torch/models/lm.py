@@ -286,8 +286,11 @@ def _constrain_batch(x):
     leaves a partial sum over ``model``, which is all-reduced there, as
     Megatron's row-parallel layers do; left partial, DTensor carried it into
     the next norm and gathered the next layer's products over the whole
-    batch."""
-    return activation_constraint(x)
+    batch. The gradient is laid out as the activations are
+    (``settle_grad``: a partial sum all-reduced, as Megatron's backward
+    does at a sublayer's input): left partial, DTensor ran the sublayers'
+    weight-gradient products whole on every model rank."""
+    return settle_grad(activation_constraint(x))
 
 
 def _save_unbatched_products(ctx, op, *args, **kwargs):
@@ -391,8 +394,8 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
 
 
 def _embed_tokens(params, cfg: LMConfig, tokens, prefix_embeds=None):
-    x = settle_grad(_constrain_batch(
-        L.embed(gather_params(params["embed"]), tokens).to(cfg.dtype)))
+    x = _constrain_batch(
+        L.embed(gather_params(params["embed"]), tokens).to(cfg.dtype))
     if prefix_embeds is not None:
         x = _constrain_batch(torch.cat([prefix_embeds.to(cfg.dtype), x],
                                        dim=1))
@@ -521,9 +524,9 @@ def _mtp_loss(params, cfg: LMConfig, hidden, labels):
     emb(t+1))`` through one attention (MLA) + dense layer, its CE unchunked
     as in the reference."""
     p = gather_params(params["mtp"])
-    emb_next = settle_grad(_constrain_batch(
+    emb_next = _constrain_batch(
         L.embed(gather_params(params["embed"]),
-                labels.clamp(min=0)).to(cfg.dtype)))
+                labels.clamp(min=0)).to(cfg.dtype))
     cat = torch.cat([L.rmsnorm(p["norm_h"], hidden),
                      L.rmsnorm(p["norm_e"], emb_next)], dim=-1)
     h = cat @ p["proj"]

@@ -23,7 +23,7 @@ from torch.distributed.tensor import DTensor
 from .layers import rmsnorm_specs
 from .loop import scan
 from .specs import param
-from ..sharding.rules import on_local_shards
+from ..sharding.rules import on_local_shards, settle_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,7 +218,9 @@ def mamba_block(p, x, cfg, ssm_cfg: SSMConfig, cache=None):
     g, n = ssm_cfg.n_groups, ssm_cfg.d_state
     gn = g * n
 
-    zxbcdt = x @ p["w_in"]
+    # the slices' gradients meet laid out as the product is (as the
+    # mLSTM's up-projection's)
+    zxbcdt = settle_grad(x @ p["w_in"])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * gn]
     dt_raw = zxbcdt[..., di + di + 2 * gn:]

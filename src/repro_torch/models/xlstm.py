@@ -18,15 +18,14 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as _ckpt
 
 from .layers import rmsnorm_specs
 from .loop import recomputed, scan
 from .specs import param
 from ..sharding.rules import (carry_context, local_pointwise,
-                              model_axis_splits, on_local_shards,
-                              settle_grad)
+                              on_local_shards, settle_grad)
 
 NEG = -1e30
 
@@ -62,7 +61,7 @@ def _head_norm(h_seq, scale, shape, dtype):
     as the output is (``settle_grad``) before the flattening's backward
     splits the heads again: the next product's backward may shard that
     gradient's flat dim over more ranks than there are heads (4 heads, a
-    model axis of 16), which a head split cannot take."""
+    model axis of 8 or 16), which a head split cannot take."""
     hn = h_seq.float()
     var = hn.square().mean(dim=-1, keepdim=True)
     return settle_grad(
@@ -89,23 +88,10 @@ def mlstm_specs(d: int, cfg: XLSTMConfig, dtype=torch.bfloat16):
     }
 
 
-def _state_like(x, shape, fill: float):
-    """A float32 state ``[B, *shape]`` filled with ``fill``, its batch
-    rows laid out as ``x``'s: on a DTensor, each rank's own rows (a plain
-    tensor would count as the whole batch on every rank, and the first
-    step's products would run on all of it)."""
-    if not isinstance(x, DTensor):
-        return torch.full((x.shape[0],) + shape, fill, device=x.device)
-    pl = [p if p == Shard(0) else Replicate() for p in x.placements]
-    local = torch.full((x._local_tensor.shape[0],) + shape, fill,
-                       device=x.device)
-    return DTensor.from_local(local, x.device_mesh, pl, run_check=False)
-
-
-def _mlstm_init_state(x, h, dh):
-    """The mLSTM's zero state (C, n, m) for the batch rows of ``x``."""
-    return (_state_like(x, (h, dh, dh), 0.0), _state_like(x, (h, dh), 0.0),
-            _state_like(x, (h,), NEG))
+def _mlstm_init_state(b, h, dh, device):
+    return (torch.zeros(b, h, dh, dh, device=device),
+            torch.zeros(b, h, dh, device=device),
+            torch.full((b, h), NEG, device=device))
 
 
 def _mlstm_cell_step(state, inp):
@@ -131,7 +117,7 @@ def mlstm_scan_recurrent(q, k, v, ig, fg, state=None, chunk: int = 64):
     final (C, n, m))."""
     b, s, h, dh = q.shape
     if state is None:
-        state = _mlstm_init_state(q, h, dh)
+        state = _mlstm_init_state(b, h, dh, q.device)
     l = _chunk_len(s, chunk)
 
     def body(st, ci):
@@ -152,14 +138,14 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
     stabilised (C, n, m) state.
 
     q/k/v [B,S,H,dh] float32 (k pre-scaled 1/sqrt(dh)), gates ig/fg
-    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)). DTensors go op by
-    op, but where the model axis splits neither their batch rows nor
-    their heads evenly (a multi-pod mesh's 8 rows a data shard and 4
-    heads on a model axis of 16: DTensor splits the merged rows x heads
-    of a product there, and its backward cannot split them back) the scan
-    runs on each rank's local shards (``sharding.rules.on_local_shards``).
+    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)). DTensors run on
+    each rank's local shards (``sharding.rules.on_local_shards``): the
+    scan is independent over batch rows and heads. DTensor's own ops
+    would split the merged rows x heads of a product where the model axis
+    divides neither (4 heads on a model axis of 8 or 16), and their
+    backward cannot split them back.
     """
-    if isinstance(q, DTensor) and not model_axis_splits(q, 0, q.shape[2]):
+    if isinstance(q, DTensor):
         out = on_local_shards(
             lambda q, k, v, ig, fg, *st: _flat(mlstm_scan(
                 q, k, v, ig, fg, None if st[0] is None else st, chunk)),
@@ -169,7 +155,7 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
         return out[0], out[1:]
     b, s, h, dh = q.shape
     if state is None:
-        state = _mlstm_init_state(q, h, dh)
+        state = _mlstm_init_state(b, h, dh, q.device)
     l = _chunk_len(s, chunk)
     nc = s // l
 
@@ -185,9 +171,8 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
         sl = slice(ci * l, (ci + 1) * l)
         qb, kb, vb = qh[:, :, sl], kh[:, :, sl], vh[:, :, sl]  # [B,H,L,dh]
         ib, fb = ih[:, :, sl], fh[:, :, sl]       # [B,H,L]
-        lf = local_pointwise(F.logsigmoid, fb)
-        bcum = local_pointwise(lambda t: torch.cumsum(t, dim=-1), lf,
-                               whole=-1)          # b_t
+        lf = F.logsigmoid(fb)
+        bcum = torch.cumsum(lf, dim=-1)           # b_t
         # D_tj = b_t - b_j + i_j  (j <= t)
         d_mat = bcum[..., :, None] - bcum[..., None, :] + ib[..., None, :]
         d_mat = d_mat.masked_fill(~causal, NEG)
@@ -227,7 +212,10 @@ def mlstm_block(p, x, cfg: XLSTMConfig, cache=None):
     di = int(d * cfg.up_factor)
     h = cfg.n_heads
     dh = di // h
-    up = x @ p["w_up"]
+    # the halves' gradients meet laid out as the product is: joined
+    # otherwise, DTensor gathers them and runs the weight gradient whole
+    # on every model rank
+    up = settle_grad(x @ p["w_up"])
     u, z = up[..., :di], up[..., di:]
     q = torch.einsum("bse,ehk->bshk", u, p["w_q"]).float()
     k = torch.einsum("bse,ehk->bshk", u, p["w_k"]).float() / (dh ** 0.5)
@@ -293,29 +281,33 @@ def _slstm_cell_step(params_r, state, wx):
     return (h_new, c_new, n_new, m_new), h_new
 
 
-def slstm_scan(wx, r, bg, state, chunk: int = 64):
+def slstm_scan(wx, r, bg, state=None, chunk: int = 64):
     """The sLSTM recurrence over ``wx [B,S,H,4dh]`` (input
-    pre-activations) from ``state`` (h, c, n, m, each ``[B,H,dh]``), in
-    chunks of steps. Returns (h [B,S,H,dh], final state). DTensors go op
-    by op, or on local shards where the model axis splits neither their
-    rows nor their heads evenly, as in :func:`mlstm_scan` (``r`` and
-    ``bg`` per head)."""
-    if (isinstance(wx, DTensor)
-            and not model_axis_splits(wx, 0, wx.shape[2])):
+    pre-activations) from ``state`` (h, c, n, m, each ``[B,H,dh]``; None:
+    the zero state), in chunks of steps. Returns (h [B,S,H,dh], final
+    state). DTensors run on each rank's local shards, as in
+    :func:`mlstm_scan` (``r`` and ``bg`` per head)."""
+    if isinstance(wx, DTensor):
         out = on_local_shards(
-            lambda wx, r, bg, *st: _flat(slstm_scan(wx, r, bg, st, chunk)),
-            (wx, r, bg) + tuple(state),
+            lambda wx, r, bg, *st: _flat(slstm_scan(
+                wx, r, bg, None if st[0] is None else st, chunk)),
+            (wx, r, bg) + tuple(state or (None,) * 4),
             ((0, 2), (None, 0), (None, 0)) + ((0, 1),) * 4,
             ((0, 2),) + ((0, 1),) * 4, wx.shape[2])
         return out[0], out[1:]
-    l = _chunk_len(wx.shape[1], chunk)
+    b, s, h, g = wx.shape
+    if state is None:
+        state = tuple(torch.zeros(b, h, g // 4, device=wx.device)
+                      for _ in range(3)) + (
+            torch.full((b, h, g // 4), NEG, device=wx.device),)
+    l = _chunk_len(s, chunk)
 
     def body(st, ci):
         st, hs = scan(lambda st, j: _slstm_cell_step(
             (r, bg), st, wx[:, ci * l + j]), st, l)
         return st, torch.stack(hs, dim=1)
 
-    state, hs = _chunked(body, tuple(state), wx.shape[1] // l)
+    state, hs = _chunked(body, tuple(state), s // l)
     return torch.cat(hs, dim=1), state
 
 
@@ -329,23 +321,17 @@ def slstm_block(p, x, cfg: XLSTMConfig, cache=None):
     reads and advances it, prefill starts from it and fills it, in place.
     Returns (out, cache or None)."""
     b, s, d = x.shape
-    h = cfg.n_heads
-    dh = d // h
     wx = torch.einsum("bsd,dhg->bshg", x, p["w_gates"]).float()
     r = p["r_gates"].float()
     bg = p["b_gates"]
+    state = None
+    if cache is not None:
+        state = (cache["h"], cache["c"], cache["n"], cache["m"])
 
     if cache is not None and s == 1:
-        state = (cache["h"], cache["c"], cache["n"], cache["m"])
         state, h_out = _slstm_cell_step((r, bg), state, wx[:, 0])
         h_seq = h_out[:, None]
     else:
-        if cache is not None:
-            state = (cache["h"], cache["c"], cache["n"], cache["m"])
-        else:
-            state = tuple(_state_like(wx, (h, dh), 0.0)
-                          for _ in range(3)) + (
-                _state_like(wx, (h, dh), NEG),)
         h_seq, state = slstm_scan(wx, r, bg, state, cfg.chunk)
     if cache is not None:
         for key, t in zip(("h", "c", "n", "m"), state):

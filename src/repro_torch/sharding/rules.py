@@ -211,19 +211,14 @@ def local_range(mesh, spec, dim: int, n: int) -> range:
     return range(lo, lo + size)
 
 
-def local_pointwise(fn, x, whole: int | None = None):
-    """``fn(x)`` for an elementwise ``fn``, or one along dim ``whole`` only
-    (a cumulative sum); on a DTensor, on each rank's local shard (a partial
-    sum, and a shard of dim ``whole``, gathered first). For ops DTensor
-    has no sharding rule for (log-sigmoid's backward; the flip in a
-    cumulative sum's backward, torch 2.11)."""
+def local_pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, on each rank's
+    local shard (a partial sum gathered first). For elementwise ops DTensor
+    has no sharding rule for (log-sigmoid's backward)."""
     if not isinstance(x, DTensor):
         return fn(x)
     mesh = x.device_mesh
-    whole = None if whole is None else whole % x.ndim
-    pl = [Replicate() if p.is_partial() or (whole is not None
-                                            and p.is_shard(whole)) else p
-          for p in x.placements]
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
     return DTensor.from_local(fn(x.redistribute(mesh, pl).to_local()), mesh,
                               pl)
 
@@ -266,12 +261,34 @@ def on_local_shards(fn, args, dims, out_dims, n_heads: int):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
-        return t.redistribute(mesh, placed(bd, hd)).to_local(
+        return _Placed.apply(t, placed(bd, hd)).to_local(
             grad_placements=placed(bd, hd, grad=True))
 
     outs = fn(*(local(t, *d) for t, d in zip(args, dims)))
     return tuple(DTensor.from_local(o, mesh, placed(*d))
                  for o, d in zip(outs, out_dims))
+
+
+class _Placed(torch.autograd.Function):
+    """DTensor ``t`` redistributed to ``pl``, its gradient left laid out
+    as it comes back (``pl``'s layout), a partial sum reduced to ``t``'s
+    own placement. ``redistribute``'s own backward would gather the
+    gradient back to ``t``'s layout (and where ``t`` is a partial sum, on
+    every rank), and the products before it would then run their
+    backward whole on every rank of a mesh dim that split the scan."""
+
+    @staticmethod
+    def forward(ctx, t, pl):
+        ctx.placements = t.placements
+        return t.redistribute(t.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pl = [(q if not q.is_partial() else Replicate()) if p.is_partial()
+              else p for p, q in zip(grad.placements, ctx.placements)]
+        if list(grad.placements) != pl:
+            grad = grad.redistribute(grad.device_mesh, pl)
+        return grad, None
 
 
 def _scan_split(t, bdim: int, n_heads: int):
@@ -293,16 +310,6 @@ def _scan_split(t, bdim: int, n_heads: int):
         elif t.shape[bdim] % (split * mesh.size(i)) == 0:
             batch[i] = True
     return batch, heads
-
-
-def model_axis_splits(t, bdim: int, n_heads: int) -> bool:
-    """Whether the model axis of DTensor ``t``'s mesh can split its batch
-    rows (``bdim``) or its ``n_heads`` heads evenly, once the batch axes
-    have split the rows."""
-    mesh = t.device_mesh
-    batch, heads = _scan_split(t, bdim, n_heads)
-    return all(batch[i] or heads[i] for i, name in
-               enumerate(mesh.mesh_dim_names or ()) if name == "model")
 
 
 def unshard_dim(x, dim: int):
@@ -358,14 +365,19 @@ def _constrain(x, spec):
 
 def settle_grad(x):
     """``x`` as it is; on a DTensor, its gradient is laid out as ``x`` is
-    (a partial sum reduced) before it flows further back. For the
-    vocab-sharded embedding lookup, whose masked partial sum cannot take a
-    partial-sum gradient."""
-    if not isinstance(x, DTensor):
+    (a partial sum reduced, a gathered one sliced) before it flows further
+    back. DTensor picks each op's layout by its communication alone: a
+    gradient left partial or gathered makes the products before it run
+    their backward whole on every rank of the model axis (and a
+    vocab-sharded embedding lookup's masked partial sum cannot take a
+    partial-sum gradient at all)."""
+    if not (isinstance(x, DTensor) and x.requires_grad
+            and torch.is_grad_enabled()):
         return x
     pl = x.placements
     return DTensor.from_local(x.to_local(grad_placements=pl), x.device_mesh,
-                              pl, run_check=False)
+                              pl, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def dim_constraint(x, axis: int, mesh_axis: str = "model"):

@@ -209,33 +209,59 @@ def test_five_matmul_loop_folded_counts_per_device(fake_world):
     assert got == want
 
 
+def _python_loop(body, carry, n):
+    """The loops as the models ran them before ``loop.scan``."""
+    ys = []
+    for i in range(n):
+        carry, y = body(carry, i)
+        ys.append(y)
+    return carry, ys
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "xlstm-125m",
                                   "zamba2-2.7b"])
-def test_real_step_is_unchanged_by_a_folding_recorder(arch):
+def test_real_step_is_unchanged_by_a_folding_recorder(arch, monkeypatch):
     """One smoke training step on real CPU tensors, its loops of four or
-    more trips: the loss and every gradient are bit-identical with a
-    folding recorder active (which folds nothing on real tensors: every
-    op counts once) and without one."""
-    from repro_torch.models import lm
+    more trips, run twice: with every module's ``scan`` a plain Python
+    loop (and ``recomputed`` the identity), and with ``loop.scan`` under
+    a folding recorder, where no loop may see a folder (a recorder folds
+    only on fake tensors). The loss and every gradient are bit-identical.
+    What the loops compute against the reference is held by the JAX-held
+    losses and gradients of ``test_torch_train.py``."""
+    from repro_torch.models import encdec, lm, mamba2, xlstm
     from repro_torch.models.specs import materialize, tree_leaves
+    from repro_torch.train import step
+    modules = (L, encdec, lm, mamba2, xlstm, step)
     cfg, seq = _cfg(arch)
     gen = torch.Generator().manual_seed(0)
     tok, lab = (torch.randint(0, cfg.vocab, (2, seq), generator=gen)
                 for _ in range(2))
-    runs = []
-    for rec in (None, TA.TraceRecorder(None, fold=True)):
+    calls = []
+
+    def probed(body, carry, n):
+        calls.append(loop._folder)
+        return loop.scan(body, carry, n)
+
+    def run():
         params = materialize(lm.lm_specs(cfg),
                              torch.Generator().manual_seed(1), device="cpu")
         leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
-        if rec is None:
-            loss = lm.lm_loss(params, cfg, tok, lab)[0]
-            grads = torch.autograd.grad(loss, leaves)
-        else:
-            with rec:
-                loss = lm.lm_loss(params, cfg, tok, lab)[0]
-                grads = torch.autograd.grad(loss, leaves)
-            assert rec.trace().n_unrolled == len(rec.ops) > 0
-        runs.append((loss, grads))
-    (l0, g0), (l1, g1) = runs
+        loss = lm.lm_loss(params, cfg, tok, lab)[0]
+        return loss, torch.autograd.grad(loss, leaves)
+
+    with monkeypatch.context() as m:
+        for mod in modules:
+            m.setattr(mod, "scan", _python_loop)
+        for mod in (lm, xlstm):
+            m.setattr(mod, "recomputed", lambda fn: fn)
+        l0, g0 = run()
+    rec = TA.TraceRecorder(None, fold=True)
+    with monkeypatch.context() as m:
+        for mod in modules:
+            m.setattr(mod, "scan", probed)
+        with rec:
+            l1, g1 = run()
+    assert calls and all(f is None for f in calls)
+    assert rec.trace().n_unrolled == len(rec.ops) > 0
     assert torch.equal(l0, l1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))

@@ -285,6 +285,9 @@ def _np(tree, prefix, out):
 
 
 FSDP_CLIP = 0.5      # the FSDP step's global-norm clip; the norm exceeds it
+# the xLSTM (1, 8) step's gradients against one device's, each over its
+# own largest entry: read 1.56e-6 to 1.07e-5 (torch 2.13, CPU)
+XLSTM_GRAD_TOL = 3e-5
 
 
 @pytest.fixture(scope="module")
@@ -614,17 +617,16 @@ def test_xlstm_on_a_model_axis_wider_than_its_heads_matches_one_device(
     """xlstm-125m's mLSTM -> sLSTM cut laid out as its training cell lays
     it out on a (1, 8) mesh, 4 heads on a model axis of 8 (its backward's
     head split raised before the head norm's gradient was pinned): loss
-    within 1e-5 relative and every gradient within 1e-5 of its largest
-    entry (at least 1, as in the families' hold) of the one-device
-    step."""
+    within 1e-5 relative and every gradient within ``XLSTM_GRAD_TOL`` of
+    its own largest entry of the one-device step."""
     ranks = _case(world, "xlstm")
     for res in ranks:
         single, mesh = res["xlstm/loss"]
-        gap = float(res["xlstm/grad_gap"])
-        print(f"xlstm (1, 8): loss {mesh!r} vs {single!r}, gradient gap "
-              f"{gap:.3g}")
+        gaps = res["xlstm/grad_gaps"]
+        print(f"xlstm (1, 8): loss {mesh!r} vs {single!r}, gradient gaps "
+              f"{[f'{g:.3g}' for g in gaps]}")
         assert abs(mesh - single) <= 1e-5 * abs(single)
-        assert gap <= 1e-5
+        assert float(gaps.max()) <= XLSTM_GRAD_TOL
 
 
 def test_moe_expert_parallel_matches_single_device_and_reference(world):

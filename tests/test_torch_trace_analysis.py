@@ -37,6 +37,11 @@ from repro_torch.core import trace_analysis as TA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+# what remains of the xLSTM cells' FLOP gap to the reference walker once
+# the differences that are known are itemised (read on torch 2.13, CPU:
+# 2.41e-3 and 1.84e-4)
+XLSTM_SMOKE_REL = 2.5e-3
+XLSTM_CUT_REL = 2e-4
 
 
 @pytest.fixture
@@ -235,12 +240,35 @@ from repro.configs import registry as R
 from repro.launch.cells import build_cell
 from repro.launch.mesh import make_test_mesh
 from repro.core.hlo_analysis import analyze_hlo
+import dataclasses
+from repro.core import hlo_analysis as H
+from repro.models.lm import Segment
 R.SHAPES["tiny"] = R.ShapeSpec("tiny", 64, 8, "train")
 out = {}
 for arch in ("zamba2-2.7b", "xlstm-125m"):
     cell = build_cell(arch, "tiny", make_test_mesh((8, 1)),
                       cfg=R.get_smoke_config(arch))
     out[arch] = analyze_hlo(cell.lower().compile().as_text())["flops"]
+# the xLSTM cut on a (2, 4) mesh: its FLOPs, and those of the dots with a
+# dim of the sLSTM FFN's width (outside every loop, so each counts once)
+cfg = dataclasses.replace(
+    R.get_config("xlstm-125m"), d_model=256, vocab=4096,
+    segments=(Segment("mlstm", "none", 1), Segment("slstm", "none", 1)))
+hlo = build_cell("xlstm-125m", "tiny", make_test_mesh((2, 4)),
+                 cfg=cfg).lower().compile().as_text()
+ffn = int(cfg.d_model * cfg.xlstm.slstm_ff)
+comps, params = H._parse_computations(hlo)
+ffn_flops = 0.0
+for name, instrs in comps.items():
+    symtab = {i.name: i.out_sig for i in instrs}
+    for pn, sig in params.get(name, []):
+        symtab.setdefault(pn, sig)
+    for ins in instrs:
+        sigs = [ins.out_sig] + [symtab.get(o, "") for o in ins.operands]
+        if ins.op == "dot" and any(ffn in dims for sig in sigs
+                                   for _, dims in H._shape_list(sig)):
+            ffn_flops += H._dot_flops(ins, symtab)
+out["xlstm-cut"] = {"flops": analyze_hlo(hlo)["flops"], "ffn": ffn_flops}
 print(json.dumps(out))
 """
 
@@ -313,6 +341,17 @@ def test_smoke_zamba2_cell_flops_equal_the_reference_walker(ref_recurrent):
         ref_recurrent["zamba2-2.7b"]
 
 
+def _outer_flops(trace):
+    """FLOPs of the trace's matrix products over a contracted dim of size
+    1 (outer products), which XLA runs as multiplies."""
+    def contracted(op):
+        lhs = op.inputs[1] if op.base in ("addmm", "baddbmm") else \
+            op.inputs[0]
+        return lhs[0][-1]
+    return sum(TA.dot_flops(op) * op.count for op in trace.ops
+               if TA.dot_flops(op) and contracted(op) == 1)
+
+
 def test_smoke_xlstm_cell_flops_match_the_reference_walker(ref_recurrent):
     """xlstm-125m's smoke train cell (5 mLSTM and 2 sLSTM layers, chunks
     of 16 steps, 8 x 64 tokens on an (8, 1) mesh) against the reference
@@ -325,18 +364,64 @@ def test_smoke_xlstm_cell_flops_match_the_reference_walker(ref_recurrent):
     remains is in the mLSTM's chunk products: XLA unrolls the 4-trip
     chunk loop, folds the products against the zero initial state and
     pairs the three-operand contractions its own way; it is not itemised
-    yet and is held within 1% of the reference's count (0.24% on this
-    cell)."""
+    yet and is held within ``XLSTM_SMOKE_REL`` of the reference's count
+    (0.241% on this cell)."""
     cfg, trace = _port_smoke_cell("xlstm-125m")
-    def contracted(op):
-        lhs = op.inputs[1] if op.base in ("addmm", "baddbmm") else \
-            op.inputs[0]
-        return lhs[0][-1]
-    outer = sum(TA.dot_flops(op) * op.count for op in trace.ops
-                if TA.dot_flops(op) and contracted(op) == 1)
+    outer = _outer_flops(trace)
     x = cfg.xlstm
     n_mlstm = sum(s.count for s in cfg.segments if s.kind == "mlstm")
     b_local, nc = 8 // 8, 64 // x.chunk
     den = n_mlstm * nc * 2 * (2 * b_local * x.n_heads * x.chunk * x.chunk)
     port = TA.analyze_trace(trace)["flops"] - outer + den
-    assert port == pytest.approx(ref_recurrent["xlstm-125m"], rel=1e-2)
+    print(f"xlstm smoke: port {port!r}, reference "
+          f"{ref_recurrent['xlstm-125m']!r}")
+    assert port == pytest.approx(ref_recurrent["xlstm-125m"],
+                                 rel=XLSTM_SMOKE_REL)
+
+
+def test_xlstm_cut_on_a_model_axis_flops_match_the_reference_walker(
+        ref_recurrent):
+    """xlstm-125m cut to d_model 256, vocab 4096 and its own mLSTM ->
+    sLSTM order, 8 x 64 tokens (one chunk of 64 steps) on a (2, 4) mesh,
+    its 4 heads on the model axis of 4, against the reference walker on
+    the reference's own cell. Itemised: the outer products and the mLSTM
+    denominator's dot, as in
+    ``test_smoke_xlstm_cell_flops_match_the_reference_walker``; and the
+    sLSTM FFN, whose width 341 the model axis does not divide. Of its
+    nine products (three forward, six backward) the port runs all nine
+    split over the model axis (DTensor splits their rows), the reference
+    runs three whole on every model rank and six split over the model
+    dim: twice the port's FLOPs. Each side's FFN is taken out of its
+    count. What remains is within ``XLSTM_CUT_REL`` of the reference's
+    count (read: 1.84e-4)."""
+    import dataclasses
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import Segment
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    cfg = dataclasses.replace(
+        get_config("xlstm-125m"), d_model=256, vocab=4096,
+        segments=(Segment("mlstm", "none", 1), Segment("slstm", "none", 1)))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        cell = build_cell("xlstm-125m", ShapeSpec("tiny", 64, 8, "train"),
+                          make_test_mesh((2, 4)), cfg=cfg)
+        trace, _ = cell.trace()
+    finally:
+        dist.destroy_process_group()
+    width = int(cfg.d_model * cfg.xlstm.slstm_ff)
+    ffn = sum(TA.dot_flops(op) * op.count for op in trace.ops
+              if TA.dot_flops(op) and any(
+                  isinstance(i, tuple) and width in i[0] for i in op.inputs))
+    ref = ref_recurrent["xlstm-cut"]
+    assert 2 * ffn == ref["ffn"]
+    x = cfg.xlstm
+    b_local, h_local, chunk = 8 // 2, x.n_heads // 4, 64
+    den = 2 * (2 * b_local * h_local * chunk * chunk)
+    port = (TA.analyze_trace(trace)["flops"] - _outer_flops(trace) - ffn
+            + den)
+    print(f"xlstm (2, 4) cut: port {port!r}, reference "
+          f"{ref['flops'] - ref['ffn']!r}")
+    assert port == pytest.approx(ref["flops"] - ref["ffn"],
+                                 rel=XLSTM_CUT_REL)

@@ -349,10 +349,9 @@ def case_xlstm(inp, out, mesh):
                            R.distribute(lab, b_sh["labels"]))[0]
         dgrads = torch.autograd.grad(dloss, dleaves)
     out["xlstm/loss"] = np.array([float(loss), float(_full(dloss))])
-    out["xlstm/grad_gap"] = np.array(max(
-        float(np.abs(_full(a) - b.numpy()).max()
-              / max(1.0, float(b.abs().max())))
-        for a, b in zip(dgrads, grads)))
+    out["xlstm/grad_gaps"] = np.array([
+        float(np.abs(_full(a) - b.numpy()).max() / float(b.abs().max()))
+        for a, b in zip(dgrads, grads)])
 
 
 def case_decode(inp, out, mesh):
