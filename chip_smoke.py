@@ -144,10 +144,11 @@ Phases, each of which fails the run loudly:
     second host-resolver run repeats phase 4, else the ops PyTorch reports
     as nondeterministic; ``ppo.discretize`` for both resolvers); the PPO
     plan's ``flow_report`` (byte-hops and hottest link equal to the host
-    evaluate); ``run_scenario`` at ``benchmarks/fault_replace.py``'s full
-    configuration (S-VGG16 on hier 2x2:4x4, budget 4096, deploy budget
-    65536, threshold 0.02, migration weight 0.12, warm t0 0.005, the busiest
-    inter-chip link dropped, ``compare_cold=True``), its objectives the
+    evaluate); ``run_scenario`` at ``benchmarks/fault_replace.py``'s
+    configuration with a quarter of its budgets (S-VGG16 on hier 2x2:4x4,
+    budget 1024 of 4096, deploy budget 16384 of 65536, threshold 0.02,
+    migration weight 0.12, warm t0 0.005, the busiest inter-chip link
+    dropped, ``compare_cold=True``), its objectives the
     host evaluate's, identical with the recorder on and off at a sixteenth
     of the budgets (a replacement included), with
     replacements, moved MB, maximum degradation, wall and scorer calls a
@@ -298,7 +299,13 @@ Phases, each of which fails the run loudly:
     256-rank fake world, the ``(16, 16)`` production mesh, for
     internlm2-1.8b, qwen3-moe-30b-a3b, zamba2-2.7b and xlstm-125m at
     ``train_4k``, folded (each record's summary, trace seconds on the
-    host's CPU, ops recorded and the unrolled count they stand for); (c)
+    host's CPU, ops recorded and the unrolled count they stand for); every
+    flash op of internlm2's and qwen3-moe's takes its rank's own query
+    heads (1 and 2 of 16 and 32) and the one kv head they read
+    (``DRYRUN_FLASH_HEADS``); xlstm-125m's cell on the 512-rank
+    ``(2, 16, 16)`` world takes at most ``DRYRUN_XLSTM_MULTIPOD`` of the
+    pod record's FLOPs a device (its scans split over (row, head) pairs);
+    (c)
     qwen3's traffic graph (``core.gpu_adapter.
     traffic_from_trace``) on ``nvlink_cluster((4, 8))``, 256 GPUs: the
     rank order against ``optimize_device_order`` by simulated annealing
@@ -3113,6 +3120,10 @@ def _wrapper_host_times(dev, card) -> None:
 # benchmarks/fault_replace.py's full configuration and operating point
 FAULT_REPLACE = dict(budget=4096, deploy_budget=65536, threshold=0.02,
                      migration_weight=0.12, warm_t0=0.005)
+# phase 11d runs that scenario at this share of its budgets (its model,
+# NoC and fault whole): at the full budgets its host-bound searches took
+# 120-218 s of the script's 1200 s
+RUNTIME_BUDGET_CUT = 4
 # benchmarks/service.py's full configuration
 SERVICE = dict(budget=12000, fuse_rows=4, near_miss_seed=777, hit_repeats=300,
                cold_repeats=3, warm_repeats=3)
@@ -3280,11 +3291,12 @@ def _flow_of(plan, noc):
 
 
 def _runtime_path(kernels):
-    """Phase 11d: ``run_scenario`` at benchmarks/fault_replace.py's full
-    configuration: S-VGG16 on hier 2x2:4x4, the busiest inter-chip link of
-    the seeded deployment dropped at step 2, ``compare_cold=True``, with
-    the recorder (deploying itself); every objective it records is the
-    host evaluate's. At a sixteenth of the budgets, with the busiest
+    """Phase 11d: ``run_scenario`` at benchmarks/fault_replace.py's
+    configuration, its budgets cut by ``RUNTIME_BUDGET_CUT``: S-VGG16 on
+    hier 2x2:4x4, the busiest inter-chip link of the seeded deployment
+    dropped at step 2, ``compare_cold=True``, with the recorder (deploying
+    itself); every objective it records is the host evaluate's. At a
+    sixteenth of the full budgets, with the busiest
     inter-chip link of that budget's deployment dropped, the scenario runs
     twice, with the recorder (deploying itself) and without (on that
     deployment): both results must be identical, with a replacement."""
@@ -3296,11 +3308,13 @@ def _runtime_path(kernels):
     from repro_torch.obs import Recorder
     from repro_torch.snn import spike_vgg16
     fr = FAULT_REPLACE
+    budget, deploy_budget = (fr["budget"] // RUNTIME_BUDGET_CUT,
+                             fr["deploy_budget"] // RUNTIME_BUDGET_CUT)
     hm = HierarchicalMesh(2, 2, 4, 4, **FULL_NOC)
     cfg = spike_vgg16(n_classes=10, in_res=32, T=4)
     t0 = time.perf_counter()
     plan = deploy_model(cfg, hm, method="simulated_annealing", seed=0,
-                        budget=fr["deploy_budget"], schedule="none")
+                        budget=deploy_budget, schedule="none")
     deploy_s = time.perf_counter() - t0
 
     def busiest_interchip_link(plan):
@@ -3311,11 +3325,11 @@ def _runtime_path(kernels):
         return m, int(np.argmax(np.where(hm.interchip_mask(), loads, -1.0)))
     m, lid = busiest_interchip_link(plan)
     kw = dict(method="simulated_annealing", objective="comm_cost",
-              budget=fr["budget"], deploy_budget=fr["deploy_budget"],
+              budget=budget, deploy_budget=deploy_budget,
               migration_weight=fr["migration_weight"],
               warm_kw={"t0": fr["warm_t0"]}, seed=0,
               threshold=fr["threshold"], compare_cold=True,
-              cold_budget=fr["deploy_budget"])
+              cold_budget=deploy_budget)
     scenario = f"steps=6;fault=link:{lid}@2"
     rec = Recorder()
     _reset_counts(kernels)
@@ -3337,7 +3351,8 @@ def _runtime_path(kernels):
     cut_s = time.perf_counter() - t0
     identical = cut_on.to_dict() == cut_off.to_dict()
     calls = rec.counters.get("noc_batch.dispatches", 0)
-    print(f"[runtime] hier 2x2:4x4 S-VGG16, link {lid} dropped at step 2: "
+    print(f"[runtime] hier 2x2:4x4 S-VGG16, budgets {budget} (deploy "
+          f"{deploy_budget}), link {lid} dropped at step 2: "
           f"replacements {on.n_replacements}, cold fallbacks "
           f"{on.n_cold_fallbacks}, moved {on.moved_state_bytes / 1e6!r} MB, "
           f"max degradation {on.max_degradation!r}, final objective "
@@ -4555,6 +4570,14 @@ DRYRUN_PEAK_TOL = 0.2
 # the dry run's cells at full width on the (16, 16) production mesh
 DRYRUN_CELLS = ("internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-2.7b",
                 "xlstm-125m")
+# (query heads, kv heads) a rank of every flash op there, where the kv heads
+# do not divide the model axis of 16: each rank's own query heads and the
+# kv head they read
+DRYRUN_FLASH_HEADS = {"internlm2-1.8b": (1, 1), "qwen3-moe-30b-a3b": (2, 1)}
+# xlstm's train_4k on the (2, 16, 16) world: half the pod's rows a data
+# shard, its scans split over (row, head) pairs; FLOPs a device at most
+# this share of the pod record's
+DRYRUN_XLSTM_MULTIPOD = 0.6
 
 
 def _fake_world(n: int):
@@ -4714,17 +4737,24 @@ def _dryrun_trace_vs_real(card):
 
 
 def _dryrun_production(card):
-    """Phase 17b: ``run_cell`` at full width on the (16, 16) fake world;
-    returns qwen3's traffic graph on the mesh (for 17c)."""
+    """Phase 17b: ``run_cell`` at full width on the (16, 16) fake world,
+    the flash ops' heads a rank where the kv heads do not divide the model
+    axis, and xlstm's cell on the (2, 16, 16) world against its pod
+    record; returns qwen3's traffic graph on the mesh (for 17c)."""
     import tempfile
     from repro_torch.core.gpu_adapter import traffic_from_trace
+    from repro_torch.core.trace_analysis import flash_flops
     from repro_torch.launch import dryrun as D
-    graphs = {}
+    graphs, heads, flops = {}, {}, {}
+
+    def seen(tr, mesh, arch):
+        graphs[arch] = traffic_from_trace(tr, mesh)
+        heads[arch] = sorted({(op.inputs[0][0][1], op.inputs[1][0][1])
+                              for op in tr.ops if flash_flops(op)})
     out_dir = tempfile.mkdtemp(prefix="dryrun_")
     for arch in DRYRUN_CELLS:
-        rec = D.run_cell(arch, "train_4k", False, out_dir, on_trace=lambda
-                         tr, mesh, a=arch: graphs.__setitem__(
-                             a, traffic_from_trace(tr, mesh)))
+        rec = D.run_cell(arch, "train_4k", False, out_dir,
+                         on_trace=lambda tr, mesh, a=arch: seen(tr, mesh, a))
         if not rec["ok"]:
             raise AssertionError(f"dryrun: {arch} x train_4k failed: "
                                  f"{rec['error']}\n{rec['traceback']}")
@@ -4747,6 +4777,32 @@ def _dryrun_production(card):
             "collectives": {k: rec["collectives"][k] for k in
                             ("operand_bytes", "wire_bytes", "n_ops",
                              "by_link", "by_axis")}}))
+        flops[arch] = rec["cost"]["flops_per_device"]
+    for arch, want in DRYRUN_FLASH_HEADS.items():
+        print(f"[dryrun] (b) {arch} x train_4k x pod: (query heads, kv "
+              f"heads) a rank of its flash ops {heads[arch]}, want "
+              f"[{want}]; card {card}")
+        if heads[arch] != [want]:
+            raise AssertionError(f"dryrun: {arch}'s flash ops take "
+                                 f"{heads[arch]} heads a rank, not {want}")
+    rec = D.run_cell("xlstm-125m", "train_4k", True, out_dir)
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun: xlstm-125m x train_4k x multipod "
+                             f"failed: {rec['error']}\n{rec['traceback']}")
+    share = rec["cost"]["flops_per_device"] / flops["xlstm-125m"]
+    print(f"[dryrun] (b) xlstm-125m x train_4k x multipod (512 ranks): "
+          f"trace {rec['trace_s']} s (host CPU), FLOPs a device "
+          f"{rec['cost']['flops_per_device']!r}, {share!r} of the pod "
+          f"record's (at most {DRYRUN_XLSTM_MULTIPOD}), useful FLOPs ratio "
+          f"{rec['roofline']['useful_flops_ratio']!r}; card {card}")
+    print("[dryrun] " + json.dumps({
+        "phase": "17b", "arch": "xlstm-125m", "shape": "train_4k",
+        "mesh": "multipod", "trace_s": rec["trace_s"],
+        "cost": rec["cost"], "share_of_pod": share,
+        "flash_heads": {a: heads[a] for a in DRYRUN_FLASH_HEADS}}))
+    if share > DRYRUN_XLSTM_MULTIPOD:
+        raise AssertionError(f"dryrun: xlstm's multi-pod FLOPs a device "
+                             f"are {share!r} of the pod's")
     return graphs["qwen3-moe-30b-a3b"]
 
 

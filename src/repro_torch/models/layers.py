@@ -30,11 +30,17 @@ so on the card every rank launches the kernels on its own batch (or heads)
 shard. Under ``seq_shard_attn`` K/V go through
 ``kv_replicated_constraint`` and q keeps its sequence shard, as in the
 reference: each rank attends with its own queries over the gathered K/V,
-one kernel call a block of keys (:class:`_SeqShardAttention`).
+one kernel call a block of keys (:class:`_SeqShardAttention`). Where a
+mesh dim splits the query heads and the kv heads do not divide it, each
+rank takes the kv heads its own query heads read, as the reference's
+repeated K/V shard over the query heads (:func:`attention_block`).
 
-Decode attends in plain torch.
+Decode attends in plain torch; on a cache split over its sequence each
+rank attends over its own rows (:func:`_sharded_decode`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +48,8 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
-from ..sharding.rules import kv_replicated_constraint, write_seq
+from ..sharding.rules import (kv_replicated_constraint, local_rows,
+                              write_seq)
 from .loop import scan
 from .specs import param
 
@@ -449,9 +456,16 @@ def _sharded_attention(q, k, v, **kw):
 def _sharded_decode(q, k_cache, v_cache, pos: int, window):
     """:func:`decode_attention` of DTensors on each rank's local shard: the
     batch (dim 0) and heads (dim 2) stay split where q and both caches
-    split them on the same mesh axis; anything else (a cache split over
-    its sequence) is gathered first. The output has q's local layout."""
+    split them on the same mesh axis. Where both caches split their
+    sequence (dim 1), q is gathered over that axis (one token's heads)
+    and each rank attends over its own rows, as the reference's masked
+    read of a sequence-sharded cache does; the ranks' softmaxes merge by
+    their running maxima (:func:`_merge_decode`). Anything else is
+    gathered first. The output has q's local layout, whole on the
+    sequence's mesh dims."""
     mesh = q.device_mesh
+    seq = [i for i in range(mesh.ndim) if mesh.size(i) > 1
+           and k_cache.placements[i] == v_cache.placements[i] == Shard(1)]
 
     def keep(i):
         p = q.placements[i]
@@ -460,10 +474,51 @@ def _sharded_decode(q, k_cache, v_cache, pos: int, window):
             return p
         return Replicate()
     pl = [keep(i) for i in range(mesh.ndim)]
-    ql, kl, vl = (t.redistribute(mesh, pl).to_local()
-                  for t in (q, k_cache, v_cache))
-    out = decode_attention(ql, kl, vl, pos, window=window)
-    return DTensor.from_local(out, mesh, pl)
+    kv_pl = [Shard(1) if i in seq else p for i, p in enumerate(pl)]
+    ql = q.redistribute(mesh, pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local()
+              for t in (k_cache, v_cache))
+    if not seq:
+        return DTensor.from_local(
+            decode_attention(ql, kl, vl, pos, window=window), mesh, pl)
+    off, _ = local_rows(k_cache, 1)
+    lo = 0 if window is None else max(0, pos - window + 1)
+    a, z = max(lo, off) - off, min(pos + 1, off + kl.shape[1]) - off
+    acc, m = _decode_partial(ql, kl[:, a:max(a, z)], vl[:, a:max(a, z)])
+    out = _merge_decode(acc, m, mesh, seq)
+    return DTensor.from_local(out.reshape(ql.shape).to(q.dtype), mesh, pl)
+
+
+def _decode_partial(q, k, v):
+    """One rank's share of a decode step over its visible cache rows
+    ``k``, ``v [B, n, Hkv, D]`` (``n`` may be 0): ``(acc [B, Hkv, rep,
+    D + 1], m [B, Hkv, rep])``, the unnormalised output with the
+    softmax's sum as its last column, both relative to the rank's maximum
+    score ``m`` (``NEG_INF`` without rows)."""
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) * (1.0 / d ** 0.5)
+    m = s.amax(dim=-1) if k.shape[1] else torch.full(
+        qg.shape[:-1], NEG_INF, device=q.device)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bgrk,bkgd->bgrd", p, v.float())
+    return torch.cat([acc, p.sum(dim=-1)[..., None]], dim=-1), m
+
+
+def _merge_decode(acc, m, mesh, seq):
+    """The softmax over every rank's rows from each rank's
+    :func:`_decode_partial`: the maxima's all-reduce (max) over the mesh
+    dims ``seq``, then one all-reduce (sum) of the rescaled outputs and
+    sums. Returns ``[B, H, D]``."""
+    def reduced(t, op):
+        return DTensor.from_local(
+            t, mesh, [Partial(op) if i in seq else Replicate()
+                      for i in range(mesh.ndim)]).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+    acc = reduced(acc * torch.exp(m - reduced(m, "max"))[..., None], "sum")
+    out = acc[..., :-1] / acc[..., -1:]
+    return out.reshape(out.shape[0], -1, out.shape[-1])
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *,
@@ -492,6 +547,37 @@ def decode_attention(q, k_cache, v_cache, pos: int, *,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _rank_kv_heads(q, n_kv: int, x):
+    """Where mesh dims split q's heads (dim 2) and ``n_kv`` kv heads do
+    not divide them, so that K/V and their weights stay whole there (and
+    so does ``x``): ``(dims, lo, n)``, those mesh dims and the kv heads
+    ``[lo, lo + n)`` that this rank's query heads read (query head ``h``
+    reads ``h // rep``, the reference's ``repeat_kv``), in equal
+    consecutive groups as the flash kernels' GQA map reads them; else
+    None."""
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(q.placements)
+            if p == Shard(2) and mesh.size(i) > 1]
+    if (not dims or n_kv % math.prod(mesh.size(i) for i in dims) == 0
+            or any(x.placements[i] != Replicate() for i in dims)
+            or any(p not in (Shard(0), Shard(2), Replicate())
+                   for p in q.placements)):
+        return None
+    lo, hq = local_rows(q, 2)
+    rep = q.shape[2] // n_kv
+    if hq % rep and rep % hq:        # a kv head's queries across ranks
+        return None
+    return dims, lo // rep, max(1, hq // rep)
+
+
+def _partial_local(t, dims):
+    """DTensor ``t``'s local tensor, whose gradient is one term of a sum
+    over the mesh dims ``dims`` (``t`` is whole there; each rank uses its
+    own part of it)."""
+    return t.to_local(grad_placements=[Partial() if i in dims else p
+                                       for i, p in enumerate(t.placements)])
+
+
 def attention_block(p, x, positions, cfg, cache=None, pos=None):
     """Full GQA/SWA attention sublayer (no norm/residual: the caller owns
     those).
@@ -504,24 +590,52 @@ def attention_block(p, x, positions, cfg, cache=None, pos=None):
 
     With ``repeat_kv`` the reference materialises K/V at the full head
     count; the kernel's GQA map reads kv head ``h // rep`` instead, which is
-    the same, so only the plain route repeats.
+    the same, so only the plain route repeats. On DTensors whose query
+    heads a mesh dim splits where the kv heads do not divide it, the
+    reference's repeated K/V shard over the query heads: each rank takes
+    the kv heads its own query heads read (:func:`_rank_kv_heads`),
+    projected from its slice of ``wk``/``wv`` in training and sliced from
+    the whole K/V that a prefill writes to its cache, and attends on its
+    own heads.
     """
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cache is not None and s == 1:
-        write_seq(cache["k"], pos, k)
-        write_seq(cache["v"], pos, v)
+    decode = cache is not None and s == 1
+    split = None
+    if (getattr(cfg, "repeat_kv", False) and isinstance(q, DTensor)
+            and not decode):
+        split = _rank_kv_heads(q, p["wk"].shape[1], x)
+    if split is not None and cache is None:
+        dims, lo, n = split
+        xl = _partial_local(x, dims)
+        # the weights' gradients also sum over the ranks of x's own shards:
+        # each a full-size local tensor, zero outside the rank's kv heads
+        wdims = dims + [i for i, pl in enumerate(x.placements)
+                        if pl.is_shard()]
+        kk, vv = (torch.einsum("bsd,dhk->bshk", xl, _partial_local(
+            p[w], wdims).narrow(1, lo, n)) for w in ("wk", "wv"))
+        kk = apply_rope(kk, positions, cfg.rope_theta)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            write_seq(cache["k"], pos if decode else 0, k)
+            write_seq(cache["v"], pos if decode else 0, v)
+        kk, vv = k, v
+    if decode:
         out = decode_attention(q, cache["k"], cache["v"], pos,
                                window=cfg.window)
-    else:
+    elif split is not None:
         if cache is not None:
-            write_seq(cache["k"], 0, k)
-            write_seq(cache["v"], 0, v)
-        kk, vv = k, v
+            kk, vv = (_partial_local(t, split[0]).narrow(2, *split[1:])
+                      for t in (kk, vv))
+        out = DTensor.from_local(
+            blockwise_attention(q.to_local(), kk, vv, window=cfg.window,
+                                q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk),
+            q.device_mesh, q.placements)
+    else:
         q_chunk = cfg.q_chunk
         if getattr(cfg, "seq_shard_attn", False):
             # gather K/V over the seq axis before any head repeat: the

@@ -24,8 +24,8 @@ from torch.utils import checkpoint as _ckpt
 from .layers import rmsnorm_specs
 from .loop import recomputed, scan
 from .specs import param
-from ..sharding.rules import (carry_context, local_pointwise,
-                              on_local_shards, settle_grad)
+from ..sharding.rules import (carry_context, contraction_split,
+                              local_pointwise, on_local_shards, settle_grad)
 
 NEG = -1e30
 
@@ -138,21 +138,8 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
     stabilised (C, n, m) state.
 
     q/k/v [B,S,H,dh] float32 (k pre-scaled 1/sqrt(dh)), gates ig/fg
-    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)). DTensors run on
-    each rank's local shards (``sharding.rules.on_local_shards``): the
-    scan is independent over batch rows and heads. DTensor's own ops
-    would split the merged rows x heads of a product where the model axis
-    divides neither (4 heads on a model axis of 8 or 16), and their
-    backward cannot split them back.
+    [B,S,H]. Returns (h [B,S,H,dh], final (C, n, m)).
     """
-    if isinstance(q, DTensor):
-        out = on_local_shards(
-            lambda q, k, v, ig, fg, *st: _flat(mlstm_scan(
-                q, k, v, ig, fg, None if st[0] is None else st, chunk)),
-            (q, k, v, ig, fg) + tuple(state or (None,) * 3),
-            ((0, 2),) * 5 + ((0, 1),) * 3, ((0, 2),) + ((0, 1),) * 3,
-            q.shape[2])
-        return out[0], out[1:]
     b, s, h, dh = q.shape
     if state is None:
         state = _mlstm_init_state(b, h, dh, q.device)
@@ -204,41 +191,66 @@ def mlstm_scan(q, k, v, ig, fg, state=None, chunk: int = 64):
     return torch.cat(hs, dim=2).transpose(1, 2), state
 
 
+def _heads_proj(x, w):
+    """``x [B, S, d]`` times ``w [d, H, k]``: ``[B, S, H, k]``; or, where
+    each head reads its own row (``x [B, S, H, d]``), head by head."""
+    if x.ndim == 3:
+        return torch.einsum("bse,ehk->bshk", x, w)
+    return torch.einsum("bshe,ehk->bshk", x, w)
+
+
+def _mlstm_inputs(u, w_q, w_k, w_v, w_if, b_if):
+    """The mLSTM scan's inputs ``(q, k, v, ig, fg)`` (float32, k scaled
+    1/sqrt(dh)) projected from ``u`` (:func:`_heads_proj`)."""
+    dh = w_q.shape[-1]
+    q = _heads_proj(u, w_q).float()
+    k = _heads_proj(u, w_k).float() / (dh ** 0.5)
+    v = _heads_proj(u, w_v).float()
+    gates = _heads_proj(u.float(), w_if) + b_if
+    return q, k, v, gates[..., 0], gates[..., 1]
+
+
 def mlstm_block(p, x, cfg: XLSTMConfig, cache=None):
     """x [B,S,d]. cache: {"c","n","m"}; decode (S == 1) reads and advances
     it, prefill starts from it and fills it, in place. Returns (out,
-    cache or None)."""
+    cache or None). On DTensors the projections into the scan and the
+    scan run together on each rank's local shards
+    (``sharding.rules.on_local_shards``: its rows, its heads or its (row,
+    head) pairs), so that each rank projects only what its scan reads."""
     b, s, d = x.shape
     di = int(d * cfg.up_factor)
-    h = cfg.n_heads
-    dh = di // h
     # the halves' gradients meet laid out as the product is: joined
     # otherwise, DTensor gathers them and runs the weight gradient whole
     # on every model rank
     up = settle_grad(x @ p["w_up"])
     u, z = up[..., :di], up[..., di:]
-    q = torch.einsum("bse,ehk->bshk", u, p["w_q"]).float()
-    k = torch.einsum("bse,ehk->bshk", u, p["w_k"]).float() / (dh ** 0.5)
-    v = torch.einsum("bse,ehk->bshk", u, p["w_v"]).float()
-    gates = torch.einsum("bse,ehg->bshg", u.float(), p["w_if"]) + p["b_if"]
-    ig, fg = gates[..., 0], gates[..., 1]
+    ws = tuple(p[k] for k in ("w_q", "w_k", "w_v", "w_if", "b_if"))
+    state = None
+    if cache is not None:
+        state = (cache["c"], cache["n"], cache["m"])
 
     if cache is not None and s == 1:
-        state = (cache["c"], cache["n"], cache["m"])
+        q, k, v, ig, fg = _mlstm_inputs(u, *ws)
         state, h_out = _mlstm_cell_step(
             state, (q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0]))
         h_seq = h_out[:, None]
+    elif isinstance(u, DTensor):
+        out = on_local_shards(
+            lambda u, *t: _flat(mlstm_scan(
+                *_mlstm_inputs(u, *t[:5]),
+                None if t[5] is None else t[5:], cfg.chunk)),
+            (u,) + ws + tuple(state or (None,) * 3),
+            ((0, None),) + ((None, 1),) * 4 + ((None, 0),)
+            + ((0, 1),) * 3, ((0, 2),) + ((0, 1),) * 3, cfg.n_heads)
+        h_seq, state = out[0], out[1:]
     else:
-        state0 = None
-        if cache is not None:
-            state0 = (cache["c"], cache["n"], cache["m"])
-        h_seq, state = mlstm_scan(q, k, v, ig, fg, state0, cfg.chunk)
+        h_seq, state = mlstm_scan(*_mlstm_inputs(u, *ws), state, cfg.chunk)
     if cache is not None:
         for key, t in zip(("c", "n", "m"), state):
             cache[key].copy_(t)
 
     hn = _head_norm(h_seq, p["head_norm"]["scale"], (b, s, di), x.dtype)
-    return (hn * F.silu(z)) @ p["w_down"], cache
+    return contraction_split(hn * F.silu(z), p["w_down"]) @ p["w_down"], cache
 
 
 # ---------------------------------------------------------------- sLSTM ----
@@ -285,16 +297,7 @@ def slstm_scan(wx, r, bg, state=None, chunk: int = 64):
     """The sLSTM recurrence over ``wx [B,S,H,4dh]`` (input
     pre-activations) from ``state`` (h, c, n, m, each ``[B,H,dh]``; None:
     the zero state), in chunks of steps. Returns (h [B,S,H,dh], final
-    state). DTensors run on each rank's local shards, as in
-    :func:`mlstm_scan` (``r`` and ``bg`` per head)."""
-    if isinstance(wx, DTensor):
-        out = on_local_shards(
-            lambda wx, r, bg, *st: _flat(slstm_scan(
-                wx, r, bg, None if st[0] is None else st, chunk)),
-            (wx, r, bg) + tuple(state or (None,) * 4),
-            ((0, 2), (None, 0), (None, 0)) + ((0, 1),) * 4,
-            ((0, 2),) + ((0, 1),) * 4, wx.shape[2])
-        return out[0], out[1:]
+    state)."""
     b, s, h, g = wx.shape
     if state is None:
         state = tuple(torch.zeros(b, h, g // 4, device=wx.device)
@@ -319,20 +322,31 @@ def _flat(out):
 def slstm_block(p, x, cfg: XLSTMConfig, cache=None):
     """x [B,S,d]. cache: {"h","c","n","m"} each [B,H,dh]; decode (S == 1)
     reads and advances it, prefill starts from it and fills it, in place.
-    Returns (out, cache or None)."""
+    Returns (out, cache or None). On DTensors the input projection and the
+    scan run on local shards, as in :func:`mlstm_block`."""
     b, s, d = x.shape
-    wx = torch.einsum("bsd,dhg->bshg", x, p["w_gates"]).float()
-    r = p["r_gates"].float()
-    bg = p["b_gates"]
+    ws = (p["w_gates"], p["r_gates"], p["b_gates"])
     state = None
     if cache is not None:
         state = (cache["h"], cache["c"], cache["n"], cache["m"])
 
+    def scan_of(x, w, r, bg, *st):
+        return _flat(slstm_scan(_heads_proj(x, w).float(), r.float(), bg,
+                                None if st[0] is None else st, cfg.chunk))
     if cache is not None and s == 1:
-        state, h_out = _slstm_cell_step((r, bg), state, wx[:, 0])
+        state, h_out = _slstm_cell_step(
+            (ws[1].float(), ws[2]), state,
+            torch.einsum("bsd,dhg->bshg", x, ws[0]).float()[:, 0])
         h_seq = h_out[:, None]
+    elif isinstance(x, DTensor):
+        out = on_local_shards(
+            scan_of, (x,) + ws + tuple(state or (None,) * 4),
+            ((0, None), (None, 1), (None, 0), (None, 0)) + ((0, 1),) * 4,
+            ((0, 2),) + ((0, 1),) * 4, cfg.n_heads)
+        h_seq, state = out[0], out[1:]
     else:
-        h_seq, state = slstm_scan(wx, r, bg, state, cfg.chunk)
+        out = scan_of(x, *ws, *(state or (None,)))
+        h_seq, state = out[0], out[1:]
     if cache is not None:
         for key, t in zip(("h", "c", "n", "m"), state):
             cache[key].copy_(t)

@@ -225,34 +225,35 @@ def local_pointwise(fn, x):
 
 def on_local_shards(fn, args, dims, out_dims, n_heads: int):
     """``fn(*args)`` on each rank's local shards, for a computation that is
-    independent over batch rows and heads (a recurrent scan). ``dims``
-    gives each arg's ``(batch dim, heads dim)``, either None; the first
-    arg is a DTensor with a batch dim. The batch is split as the
-    activations are (``activation_constraint``: over the batch axes, the
-    model axis too under ``extra_dp``, as far as they divide it). The
-    mesh's model axis, where no batch shard sits, splits every arg with a
-    heads dim over heads where ``n_heads`` divide it, else over batch rows
-    where they divide it. Any other shard is gathered first; an arg
-    without the dim a mesh dim splits is whole there, its gradient a
-    partial sum. Plain tensors count as replicated.
-    ``out_dims``: each output's ``(batch dim, heads dim)``, laid out as
-    the args are. Returns the outputs as DTensors (a tuple, as ``fn``
-    returns them)."""
+    independent over batch rows and heads (a recurrent scan and the
+    projections into it). ``dims`` gives each arg's ``(batch dim, heads
+    dim)``, either None; the first arg is a DTensor with a batch dim at
+    dim 0. The batch is split as the activations are
+    (``activation_constraint``: over the batch axes, the model axis too
+    under ``extra_dp``, as far as they divide it). The mesh's model axis,
+    where no batch shard sits, splits every arg with a heads dim over
+    heads where ``n_heads`` divide it, else over batch rows where they
+    divide it, else over the (row, head) pairs (:class:`_PairSplit`).
+    Any other shard is gathered first; an arg without the dim a mesh dim
+    splits is whole there, its gradient a partial sum. Plain tensors
+    count as replicated. ``out_dims``: each output's ``(batch dim, heads
+    dim)``, laid out as the args are. Returns the outputs as DTensors (a
+    tuple, as ``fn`` returns them)."""
     first = args[0]
     mesh = first.device_mesh
-    batch, heads = _scan_split(first, dims[0][0], n_heads)
+    batch, heads, pairs = _scan_split(first, dims[0][0], n_heads)
+    pair = _PairSplit.of(first, n_heads, batch, pairs)
 
     def placed(bd, hd, grad=False):
         out = []
-        for bt, h in zip(batch, heads):
-            if bt:
-                out.append(Shard(bd) if bd is not None
-                           else Partial() if grad else Replicate())
-            elif h:
-                out.append(Shard(hd) if hd is not None
-                           else Partial() if grad else Replicate())
+        for bt, h, pr in zip(batch, heads, pairs):
+            if bt and bd is not None:
+                out.append(Shard(bd))
+            elif h and hd is not None:
+                out.append(Shard(hd))
             else:
-                out.append(Replicate())
+                out.append(Partial() if grad and (bt or h or pr)
+                           else Replicate())
         return out
 
     def local(t, bd, hd):
@@ -261,12 +262,81 @@ def on_local_shards(fn, args, dims, out_dims, n_heads: int):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
-        return _Placed.apply(t, placed(bd, hd)).to_local(
+        t = _Placed.apply(t, placed(bd, hd)).to_local(
             grad_placements=placed(bd, hd, grad=True))
+        return t if pair is None else pair.to_pairs(t, bd, hd)
 
     outs = fn(*(local(t, *d) for t, d in zip(args, dims)))
+    if pair is not None:
+        outs = [pair.from_pairs(o, hd) for o, (_, hd) in zip(outs, out_dims)]
     return tuple(DTensor.from_local(o, mesh, placed(*d))
                  for o, d in zip(outs, out_dims))
+
+
+@dataclasses.dataclass
+class _PairSplit:
+    """The (row, head) pairs of a rank's batch shard split over one mesh
+    dim: pair ``p`` is row ``p // n_heads``, head ``p % n_heads``, and this
+    rank takes pairs ``[lo, lo + n)`` of ``n_pairs``, ``per = ceil(n_pairs
+    / m)`` a rank on ``m`` ranks (the trailing ranks fewer, or none), as
+    GSPMD splits an uneven dim. ``fn`` sees one row whose heads are the
+    rank's pairs; the args come whole and each rank takes its pairs, the
+    outputs are gathered."""
+    mesh: object
+    dim: int
+    n_heads: int
+    n_pairs: int
+    per: int
+    lo: int
+    n: int
+
+    @classmethod
+    def of(cls, t, n_heads: int, batch, pairs):
+        """The split of DTensor ``t``'s batch where a mesh dim splits the
+        pairs, else None."""
+        if not any(pairs):
+            return None
+        mesh = t.device_mesh
+        dim = pairs.index(True)
+        n_pairs = t.shape[0] // math.prod(
+            mesh.size(i) for i, bt in enumerate(batch) if bt) * n_heads
+        per = -(-n_pairs // mesh.size(dim))
+        lo = min(mesh.get_coordinate()[dim] * per, n_pairs)
+        return cls(mesh, dim, n_heads, n_pairs, per, lo,
+                   min(per, n_pairs - lo))
+
+    def _index(self, of_row: bool, device):
+        """Each of the rank's pairs' row (or head)."""
+        return torch.tensor([(self.lo + j) // self.n_heads if of_row
+                             else (self.lo + j) % self.n_heads
+                             for j in range(self.n)], dtype=torch.long,
+                            device=device)
+
+    def to_pairs(self, t, bd, hd):
+        """Local ``t`` as ``fn`` takes it: one row whose heads are the
+        rank's pairs. A per-head weight (no batch dim) is indexed by their
+        heads; an input shared by the heads (no heads dim) by their rows,
+        which become a heads dim before its last dim."""
+        if bd is None:
+            return t if hd is None else t.index_select(
+                hd, self._index(False, t.device))
+        if hd is None:
+            return t.index_select(bd, self._index(True, t.device))[
+                None].movedim(1, -2)
+        return t.movedim(hd, 1).flatten(0, 1).narrow(
+            0, self.lo, self.n)[None].movedim(1, hd)
+
+    def from_pairs(self, o, hd):
+        """``fn``'s output ``o`` in the rank's rows x heads layout, every
+        rank's pairs gathered."""
+        o = o.movedim(hd, 1)[0]                             # [n, ...]
+        o = torch.cat([o, o.new_zeros((self.per - self.n,) + o.shape[1:])])
+        o = DTensor.from_local(o, self.mesh, [
+            Shard(0) if i == self.dim else Replicate()
+            for i in range(self.mesh.ndim)]).redistribute(
+            self.mesh, [Replicate()] * self.mesh.ndim).to_local()
+        return o[:self.n_pairs].unflatten(0, (-1, self.n_heads)).movedim(
+            1, hd)
 
 
 class _Placed(torch.autograd.Function):
@@ -293,7 +363,7 @@ class _Placed(torch.autograd.Function):
 
 def _scan_split(t, bdim: int, n_heads: int):
     """For each mesh dim of DTensor ``t``'s mesh: does it split the batch
-    rows, does it split the heads (:func:`on_local_shards`)."""
+    rows, the heads, or the (row, head) pairs (:func:`on_local_shards`)."""
     mesh = t.device_mesh
     names = mesh.mesh_dim_names or ()
     axes = (("pod", "data", "model") if getattr(_ctx, "extra_dp", False)
@@ -302,6 +372,7 @@ def _scan_split(t, bdim: int, n_heads: int):
     batch = [p == Shard(0) for p in placements(mesh, spec)]
     split = math.prod(mesh.size(i) for i, bt in enumerate(batch) if bt)
     heads = [False] * mesh.ndim
+    pairs = [False] * mesh.ndim
     for i, name in enumerate(names):
         if name != "model" or batch[i]:
             continue
@@ -309,7 +380,9 @@ def _scan_split(t, bdim: int, n_heads: int):
             heads[i] = True
         elif t.shape[bdim] % (split * mesh.size(i)) == 0:
             batch[i] = True
-    return batch, heads
+        else:
+            pairs[i] = True
+    return batch, heads, pairs
 
 
 def unshard_dim(x, dim: int):
@@ -323,6 +396,20 @@ def unshard_dim(x, dim: int):
     if list(x.placements) == pl:
         return x
     return x.redistribute(x.device_mesh, pl)
+
+
+def local_rows(t, dim: int) -> tuple:
+    """``(first index, count)`` of DTensor ``t``'s dim ``dim`` that this
+    rank holds: ``torch.chunk``'s split over each mesh dim that shards it,
+    major first (a trailing rank may hold fewer, or none)."""
+    off, size = 0, t.shape[dim]
+    coord = t.device_mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            chunk = -(-size // t.device_mesh.size(i))
+            off += coord[i] * chunk
+            size = max(0, min(chunk, size - coord[i] * chunk))
+    return off, size
 
 
 def write_seq(cache, start: int, value):
@@ -341,13 +428,7 @@ def write_seq(cache, start: int, value):
     pl = [Replicate() if p.is_shard(1) else p for p in cache.placements]
     v = value.redistribute(mesh, pl).to_local()
     local = cache.to_local()
-    off, size = 0, cache.shape[1]    # this rank's rows: torch.chunk's split
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(cache.placements):
-        if p.is_shard(1):
-            chunk = -(-size // mesh.size(i))
-            off += coord[i] * chunk
-            size = max(0, min(chunk, size - coord[i] * chunk))
+    off, _ = local_rows(cache, 1)
     lo, hi = max(start, off), min(start + n, off + local.shape[1])
     if lo < hi:
         local[:, lo - off:hi - off] = v[:, lo - start:hi - start]
@@ -378,6 +459,23 @@ def settle_grad(x):
     return DTensor.from_local(x.to_local(grad_placements=pl), x.device_mesh,
                               pl, run_check=False, shape=x.shape,
                               stride=x.stride())
+
+
+def contraction_split(x, w):
+    """``x`` laid out for ``x @ w``: split over its last dim on each mesh
+    dim where ``w`` splits its rows (the contracted dim) and ``x`` is
+    whole, as the product reads it there. DTensor would take the
+    product's weight gradient ``x^T @ dout`` whole on every rank of such a
+    mesh dim and slice it (both layouts cost it no communication); split,
+    each rank computes its own rows, and the gradient of ``x`` is
+    gathered."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    pl = [Shard(x.ndim - 1) if q == Shard(0) and p == Replicate() else p
+          for p, q in zip(x.placements, w.placements)]
+    if list(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 def dim_constraint(x, axis: int, mesh_axis: str = "model"):

@@ -43,6 +43,7 @@ class TrainConfig:
     adam: AdamWConfig = AdamWConfig(lr=3e-4, grad_clip=1.0)
     accum_steps: int = 1
     grad_compression: str = "none"      # none | int8_ef
+    compression_block: int = 2048
 
 
 # ---- int8 error-feedback gradient compression --------------------------------

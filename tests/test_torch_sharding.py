@@ -486,11 +486,14 @@ def test_serving_on_the_mesh_matches_one_device(world, arch, kv, path,
     and every cache within 1e-5 of the largest entry. internlm2's caches
     (stacked over layers) split over the sequence (2 kv heads) and over
     heads (4); the decode went through the sharded path each family
-    has."""
+    has, and where the caches split over their sequence (2 kv heads on a
+    model axis of 4: every smoke config but internlm2's with 4) each rank
+    attended over its own rows and the ranks' softmaxes merged
+    (``layers._merge_decode``)."""
     ranks = _case(world, "decode")
     key = f"decode/{arch}/{kv}"
-    names = ["_moe_gathered_tokens", "_sharded_absorbed_decode",
-             "_sharded_decode"]
+    names = ["_merge_decode", "_moe_gathered_tokens",
+             "_sharded_absorbed_decode", "_sharded_decode"]
     for r, res in enumerate(ranks):
         gaps = [float(res[f"{key}/{k}_gap"])
                 for k in ("prefill", "decode", "cache")]
@@ -501,6 +504,11 @@ def test_serving_on_the_mesh_matches_one_device(world, arch, kv, path,
         assert ran[path] > 0
         if cache_pl is not None:
             assert str(res[f"{key}/cache_placements"]) == cache_pl
+        # the smoke configs' 2 kv heads (all but internlm2's with 4) split
+        # the caches over their sequence: each rank attends over its own
+        # rows, the softmaxes merged across the ranks
+        assert (ran["_merge_decode"] > 0) == (
+            kv != 4 and ran["_sharded_decode"] > 0)
 
 
 @pytest.mark.parametrize("kv,wk", [(2, "(Replicate(), Replicate())"),
@@ -627,6 +635,48 @@ def test_xlstm_on_a_model_axis_wider_than_its_heads_matches_one_device(
               f"{[f'{g:.3g}' for g in gaps]}")
         assert abs(mesh - single) <= 1e-5 * abs(single)
         assert float(gaps.max()) <= XLSTM_GRAD_TOL
+
+
+@pytest.mark.parametrize("rows", [2, 3])
+def test_xlstm_pairs_on_a_model_axis_match_one_device(world, rows):
+    """The cut of ``test_xlstm_on_a_model_axis_wider_than_its_heads_
+    matches_one_device`` at 2 and 3 rows, where the model axis of 8
+    divides neither the rows nor the 4 heads: the scans and the products
+    into them run on each rank's (row, head) pairs (8 pairs, one a rank;
+    12, two on ranks 0-5 and none on 6 and 7), the per-head weights'
+    gradients partial sums over the ranks that hold each head. Loss within
+    1e-5 relative and every gradient within ``XLSTM_GRAD_TOL`` of its own
+    largest entry of the one-device step."""
+    ranks = _case(world, "xlstm_pairs")
+    for res in ranks:
+        single, mesh = res[f"xlstm_pairs/{rows}/loss"]
+        gaps = res[f"xlstm_pairs/{rows}/grad_gaps"]
+        print(f"xlstm (1, 8), {rows} rows: loss {mesh!r} vs {single!r}, "
+              f"gradient gaps {[f'{g:.3g}' for g in gaps]}")
+        assert abs(mesh - single) <= 1e-5 * abs(single)
+        assert float(gaps.max()) <= XLSTM_GRAD_TOL
+
+
+def test_gqa_query_heads_stay_local_on_the_kernel_route(world):
+    """internlm2's smoke config (4 query heads, 2 kv heads: the kv heads
+    do not divide the model axis of 4) with tensor-parallel parameters,
+    the kernels' route taken as on the card (K/V not repeated): every
+    flash call takes one query head and the one kv head it reads, each
+    rank projecting that head from its slice of ``wk``/``wv`` (whose
+    gradients are partial sums over the two ranks that read each kv head,
+    and over the batch). Loss within 1e-5 relative and every gradient
+    within 1e-5 of its largest entry of the one-device step."""
+    ranks = _case(world, "gqa")
+    for r, res in enumerate(ranks):
+        single, mesh = res["gqa/loss"]
+        gap = float(res["gqa/grad_gap"])
+        heads = res["gqa/heads"].tolist()
+        print(f"rank {r} gqa: loss {mesh!r} vs {single!r}, gradient gap "
+              f"{gap:.3g}, flash calls (query heads, kv heads) {heads}")
+        assert str(res["gqa/wk"]) == "(Replicate(), Replicate())"
+        assert heads == [[1, 1]] * 2
+        assert abs(mesh - single) <= 1e-5 * abs(single)
+        assert gap < 1e-5
 
 
 def test_moe_expert_parallel_matches_single_device_and_reference(world):

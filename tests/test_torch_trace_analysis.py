@@ -11,7 +11,8 @@ mesh with the same layouts, and its collectives are the ones DTensor
 issues (``CommDebugMode``'s counts); the flash ops count 4 D (forward) and
 10 D (backward) FLOPs per visible pair and head. A smoke train cell's
 per-device FLOPs equal the reference walker's on the reference's own cell
-(8 host devices, a subprocess) once attention is counted the reference's
+(8 host devices, a subprocess) on ``(8, 1)`` and ``(2, 4)`` meshes, and
+its decode cell's on ``(2, 4)``, once attention is counted the reference's
 way: its dense 64 x 64 block computes every (q, k) pair, where the port's
 kernel counts the visible ones, and its backward's rowsum(dO * O) is a dot
 (2 S D a head) inside the port's kernel.
@@ -180,59 +181,106 @@ def test_flash_ops_count_visible_pairs(causal, window):
     assert TA.analyze_trace(rec.trace())["flops"] == 14 * d * pairs * b * h
 
 
-REF_CELL = """
+REF_INTERNLM2 = """
 import os, sys, json
 sys.path.insert(0, SRC)
 from repro.configs import registry as R
 from repro.launch.cells import build_cell
 from repro.launch.mesh import make_test_mesh
 from repro.core.hlo_analysis import analyze_hlo
-R.SHAPES["tiny"] = R.ShapeSpec("tiny", 64, 8, "train")
-cell = build_cell("internlm2-1.8b", "tiny", make_test_mesh((8, 1)),
-                  cfg=R.get_smoke_config("internlm2-1.8b"))
-print(json.dumps(analyze_hlo(cell.lower().compile().as_text())))
+out = {}
+for kind, mesh in (("train", (8, 1)), ("train", (2, 4)), ("decode", (2, 4))):
+    R.SHAPES["tiny"] = R.ShapeSpec("tiny", 64, 8, kind)
+    cell = build_cell("internlm2-1.8b", "tiny", make_test_mesh(mesh),
+                      cfg=R.get_smoke_config("internlm2-1.8b"))
+    out[f"{kind}-{mesh}"] = analyze_hlo(
+        cell.lower().compile().as_text())["flops"]
+print(json.dumps(out))
 """
 
 
-def test_smoke_train_cell_flops_equal_the_reference_walker():
+def _reference(code):
+    """The last line of ``code``'s output, JSON, run with the reference on
+    8 host devices (a subprocess)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    out = subprocess.run([sys.executable, "-c", f"SRC = {SRC!r}\n"
+                          + textwrap.dedent(code)],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def ref_internlm2():
+    """The reference walker's FLOPs a device of internlm2's smoke train
+    cell on ``(8, 1)`` and ``(2, 4)`` meshes and of its decode cell on
+    ``(2, 4)``."""
+    return _reference(REF_INTERNLM2)
+
+
+def _internlm2_cell(kind, mesh):
     from repro_torch.configs.registry import ShapeSpec, get_smoke_config
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.mesh import make_test_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    out = subprocess.run([sys.executable, "-c", f"SRC = {SRC!r}\n"
-                          + textwrap.dedent(REF_CELL)],
-                         capture_output=True, text=True, env=env, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    ref = json.loads(out.stdout.strip().splitlines()[-1])
-
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
     try:
-        cell = build_cell("internlm2-1.8b", ShapeSpec("tiny", 64, 8, "train"),
-                          make_test_mesh((8, 1)),
+        cell = build_cell("internlm2-1.8b", ShapeSpec("tiny", 64, 8, kind),
+                          make_test_mesh(mesh),
                           cfg=get_smoke_config("internlm2-1.8b"))
-        trace, memory = cell.trace()
+        return cell.trace()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mesh,heads", [((8, 1), (4, 2)), ((2, 4), (1, 1))],
+                         ids=["8x1", "2x4"])
+def test_smoke_train_cell_flops_equal_the_reference_walker(ref_internlm2,
+                                                           mesh, heads):
+    """internlm2's smoke train cell (4 query heads, 2 kv heads, 8 x 64
+    tokens): FLOPs a device equal to the reference walker's on the
+    reference's own cell, with attention counted its way. On ``(2, 4)``
+    the 2 kv heads do not divide the model axis of 4: the reference
+    repeats K/V (``repeat_kv``) and its scores shard over the query heads;
+    the port's ranks take the kv head their own query head reads,
+    projected from their slice of ``wk``/``wv``, so every flash op takes
+    one query head and one kv head a rank (``heads``), and the K/V
+    projections run on one head a rank as the reference's do."""
+    trace, memory = _internlm2_cell("train", mesh)
     res = TA.analyze_trace(trace)
     flash = [op for op in trace.ops if TA.flash_flops(op)]
     assert [op.base for op in flash] == ["flash_attention"] * 2 + [
         "flash_attention_backward"] * 2
-    # the reference's attention: every pair of its one dense block, and
-    # the backward's rowsum(dO * O) as a dot
-    dense = 0.0
     for op in flash:
-        b, h, s, d = op.inputs[0][0]
-        per = 4 * d * s * s if op.base == "flash_attention" else (
-            10 * d * s * s + 2 * s * d)
-        dense += per * b * h
-    port = res["flops"] - sum(TA.flash_flops(op) for op in flash) + dense
-    assert port == ref["flops"]
+        assert (op.inputs[0][0][1], op.inputs[1][0][1]) == heads
+    assert res["flops"] + _dense_attention(trace) == \
+        ref_internlm2[f"train-{mesh}"]
     assert memory["peak_bytes_per_device"] > memory["argument_bytes"] > 0
 
 
+def test_smoke_decode_cell_flops_equal_the_reference_walker(ref_internlm2):
+    """internlm2's smoke decode cell (8 rows, a 64-row cache) on a
+    ``(2, 4)`` mesh: the 2 kv heads do not divide the model axis, so the
+    caches split over their sequence (``launch.cells._pick_rules``), 16
+    rows a rank. The reference's masked read attends every query head
+    over each rank's own rows; so does the port's (``layers._sharded_
+    decode``: q gathered, the ranks' softmaxes merged by their maxima),
+    where it gathered the caches and attended over all 64 rows on every
+    rank: FLOPs a device equal, and no collective carries a cache."""
+    trace, _ = _internlm2_cell("decode", (2, 4))
+    assert TA.analyze_trace(trace)["flops"] == ref_internlm2[
+        "decode-(2, 4)"]
+    # the scores and the weighted sum, batched over 4 rows x 2 kv heads:
+    # 16 keys a rank
+    attn = [op for op in trace.ops if op.base == "bmm"
+            and tuple(op.inputs[0][0][:2]) == (8, 2)]
+    assert len(attn) == 4
+    assert all(tuple(op.inputs[1][0][1:]) == (16, 16) for op in attn)
+    for op in trace.ops:
+        if "kind" in op.attrs:
+            assert all(tuple(o[0])[-3:] != (64, 2, 16)
+                       for o in op.outputs + op.inputs), op
 REF_RECURRENT = """
 import os, sys, json
 sys.path.insert(0, SRC)
@@ -269,6 +317,30 @@ for name, instrs in comps.items():
                                    for _, dims in H._shape_list(sig)):
             ffn_flops += H._dot_flops(ins, symtab)
 out["xlstm-cut"] = {"flops": analyze_hlo(hlo)["flops"], "ffn": ffn_flops}
+# the cut on a (1, 8) mesh at 2 and 3 rows: its FLOPs, and those of the
+# products outside the scans (the blocks' and the head's einsums, by the
+# spec their dots trace from; outside every loop, so each counts once)
+import re
+OUTSIDE = {"bsd,de->bse", "bse,ehk->bshk", "bse,ehg->bshg", "bse,ed->bsd",
+           "bsd,dhg->bshg", "bsd,df->bsf", "bsf,fd->bsd", "bsd,dv->bsv"}
+for rows in (2, 3):
+    R.SHAPES["tiny"] = R.ShapeSpec("tiny", 64, rows, "train")
+    hlo = build_cell("xlstm-125m", "tiny", make_test_mesh((1, 8)),
+                     cfg=cfg).lower().compile().as_text()
+    comps, params = H._parse_computations(hlo)
+    outside = 0.0
+    for name, instrs in comps.items():
+        symtab = {i.name: i.out_sig for i in instrs}
+        for pn, sig in params.get(name, []):
+            symtab.setdefault(pn, sig)
+        for ins in instrs:
+            m = re.search(r'op_name="([^"]*)"', ins.raw)
+            specs = re.findall(r"[a-z]+(?:,[a-z]+)*->[a-z]+",
+                               m.group(1) if m else "")
+            if ins.op == "dot" and specs and specs[-1] in OUTSIDE:
+                outside += H._dot_flops(ins, symtab)
+    out[f"xlstm-pairs-{rows}"] = {"flops": analyze_hlo(hlo)["flops"],
+                                  "outside": outside}
 print(json.dumps(out))
 """
 
@@ -307,14 +379,9 @@ def _dense_attention(trace):
 @pytest.fixture(scope="module")
 def ref_recurrent():
     """The reference walker's FLOPs a device of zamba2's and xlstm's smoke
-    train cells on 8 host devices (one subprocess)."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=SRC,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    out = subprocess.run([sys.executable, "-c", f"SRC = {SRC!r}\n"
-                          + textwrap.dedent(REF_RECURRENT)],
-                         capture_output=True, text=True, env=env, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    train cells and of the xLSTM cuts, on 8 host devices (one
+    subprocess)."""
+    return _reference(REF_RECURRENT)
 
 
 def test_smoke_zamba2_cell_flops_equal_the_reference_walker(ref_recurrent):
@@ -425,3 +492,93 @@ def test_xlstm_cut_on_a_model_axis_flops_match_the_reference_walker(
           f"{ref['flops'] - ref['ffn']!r}")
     assert port == pytest.approx(ref["flops"] - ref["ffn"],
                                  rel=XLSTM_CUT_REL)
+
+
+def _xlstm_cut_cell(mesh, rows):
+    """xlstm-125m cut to d_model 256, vocab 4096 and its own mLSTM ->
+    sLSTM order, ``rows`` x 64 tokens on ``mesh``: the config and its
+    training step's trace."""
+    import dataclasses
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import Segment
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    cfg = dataclasses.replace(
+        get_config("xlstm-125m"), d_model=256, vocab=4096,
+        segments=(Segment("mlstm", "none", 1), Segment("slstm", "none", 1)))
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh[0] * mesh[1])
+    try:
+        cell = build_cell("xlstm-125m", ShapeSpec("tiny", 64, rows, "train"),
+                          make_test_mesh(mesh), cfg=cfg)
+        trace, _ = cell.trace()
+    finally:
+        dist.destroy_process_group()
+    return cfg, trace
+
+
+def _scan_flops(cfg, n: int, s: int = 64) -> float:
+    """The FLOPs of the cut's mLSTM and sLSTM scans over ``s`` steps on
+    ``n`` (row, head) pairs, forward and backward (the chunks'
+    recomputation included), as ``on_local_shards`` runs them on one
+    rank: one row whose heads are the pairs."""
+    from repro_torch.models import xlstm as X
+    x = cfg.xlstm
+    dh, dh_s = int(cfg.d_model * x.up_factor) // x.n_heads, \
+        cfg.d_model // x.n_heads
+    fm = FakeTensorMode()
+    with fm:
+        q, k, v = (torch.empty(1, s, n, dh, requires_grad=True)
+                   for _ in range(3))
+        ig, fg = (torch.empty(1, s, n, requires_grad=True) for _ in range(2))
+        wx = torch.empty(1, s, n, 4 * dh_s, requires_grad=True)
+        r = torch.empty(n, dh_s, 4 * dh_s, requires_grad=True)
+        bg = torch.empty(n, 4 * dh_s, requires_grad=True)
+    rec = TA.TraceRecorder(fm)
+    with rec:
+        h, _ = X.mlstm_scan(q, k, v, ig, fg, None, x.chunk)
+        h2, _ = X.slstm_scan(wx, r, bg, None, x.chunk)
+        (h.sum() + h2.sum()).backward()
+    return TA.analyze_trace(rec.trace())["flops"]
+
+
+@pytest.mark.parametrize("rows,pairs", [(2, 1), (3, 2)])
+def test_xlstm_pairs_on_a_model_axis_flops_match_the_reference_walker(
+        ref_recurrent, rows, pairs):
+    """The cut of ``test_xlstm_cut_on_a_model_axis_flops_match_the_
+    reference_walker`` on a ``(1, 8)`` mesh, where the model axis of 8
+    divides neither the rows (2 or 3) nor the 4 heads: the port splits
+    the scans' (row, head) pairs, ``ceil(P / 8)`` a rank (8 pairs: one a
+    rank; 12: two on ranks 0-5, none on 6 and 7), with the products into
+    the scans on each rank's own pairs (``sharding.rules.on_local_
+    shards``). Against the reference walker on the reference's own cell:
+
+    * outside the scans (every block and head product) the FLOPs a device
+      are equal, but for one itemised difference: GSPMD splits the
+      products into the scans (q, k, v, the gates, the sLSTM's input;
+      forward, input and weight gradients) over the model axis, 1/8 of
+      them a rank, where the port's take its pairs' share, ``pairs / P``
+      (12 pairs: 2/12 against 1/8, half a pair's products more);
+    * the scans themselves: GSPMD pads the 4 heads to 8 and gives rank 0
+      one head of every row (``rows`` pairs against the port's
+      ``pairs``), at its own cost a pair (read: 1.58e7, where the port's
+      chunk products take 2.73e7; XLA drops those of the zero initial
+      state in this layout). Each side's scan FLOPs are printed, the
+      port's held to ``pairs`` times its cost on one pair."""
+    cfg, trace = _xlstm_cut_cell((1, 8), rows)
+    x = cfg.xlstm
+    n_pairs, m = rows * x.n_heads, 8
+    assert pairs == -(-n_pairs // m)
+    d, s = cfg.d_model, 64
+    di = int(d * x.up_factor)
+    per_pair = 3 * 2 * s * (3 * di * (di // x.n_heads) + 2 * di + d * d)
+    scan = _scan_flops(cfg, pairs)
+    assert scan == pairs * _scan_flops(cfg, 1)
+    port = TA.analyze_trace(trace)["flops"]
+    ref = ref_recurrent[f"xlstm-pairs-{rows}"]
+    print(f"xlstm (1, 8) {rows} rows: outside the scans port "
+          f"{port - scan!r}, reference {ref['outside']!r}; scans port "
+          f"{scan!r} on {pairs} pairs, reference "
+          f"{ref['flops'] - ref['outside']!r} on {rows}")
+    assert port - scan == ref["outside"] + per_pair * (pairs - n_pairs / m)

@@ -308,11 +308,11 @@ def case_families(inp, out, mesh):
             for a, b in zip(dgrads, grads)))
 
 
-def case_xlstm(inp, out, mesh):
+def _xlstm_on_mesh(out, key, rows, seed):
     """xlstm-125m cut to d_model 256, vocab 4096 and its own mLSTM -> sLSTM
-    order, 8 x 64 tokens, on a ``(1, 8)`` mesh laid out as its training
-    cell lays it out (4 heads on a model axis of 8): loss and gradients on
-    the mesh and on one device."""
+    order, ``rows`` x 64 tokens, on a ``(1, 8)`` mesh laid out as its
+    training cell lays it out (4 heads on a model axis of 8): loss and
+    gradients on the mesh and on one device, under ``key``."""
     import dataclasses
     from repro_torch.configs.registry import ShapeSpec, get_config
     from repro_torch.launch.cells import build_cell
@@ -326,13 +326,13 @@ def case_xlstm(inp, out, mesh):
         get_config("xlstm-125m"), d_model=256, vocab=4096,
         segments=(lm.Segment("mlstm", "none", 1),
                   lm.Segment("slstm", "none", 1)))
-    cell = build_cell("xlstm-125m", ShapeSpec("x", 64, 8, "train"), mesh8,
-                      cfg=cfg)
+    cell = build_cell("xlstm-125m", ShapeSpec("x", 64, rows, "train"),
+                      mesh8, cfg=cfg)
     p_sh, _, b_sh = cell.in_shardings
     params = materialize(lm.lm_specs(cfg), torch.Generator().manual_seed(0),
                          device="cpu")
-    rng = np.random.default_rng(5)
-    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64)))
+    rng = np.random.default_rng(seed)
+    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (rows, 64)))
                 for _ in range(2))
     leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
     loss = lm.lm_loss(params, cfg, tok, lab)[0]
@@ -348,10 +348,74 @@ def case_xlstm(inp, out, mesh):
         dloss = lm.lm_loss(dp, cfg, R.distribute(tok, b_sh["tokens"]),
                            R.distribute(lab, b_sh["labels"]))[0]
         dgrads = torch.autograd.grad(dloss, dleaves)
-    out["xlstm/loss"] = np.array([float(loss), float(_full(dloss))])
-    out["xlstm/grad_gaps"] = np.array([
+    out[f"{key}/loss"] = np.array([float(loss), float(_full(dloss))])
+    out[f"{key}/grad_gaps"] = np.array([
         float(np.abs(_full(a) - b.numpy()).max() / float(b.abs().max()))
         for a, b in zip(dgrads, grads)])
+
+
+def case_xlstm(inp, out, mesh):
+    """:func:`_xlstm_on_mesh` at 8 rows: the model axis splits the rows."""
+    _xlstm_on_mesh(out, "xlstm", 8, 5)
+
+
+def case_xlstm_pairs(inp, out, mesh):
+    """:func:`_xlstm_on_mesh` at 2 and 3 rows: the model axis divides
+    neither the rows nor the 4 heads, and splits the (row, head) pairs (8
+    pairs, one a rank; 12, two on ranks 0-5 and none on 6 and 7)."""
+    for rows in (2, 3):
+        _xlstm_on_mesh(out, f"xlstm_pairs/{rows}", rows, 5 + rows)
+
+
+def case_gqa(inp, out, mesh):
+    """internlm2's smoke config (4 query heads, 2 kv heads) with its
+    parameters laid out by ``BASE_RULES``, as on the card's route:
+    ``_kernel_route`` taken (on CPU tensors the flash kernels' wrappers run
+    their plain versions), so K/V are not repeated, and each rank attends
+    with its own query head over the kv head it reads. Loss and
+    gradients against one device (the plain route, K/V repeated), and
+    the heads of every flash call."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import layers, lm
+    from repro_torch.models.specs import tree_leaves
+    from repro_torch.sharding import rules as R
+
+    cfg = get_smoke_config("internlm2-1.8b")
+    params = lm.from_reference_params(cfg, _tree(inp, "params"),
+                                      device="cpu")
+    tok, lab = (torch.from_numpy(inp[f"step/{k}"]).long()
+                for k in ("tokens", "labels"))
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    loss = lm.lm_loss(params, cfg, tok, lab)[0]
+    grads = torch.autograd.grad(loss, leaves)
+    sh = R.tree_shardings(mesh, lm.lm_specs(cfg), R.BASE_RULES)
+
+    def place(t, h):
+        return (R.distribute(t.detach(), h) if isinstance(h, R.NamedSharding)
+                else {k: place(t[k], h[k]) for k in t})
+    dp = place(params, sh)
+    dleaves = [t.requires_grad_() for _, t in tree_leaves(dp)]
+    bsh = R.NamedSharding(mesh, R.batch_partition(mesh, 2))
+    route, forward, heads = layers._kernel_route, layers._flash_forward, []
+
+    def recorded(q, k, v, **kw):
+        heads.append((q.shape[1], k.shape[1]))
+        return forward(q, k, v, **kw)
+    layers._kernel_route = lambda *a, **kw: True
+    layers._flash_forward = recorded
+    try:
+        with R.set_context(mesh):
+            dloss = lm.lm_loss(dp, cfg, R.distribute(tok, bsh),
+                               R.distribute(lab, bsh))[0]
+            dgrads = torch.autograd.grad(dloss, dleaves)
+    finally:
+        layers._kernel_route, layers._flash_forward = route, forward
+    out["gqa/loss"] = np.array([float(loss), float(_full(dloss))])
+    out["gqa/grad_gap"] = np.array(max(
+        float(np.abs(_full(a) - b.numpy()).max() / float(b.abs().max()))
+        for a, b in zip(dgrads, grads)))
+    out["gqa/heads"] = np.array(heads)
+    out["gqa/wk"] = np.array(str(dp["seg0"]["attn"]["wk"].placements))
 
 
 def case_decode(inp, out, mesh):
@@ -359,7 +423,8 @@ def case_decode(inp, out, mesh):
     ``decode_step``, with parameters and caches laid out as a serving
     cell lays them out (``launch.cells._pick_rules``), against the same
     calls on one device. internlm2's smoke config with 2 kv heads (the
-    caches split over their sequence, gathered for attention) and with 4
+    caches split over their sequence: each rank attends over its own rows
+    and the ranks' softmaxes merge, ``layers._merge_decode``) and with 4
     (the caches split over heads, attention on each rank's own heads),
     qwen3-moe (each decode token's MoE on gathered tokens) and minicpm3
     (MLA's absorbed decode on local shards) and zamba2 (Mamba2's states
@@ -383,7 +448,7 @@ def case_decode(inp, out, mesh):
 
     ran = {}
     paths = {(layers, "_sharded_decode"), (mla, "_sharded_absorbed_decode"),
-             (moe, "_moe_gathered_tokens")}
+             (moe, "_moe_gathered_tokens"), (layers, "_merge_decode")}
     real = {name: getattr(mod, name) for mod, name in paths}
 
     def counting(name):
@@ -557,6 +622,8 @@ def run(rank, d):
                        ("seq", case_seq_shard),
                        ("families", case_families),
                        ("xlstm", case_xlstm),
+                       ("xlstm_pairs", case_xlstm_pairs),
+                       ("gqa", case_gqa),
                        ("decode", case_decode),
                        ("moe", case_moe), ("batch", case_batches),
                        ("launch", case_launch)):
