@@ -7,6 +7,8 @@
     python3 chip_smoke.py --moe-repeat      # only phase 15's MoE repeat
     python3 chip_smoke.py --mesh            # only phase 16
     python3 chip_smoke.py --dryrun          # only phase 17
+    python3 chip_smoke.py --flash-backward  # phase 12a's backward, timed
+    python3 chip_smoke.py --flash-backward-digests  # unchanged routes' bits
 
 Phases, each of which fails the run loudly:
 
@@ -164,14 +166,20 @@ Phases, each of which fails the run loudly:
     at the trained internlm2-1.8b layer (B2, H16, Hkv 8, S4096, D128, bf16,
     causal), h2o-danube's (B1, H32, D80, S4608, window 4096), the smoke
     configs' float32 shape with and without a window, odd S and D in both
-    dtypes and D=256 (float32 within 1e-4 of each gradient's largest
-    magnitude, bf16 within relative L2 2e-2), each run twice bit-identical;
+    dtypes, D=256, and the bf16 route past D 128 (the wide tensor-core
+    kernels) at D 130, 136, 200, 224, 256 under causal, non-causal and
+    windowed masks, GQA 4:1 at D 192, S = 1 and S = 65 (float32 within
+    1e-4 of each gradient's largest magnitude, bf16 within relative L2
+    2e-2; at S = 1, where dq and dk cancel to rounding, those two as in
+    float32), each run twice bit-identical and every bf16 call a
+    tensor-core launch, with a digest of its gradients;
     the forward's lse against the plain version's (float32 1e-5, bf16
     1e-4, of 1 + max |lse|) and its output bit-identical with and without
     lse; the backward's times (eager and CUDA-graph device time) against
     its bound, its plain version and the backward of
     ``F.scaled_dot_product_attention`` (its device time from a graph of the
-    backward alone); (b) ``launch.train.main`` at
+    backward alone), and one call's three kernels under the profiler;
+    (b) ``launch.train.main`` at
     internlm2-1.8b's full width and depth, 6 steps of 2 x 4096 tokens:
     each step's synchronised wall, tokens/s, loss and flash launches (48
     forward, all on the tensor cores, and 24 backward calls a step under
@@ -229,9 +237,11 @@ Phases, each of which fails the run loudly:
     route (1e-2), beside how far dq, dk, dv move when out and lse come from
     the plain forward, and the model's bf16 kernel-vs-plain gradients
     (printed, not held); the flash backward at D 160 (B2, H32,
-    S4096, the CUDA-core route past D 128) timed against SDPA's backward
+    S4096, the wide tensor-core kernels) timed against SDPA's backward
     (``trained_shapes`` of its row). Phases 2 and 12a hold the kernels at
-    those D 160 shapes against their plain versions;
+    those D 160 shapes against their plain versions; every training run of
+    phases 12, 14 and 15 holds each backward call to be a tensor-core
+    launch;
 15. the enc-dec family and MLA/MoE training: the bf16 flash kernel at
     seamless-m4t-medium's encoder shape (B4, H = Hkv 16, S2048, D 64,
     non-causal) against its plain version (1e-2) and timed against
@@ -257,9 +267,13 @@ Phases, each of which fails the run loudly:
     flash calls a step), qwen3-moe-30b-a3b cut 48 -> 6 layers (12 / 6) and
     deepseek-v3-671b cut 61 -> 3 dense MLA layers with its MTP layer (7 /
     4; its CE falling and its MTP term finite), each step's wall, tokens/s,
-    busy share and peak (one JSON line a run); qwen3's step twice from the
-    seed under deterministic algorithms, every parameter bit-identical (a
-    child process, ``--moe-repeat``);
+    busy share and peak (one JSON line a run); deepseek's trained layer
+    (B2, H = Hkv 128, S4096, D 192, causal) through the wide tensor-core
+    backward timed against SDPA's backward (``trained_shapes``; its plain
+    version untimed, its float32 scores 17 GB a tensor, and held in phase
+    12a in slices); qwen3's step twice from the seed under deterministic
+    algorithms, every parameter bit-identical (a child process,
+    ``--moe-repeat``);
 16. training on a device mesh, in a child process (``--mesh``) that joins
     a one-rank NCCL group and builds the 1 x 1 mesh over ``("data",
     "model")``: (a) ``launch.train --mesh 1x1`` at internlm2-1.8b's full
@@ -319,6 +333,13 @@ Every path starts with all launch counts set to 0 (the flash kernel's
 tensor-core count too) and reads them just after. The ``kernels`` line
 lists ``flash_attention_backward`` (phase 12b's launches, phase 12a's
 times) beside the eight kernels of the earlier phases.
+
+``--flash-backward`` runs phase 12a's backward sweep alone and times the
+backward at internlm2-1.8b's, zamba2-2.7b's and deepseek-v3's trained shapes
+(about 100 s with the build). ``--flash-backward-digests`` prints a digest of
+the gradients at every sweep case on the routes the wide kernels did not
+change (float32; bf16 up to D 128); copied into an older checkout, it
+prints that checkout's bits on the same inputs.
 
 ``--wrapper-times`` runs nothing but the host microseconds a call of the LIF
 wrappers at the 13 Spike-VGG16 state shapes (eager ms minus CUDA-graph
@@ -2743,10 +2764,7 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
                      cut.n_layers // cut.hybrid_period)
     entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
                                  ZAMBA2_TRAINED, "zamba2-2.7b")
-    bwd_row["trained_shapes"] = [{k: entry[k] for k in (
-        "calls", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "device_ms", "plain_device_ms",
-        "library_device_ms", "achieved_tflops", "vs_library")}]
+    bwd_row["trained_shapes"] = [{k: entry[k] for k in BWD_ENTRY_KEYS}]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2782,11 +2800,17 @@ TRAIN_FAMILY_RUN = dict(steps=4, batch=2, seq=4096)
 # trains, held in phase 12a's backward sweep beside SEAMLESS_BWD (the
 # encoder's, non-causal): seamless's decoder self-attention, MLA's q/k
 # head dim with V padded to it, qwen3's GQA
+DEEPSEEK_TRAINED = (2, 128, 128, 4096, 192)
 FAMILY_TRAINED = [
     ("trained seamless decoder self-attention", SEAMLESS_BWD),
     ("trained minicpm3-4b layer", (2, 40, 40, 4096, 96)),
     ("trained qwen3-moe layer", (2, 32, 4, 4096, 128)),
-    ("trained deepseek-v3 layer", (2, 128, 128, 4096, 192))]
+    ("trained deepseek-v3 layer", DEEPSEEK_TRAINED)]
+# the keys of a trained_shapes entry of the flash_attention_backward row
+BWD_ENTRY_KEYS = ("calls", "launches", "max_abs_err", "ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "device_ms",
+                  "plain_device_ms", "library_device_ms", "achieved_tflops",
+                  "vs_library")
 # deepseek's kernel-vs-plain gradients at its trained cut (3 dense MLA
 # layers + MTP), 1 x 2048: the plain route's dense float32 scores at
 # 2 x 4096 and 128 heads would be 17 GB a tensor
@@ -2982,7 +3006,7 @@ def _serve_encdec(dev, card, kernels):
     return out
 
 
-def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
+def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs):
     """Phase 15: the flash kernels at seamless's D 64 shapes, non-causal
     (forward held and timed against SDPA, added to ``flash_row``; the
     backward held in phase 12a's sweep, its max abs error ``bwd_err``);
@@ -3018,13 +3042,12 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
                               n_dec_layers=SEAMLESS_GRAD_LAYERS)
     _route_gradients(dev, cut, SEAMLESS_GRAD, "train-seamless",
                      cut.n_enc_layers + 2 * cut.n_dec_layers)
-    entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
+    entry = _time_flash_backward(dev, card, bwd_launches,
+                                 bwd_errs["trained seamless encoder"],
                                  SEAMLESS_BWD, "seamless-m4t-medium",
                                  causal=False)
-    bwd_row.setdefault("trained_shapes", []).append({k: entry[k] for k in (
-        "calls", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-        "bound_by", "library_ms", "device_ms", "plain_device_ms",
-        "library_device_ms", "achieved_tflops", "vs_library")})
+    bwd_row.setdefault("trained_shapes", []).append(
+        {k: entry[k] for k in BWD_ENTRY_KEYS})
     for arch, label, depth in TRAIN_FAMILIES:
         gc.collect()
         torch.cuda.empty_cache()
@@ -3032,8 +3055,18 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
         cfg = get_config(arch)
         if depth is not None:
             cfg = dataclasses.replace(cfg, segments=(Segment(*depth),))
-        _train_lm_path(dev, kernels, dict(TRAIN_FAMILY_RUN, arch=arch),
-                       label, int8_ef=False, cfg=cfg)
+        bwd_launches = _train_lm_path(dev, kernels,
+                                      dict(TRAIN_FAMILY_RUN, arch=arch),
+                                      label, int8_ef=False, cfg=cfg)
+    # deepseek's trained layer (D 192, 128 heads) through the wide
+    # tensor-core backward, against SDPA's backward
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = _time_flash_backward(dev, card, bwd_launches,
+                                 bwd_errs["trained deepseek-v3 layer"],
+                                 DEEPSEEK_TRAINED, "deepseek-v3-671b",
+                                 plain=False)
+    bwd_row["trained_shapes"].append({k: entry[k] for k in BWD_ENTRY_KEYS})
     # a second witness for deepseek's run, whose MTP term grows as the
     # reference's does at 128 heads (tests/test_torch_train.py)
     gc.collect()
@@ -3646,49 +3679,112 @@ def _held_backward(sink, calls):
         yield
 
 
+def _bwd_sweep():
+    """Phase 12a's backward cases: (name, B, H, Hkv, S, D, window, dtype,
+    causal). Every trained shape of phases 12, 14 and 15; then the bf16
+    tensor-core route past D 128 over its buckets (D 130 with element-wise
+    loads, 136, 200, 224, 256), masks, GQA 4:1 and S off the 64-row tile."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("trained internlm2 layer",) + TRAINED + (None, bf16, True),
+            ("trained zamba2 shared block",) + ZAMBA2_TRAINED
+            + (None, bf16, True),
+            ("trained seamless encoder",) + SEAMLESS_BWD
+            + (None, bf16, False),
+            *((name,) + shape + (None, bf16, True) for name, shape in
+              FAMILY_TRAINED),
+            ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16, True),
+            ("smoke configs", 2, 4, 2, 128, 16, None, f32, True),
+            ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32, True),
+            ("odd S and D", 1, 4, 2, 77, 20, 5, f32, True),
+            ("odd S and D", 1, 4, 2, 77, 20, 5, bf16, True),
+            ("D=256", 1, 4, 2, 100, 256, 37, f32, True),
+            ("wide D 130", 1, 4, 2, 200, 130, None, bf16, True),
+            ("wide D 136 window", 2, 4, 4, 300, 136, 50, bf16, True),
+            ("wide D 200 non-causal", 1, 4, 2, 130, 200, None, bf16, False),
+            ("wide D 224", 1, 8, 8, 257, 224, None, bf16, True),
+            ("wide D 256 window", 1, 4, 2, 333, 256, 37, bf16, True),
+            ("wide GQA 4:1 D 192", 2, 16, 4, 512, 192, None, bf16, True),
+            ("wide S=1 D 192", 2, 8, 2, 1, 192, None, bf16, True),
+            ("wide S=65 D 160", 1, 4, 2, 65, 160, None, bf16, True)]
+
+
+def _digest(tensors) -> str:
+    """The first 16 hex digits of a SHA-256 over the tensors' bytes."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _backward_digests(dev):
+    """``--flash-backward-digests``: a digest of dq, dk, dv at every case of
+    the sweep on a route the wide kernels left as it was (float32; bf16 up
+    to D 128), from the kernel alone, so a copy of this script in an older
+    checkout prints that checkout's bits on the same inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel)
+    for name, b, h, hkv, s, d, window, dtype, causal in _bwd_sweep():
+        if dtype == torch.bfloat16 and d > 128:
+            continue
+        args = _bwd_case(dev, b, h, hkv, s, d, window, dtype, causal=causal)
+        got = flash_attention_backward_kernel(*args, causal=causal,
+                                              window=window)
+        torch.cuda.synchronize()
+        print(f"[digest] flash_attention_backward {name} B{b} H{h} Hkv{hkv} "
+              f"S{s} D{d} window {window} {dtype} causal {causal}: "
+              f"{_digest(got)}")
+        del args, got
+
+
 def _check_flash_backward(dev):
     """Phase 12a: the flash backward kernel against its plain version over
     the sweep (every trained shape of phases 12, 14 and 15 among it),
-    deterministic; the forward's lse against the plain version's; the
-    forward's output bit-identical with and without lse. Returns the max
-    abs error of each case, by name."""
+    deterministic, every bf16 call a tensor-core launch; the forward's lse
+    against the plain version's; the forward's output bit-identical with
+    and without lse. Returns the max abs error of each case, by name."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_kernel,
         flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
-    sweep = [("trained internlm2 layer",) + TRAINED + (None, bf16, True),
-             ("trained zamba2 shared block",) + ZAMBA2_TRAINED
-             + (None, bf16, True),
-             ("trained seamless encoder",) + SEAMLESS_BWD
-             + (None, bf16, False),
-             *((name,) + shape + (None, bf16, True) for name, shape in
-               FAMILY_TRAINED),
-             ("h2o-danube", 1, 32, 8, 4608, 80, 4096, bf16, True),
-             ("smoke configs", 2, 4, 2, 128, 16, None, f32, True),
-             ("smoke configs window 24", 2, 4, 2, 128, 16, 24, f32, True),
-             ("odd S and D", 1, 4, 2, 77, 20, 5, f32, True),
-             ("odd S and D", 1, 4, 2, 77, 20, 5, bf16, True),
-             ("D=256", 1, 4, 2, 100, 256, 37, f32, True)]
     errs = {}
-    for name, b, h, hkv, s, d, window, dtype, causal in sweep:
+    for name, b, h, hkv, s, d, window, dtype, causal in _bwd_sweep():
         args = _bwd_case(dev, b, h, hkv, s, d, window, dtype, causal=causal)
         kw = dict(causal=causal, window=window)
+        tc = flash_attention_backward_kernel.tensor_core_launches
         got = flash_attention_backward_kernel(*args, **kw)
         again = flash_attention_backward_kernel(*args, **kw)
+        tc = flash_attention_backward_kernel.tensor_core_launches - tc
         torch.cuda.synchronize()
         want = _backward_plain_sliced(*args, **kw)
         key = str(dtype).split(".")[1]
         err = _bwd_err(got, want, key)
+        cancel, note = 0.0, ""
+        if s == 1:
+            # each row sees itself alone: p = 1 and dp = delta, so dq and dk
+            # cancel to rounding in both versions and are held as float32
+            # holds them (1e-5 absolute); dv (= dO) as every gradient
+            err = _bwd_err(got[2:], want[2:], key)
+            cancel = _bwd_err(got[:2], want[:2], "float32")
+            note = (f"; S = 1: dv alone, dq and dk {cancel!r} (max abs over "
+                    f"max, tolerance {BWD_TOL['float32']})")
+        per = [_rel_err(g, w) for g, w in zip(got, want)]
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        ok = err <= BWD_TOL[key] and same and finite
+        ok = (err <= BWD_TOL[key] and cancel <= BWD_TOL["float32"] and same
+              and finite and tc == (2 if dtype == bf16 else 0))
         print(f"[kernel] flash_attention_backward {name} B{b} H{h} Hkv{hkv} "
               f"S{s} D{d} window {window} {dtype}"
               f"{'' if causal else ' non-causal'}: error {err!r} "
               f"({'relative L2' if key == 'bfloat16' else 'max abs over max'}"
-              f", tolerance {BWD_TOL[key]}); a second run bit-identical: "
-              f"{same} {'ok' if ok else 'MISMATCH'}")
+              f", tolerance {BWD_TOL[key]}; dq, dk, dv relative L2 {per}"
+              f"{note}); a "
+              f"second run bit-identical: {same}; tensor-core launches {tc} "
+              f"of 2; digest {_digest(got)} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"flash_attention_backward disagrees with "
                                  f"its plain version on {name}")
@@ -3721,6 +3817,42 @@ def _check_flash_backward(dev):
         if not ok:
             raise AssertionError(f"flash_attention lse disagrees on {name}")
     return errs
+
+
+def _flash_backward_phase():
+    """``--flash-backward``: phase 12a's backward checks alone. Builds the
+    flash kernels (ptxas' report of each), holds the backward against its
+    plain version over the sweep (``_check_flash_backward``) and times it at
+    internlm2-1.8b's, zamba2-2.7b's and deepseek-v3's trained shapes
+    against SDPA's backward (``_time_flash_backward``; deepseek's plain
+    version untimed)."""
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.build([fa.KERNEL])
+    print(f"[build] {fa.KERNEL}: {time.perf_counter() - t0:.2f} s")
+    report = _ptxas_report(fa.KERNEL, _build.build_log(fa.KERNEL))
+    spills = [e["kernel"] for e in report
+              if e["spill_stores"] or e["spill_loads"]]
+    print(f"[build] kernels that spill: {spills if spills else 'none'}")
+    errs = _check_flash_backward(dev)
+    for name, shape, model in (
+            ("trained internlm2 layer", TRAINED, "internlm2-1.8b"),
+            ("trained zamba2 shared block", ZAMBA2_TRAINED, "zamba2-2.7b"),
+            ("trained deepseek-v3 layer", DEEPSEEK_TRAINED,
+             "deepseek-v3-671b")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _time_flash_backward(dev, card, None, errs[name], shape, model,
+                             plain=shape != DEEPSEEK_TRAINED)
 
 
 def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int,
@@ -3758,13 +3890,15 @@ def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int,
 
 
 def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
-                         model="internlm2-1.8b", causal=True):
+                         model="internlm2-1.8b", causal=True, plain=True):
     """Phases 12a, 14 and 15, ``flash_attention_backward`` row: one layer's
     attention backward at a trained shape (default internlm2-1.8b's: B2,
     H16, Hkv 8, S4096, D128, bf16, causal) through the kernel, its plain
-    version and the backward of ``F.scaled_dot_product_attention(
-    is_causal=causal, enable_gqa=True)`` on the same tensors, timed
-    alone."""
+    version (not where ``plain`` is false: its times are null and the
+    library's error is taken against the kernel, which phase 12a holds
+    against the plain version) and the backward of
+    ``F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``
+    on the same tensors, timed alone."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -3784,16 +3918,22 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
                                                   causal=causal),
            lambda: torch.autograd.grad(lib_out, leaves, dout,
                                        retain_graph=True))
-    lib_err = max(_rel_err(a, b_) for a, b_ in zip(fns[2](), fns[1]()))
+    lib_err = max(_rel_err(a, b_) for a, b_ in
+                  zip(fns[2](), fns[1 if plain else 0]()))
     ms = [_time_ms(fns[0], reps=10, warmup=2),
-          _time_ms(fns[1], reps=3, warmup=1),
+          _time_ms(fns[1], reps=3, warmup=1) if plain else None,
           _time_ms(fns[2], reps=10, warmup=2)]
     # device time from graph replay; the library's backward is captured
     # alone, on the stream its forward ran on (see _sdpa_backward_graph_ms)
     dev_ms = [_graph_ms(fns[0], reps=5, replays=3),
-              _graph_ms(fns[1], reps=1, replays=2),
+              _graph_ms(fns[1], reps=1, replays=2) if plain else None,
               _sdpa_backward_graph_ms(q, k, v, dout, reps=5, replays=3,
                                       causal=causal)]
+    if not plain:
+        print(f"[time] flash_attention_backward {model}: the plain version "
+              f"is not timed (plain_ms null): its dense float32 [B, H, S, S] "
+              f"scores are {b * h * s * s * 4} bytes a tensor at this shape; "
+              f"phase 12a holds the kernel against it in slices")
     pairs = visible_pairs(s, causal) * b * h
     n_ops = 10 * d * pairs      # q.k, dout.v, p^T dout, ds k, ds^T q
     n_bytes = (2 * (3 * q.numel() + 2 * out.numel() + 3 * k.numel())
@@ -3815,6 +3955,8 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
     }
     row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
     row["vs_library"] = dev_ms[0] / dev_ms[2]
+    # the call's three kernels (delta pre-pass, dQ, dK/dV) by device time
+    _profile_step(fns[0], f"{model}-flash-backward", "flash_bwd")
     print(f"[time] flash_attention_backward {model} B{b} H{h} Hkv{hkv} S{s} "
           f"D{d} bf16 {mask}: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
           f"{ms[2]!r} ms (per call); device (graph) kernel {dev_ms[0]!r}, "
@@ -3822,8 +3964,9 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
           f"device time {row['vs_library']!r}x SDPA backward's; bound "
           f"{row['bound_ms']!r} ms ({n_ops} flops over {pairs} visible pairs "
           f"at {BF16_OPS_PER_S:.3g} flop/s; {n_bytes} bytes); kernel "
-          f"{row['achieved_tflops']!r} TFLOP/s; SDPA vs plain relative L2 "
-          f"{lib_err!r}; card {card}")
+          f"{row['achieved_tflops']!r} TFLOP/s; SDPA vs "
+          f"{'plain' if plain else 'kernel'} relative L2 {lib_err!r}; card "
+          f"{card}")
     return row
 
 
@@ -3977,11 +4120,13 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
     if (len(rec) != run["steps"]
             or any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec)
             or launches["flash_attention_kernel.tensor_core"]
-            != want_fwd * run["steps"]):
+            != want_fwd * run["steps"]
+            or launches["flash_attention_backward_kernel.tensor_core"]
+            != want_bwd * run["steps"]):
         raise AssertionError(f"{label}: flash launches a step "
                              f"{[(r['fwd'], r['bwd']) for r in rec]}, not "
-                             f"{want_fwd} forward (all on the tensor cores) "
-                             f"and {want_bwd} backward")
+                             f"{want_fwd} forward and {want_bwd} backward, "
+                             f"all on the tensor cores ({launches})")
     # with DeepSeek's MTP head the CE is held to fall and the MTP term to
     # stay finite: its layer's output meets the head without a norm, and
     # at full width that term starts near 60 and grows under AdamW, as the
@@ -3997,8 +4142,8 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
                              "falling")
     print(f"[{label}] losses finite, step {len(losses) - 1}'s "
           f"{'ce' if mtp else 'loss'} below step 0's; "
-          f"{want_fwd} forward flash launches (all on the tensor cores) and "
-          f"{want_bwd} backward calls a step ok")
+          f"{want_fwd} forward and {want_bwd} backward flash launches a "
+          f"step, all on the tensor cores ok")
     prof = rec[-1]["profiled"]
     print(f"[{label}] " + json.dumps({
         "model": cfg.name, "layers": cfg.n_layers,
@@ -4915,6 +5060,13 @@ def main() -> int:
     if sys.argv[1:] == ["--dryrun"]:
         _dryrun_phase()
         return 0
+    if sys.argv[1:] == ["--flash-backward"]:
+        _flash_backward_phase()
+        return 0
+    if sys.argv[1:] == ["--flash-backward-digests"]:
+        print(_card_line())
+        _backward_digests(torch.device("cuda"))
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -5258,8 +5410,7 @@ def main() -> int:
 
     # ---- phase 15: the enc-dec family, and MLA/MoE training -------------------
     t0 = time.perf_counter()
-    _encdec_and_families(dev, card, kernels, flash_row, bwd_row,
-                         bwd_errs["trained seamless encoder"])
+    _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs)
     print(f"[encdec] phase 15 in {time.perf_counter() - t0!r} s")
 
     # ---- phase 16: training on a device mesh ----------------------------------

@@ -89,10 +89,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {
   long long b, h, s;             // elements; the head dim is contiguous
@@ -722,18 +718,20 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // flops a pair in all, FA-2's price for no atomics). Masks, windows and
 // invisible tiles are the forward's. Two routes by dtype, as the forward:
 //
-// * bfloat16 up to D 128 -> flash_bwd_dq_mma_kernel and
-//   flash_bwd_dkdv_mma_kernel on the tensor cores (the forward's
-//   ldmatrix / mma.sync fragments; 4 warps of 16 rows; S, dP, P and dS in
-//   float32 registers, P and dS rounded to bf16 as the A operand of the
-//   next product, as the forward rounds P; tiles loaded by cp.async, one
-//   stage). Past D 128 a warp's two 16 x D accumulators would not fit its
-//   registers, and bf16 runs the CUDA-core kernels on bf16 loads.
+// * bfloat16 -> the tensor cores at every head dim (the forward's
+//   ldmatrix / mma.sync fragments; S, dP, P and dS in float32, P and dS
+//   rounded to bf16 as the A operand of the next product, as the forward
+//   rounds P). Up to D 128 flash_bwd_dq_mma_kernel and
+//   flash_bwd_dkdv_mma_kernel (4 warps of 16 rows, tiles loaded by
+//   cp.async, one stage); past it, where a warp's two 16 x D accumulators
+//   would not fit its registers, flash_bwd_dq_wide_kernel and
+//   flash_bwd_dkdv_wide_kernel (8 warps, one accumulator a warp, a
+//   two-stage ring; their note below).
 // * float32 -> flash_bwd_dq_kernel and flash_bwd_dkdv_kernel on CUDA cores
 //   (the forward's float32 design: 256 threads, an R x R patch of the score
 //   tile each, K^T / V^T staged transposed and overwritten by dS, K rows),
 //   float32 throughout, within 1e-4 of the plain version.
-// Later work: a second cp.async stage, wgmma and TMA.
+// Later work: wgmma and TMA.
 
 // Tiles of the CUDA-core backward kernels: BM q rows and BM kv rows a tile, 256
 // threads as a 16 x 16 grid, each owning an R x R patch of the BM x BM
@@ -1443,6 +1441,419 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+// ---- the backward on the tensor cores past D 128 (bfloat16, D <= 256) -----
+//
+// A warp of the kernels above holds two 16 x DP float32 accumulators (dK and
+// dV), DP registers a thread: past DP 128, with the score fragments, that
+// passes 255. So the wide kernels give a warp one accumulator each, eight
+// warps a block, and exchange the one operand the other product needs
+// through shared memory:
+//
+// * dK/dV, a block per (b, kv head, 64 kv rows) and two roles of four warps
+//   (16 keys a warp in each). The P role computes S^T = K Q^T for the step's
+//   64 queries, forms P^T = exp2(S^T scale log2 e - lse log2 e) under the
+//   mask, writes it to shared memory in float32 and adds P^T dO to dV (P^T
+//   rounded to bf16 as the A operand, from registers). The dS role computes
+//   dP^T = V dO^T meanwhile, reads P^T after a barrier, forms dS^T = P^T
+//   (dP^T - delta) scale and adds dS^T Q to dK. Steps walk the q tiles of
+//   each query head of the kv head, heads then tiles, as above.
+// * dQ, a block per (b, h, 64 q rows): warp (r, c) computes S and dP of its
+//   16 rows against key half c of the 64-key tile, forms dS in registers
+//   (P never leaves them), writes it in bf16 to shared memory, and after a
+//   barrier adds dS K to its 16 rows x DP / 2 columns of dQ (DP / 4
+//   registers a thread).
+//
+// K and V (dK/dV) or Q and dO (dQ) stay in shared memory; the streamed
+// tiles, with lse and delta for dK/dV, go through a two-stage ring of
+// cp.async copies, the next step's issued right after the barrier that
+// frees its stage, so they land while this step multiplies. mma.sync
+// m16n8k16 with ldmatrix operands, as above; masks are evaluated only on
+// tiles where a warp has a masked pair. Shared memory (bf16 rows of LD = DP
+// + 8, 6 tiles of 64 rows): dK/dV 222,208 bytes at DP 256 (P^T 18 KB, lse
+// and delta 1 KB), 173,056 at DP 192, 148,480 at DP 160; dQ 211,968 at DP
+// 256; one block an SM. Most of a step goes to the two products, which
+// this design does not overlap with each other or with the element-wise
+// work between its barriers (PERF.md). A wgmma version of the same design
+// (a warpgroup a role, its products waited on each step) gave bit-identical
+// results but ran slower; wgmma needs that overlap to pay off.
+template <int DP>
+struct BwdWide {
+  static_assert(DP > 128 && DP <= 256 && DP % 32 == 0, "the wide buckets");
+  static constexpr int NT = 256;       // eight warps
+  static constexpr int BR = 64;        // rows a block owns
+  static constexpr int BS = 64;        // rows of a streamed tile
+  static constexpr int LD = DP + 8;
+  static constexpr int XLD = BS + 8;   // row stride of P^T or dS
+  static constexpr int TILE = BR * LD; // bf16 elements of a 64-row tile
+  // dK/dV: K, V, then Q and dO in two stages (bf16); P^T [BR][XLD] float32;
+  // lse and delta [2][BS] float32 each
+  static constexpr int DKV_BYTES = 6 * TILE * 2 + BR * XLD * 4 + 4 * BS * 4;
+  // dQ: Q, dO, then K and V in two stages (bf16); dS [BR][XLD] bf16
+  static constexpr int DQ_BYTES = 6 * TILE * 2 + BR * XLD * 2;
+  // stage_rows stages these tiles with MmaTile<DP>'s stride and threads
+  static_assert(MmaTile<DP>::NT == NT && MmaTile<DP>::LD == LD, "stage_rows");
+  static_assert(DKV_BYTES <= 232448 && DQ_BYTES <= 232448, "shared memory");
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DP>
+__global__ void __launch_bounds__(BwdWide<DP>::NT, 1)
+flash_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, Strides qs,
+                           Strides ks, Strides vs, Strides dos, Strides dks,
+                           Strides dvs, int H, int rep, int S, int D,
+                           float scale, float scale_log2, int causal,
+                           int window, int vec) {
+  using Tl = BwdWide<DP>;
+  constexpr int BR = Tl::BR, BS = Tl::BS, LD = Tl::LD, XLD = Tl::XLD;
+  constexpr int NQ = BS / 8;       // n8 tiles of a warp's S^T or dP^T
+  constexpr int ND = DP / 8;       // n8 tiles of its dV or dK
+  extern __shared__ uint4 bwd_wide_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bwd_wide_smem);
+  __nv_bfloat16* Vs = Ks + Tl::TILE;
+  __nv_bfloat16* Qs = Vs + Tl::TILE;                 // [2][BS][LD]
+  __nv_bfloat16* dOs = Qs + 2 * Tl::TILE;            // [2][BS][LD]
+  float* Pt = reinterpret_cast<float*>(dOs + 2 * Tl::TILE);  // [BR][XLD]
+  float* lse_s = Pt + BR * XLD;                      // [2][BS]
+  float* dl_s = lse_s + 2 * BS;                      // [2][BS]
+
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int k0 = static_cast<int>(blockIdx.x) * BR;  // tile 0 is the heaviest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = warp / 4;           // 0: P^T and dV; 1: dS^T and dK
+  const int kw0 = k0 + (warp % 4) * 16;               // this warp's keys
+  const __nv_bfloat16* kb = k + b * ks.b + g * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
+
+  // q tiles that can see this kv tile, the same for every query head of g
+  const int n_q = (S + BS - 1) / BS;
+  const int qt_lo = causal ? k0 / BS : 0;
+  int qt_hi = n_q;
+  if (window > 0) qt_hi = min(n_q, (k0 + BR + window - 2) / BS + 1);
+  const int n_qt = max(qt_hi - qt_lo, 0);
+  const int n_it = rep * n_qt;
+
+  // step `it`: q tile qt_lo + it % n_qt of query head g rep + it / n_qt,
+  // its Q and dO rows, lse and delta into stage `st`
+  auto stage_step = [&](int it, int st) {
+    const int h = g * rep + it / n_qt;
+    const int q0 = (qt_lo + it % n_qt) * BS;
+    stage_rows<BS, DP>(Qs + st * Tl::TILE, q + b * qs.b + h * qs.h, qs.s,
+                       q0, S, D, vec);
+    stage_rows<BS, DP>(dOs + st * Tl::TILE, dout + b * dos.b + h * dos.h,
+                       dos.s, q0, S, D, vec);
+    const long long rows = (static_cast<long long>(b) * H + h) * S;
+    for (int i = threadIdx.x; i < 2 * BS; i += Tl::NT) {
+      const int r = i % BS, row = q0 + r;
+      const float* src = (i < BS ? lse : delta) + rows + row;
+      tc::cp_async_4((i < BS ? lse_s : dl_s) + st * BS + r,
+                     row < S ? src : lse, row < S ? 4 : 0);
+    }
+  };
+
+  stage_rows<BR, DP>(Ks, kb, ks.s, k0, S, D, vec);
+  stage_rows<BR, DP>(Vs, vb, vs.s, k0, S, D, vec);
+  if (n_it > 0) stage_step(0, 0);
+  tc::cp_async_commit();
+
+  float acc[ND][4];                    // dV (P role) or dK (dS role)
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // the A operand of the first product: the warp's 16 rows of K or V
+  const __nv_bfloat16* a_frag = (role ? Vs : Ks) +
+                                ((warp % 4) * 16 + lane % 16) * LD +
+                                (lane / 16) * 8;
+  const int col_off = (lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+  const int row_off = (lane % 8 + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+  // this lane's P^T entries: keys lane / 4 (+ 8), queries j 8 + 2 (lane % 4)
+  float* p_frag = Pt + ((warp % 4) * 16 + lane / 4) * XLD + (lane % 4) * 2;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();                 // step it landed; step it - 1 is done
+    if (it + 1 < n_it) stage_step(it + 1, st ^ 1);
+    tc::cp_async_commit();
+    const int q0 = (qt_lo + it % n_qt) * BS;
+    const __nv_bfloat16* Qt = Qs + st * Tl::TILE;
+    const __nv_bfloat16* dOt = dOs + st * Tl::TILE;
+    const float* lse_t = lse_s + st * BS;
+    const float* dl_t = dl_s + st * BS;
+    // a warp none of whose keys the step's queries see skips it (both
+    // roles alike); `edge`: some pair of the warp's is masked
+    const bool seen = kw0 < S && !(causal && kw0 > q0 + BS - 1) &&
+                      !(window > 0 && kw0 + 15 <= q0 - window);
+    const bool edge = q0 + BS > S || kw0 + 16 > S ||
+                      (causal && kw0 + 15 > q0) ||
+                      (window > 0 && kw0 <= q0 + BS - 1 - window);
+    float x[NQ][4];                  // S^T, then P^T (P role); dP^T, dS^T
+    if (seen) {
+      // S^T = K Q^T or dP^T = V dO^T: the step's rows are the "col" operand
+      const __nv_bfloat16* bt = role ? dOt : Qt;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, a_frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bq[4];
+          tc::ldmatrix_x4(bq, bt + np * 16 * LD + col_off + kk * 16);
+          tc::mma_bf16(x[2 * np], a, bq[0], bq[1]);
+          tc::mma_bf16(x[2 * np + 1], a, bq[2], bq[3]);
+        }
+      }
+      if (role == 0) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = j * 8 + (lane % 4) * 2 + (e % 2);
+            const int key = kw0 + lane / 4 + (e / 2) * 8;
+            const bool keep =
+                !edge || visible(q0 + qi, key, S, causal, window);
+            x[j][e] = keep ? exp2f(x[j][e] * scale_log2 - lse_t[qi] * kLog2e)
+                           : 0.f;
+          }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(p_frag + r * 8 * XLD + j * 8) =
+                make_float2(x[j][2 * r], x[j][2 * r + 1]);
+      }
+    }
+    __syncthreads();                 // P^T is in shared memory
+    if (seen) {
+      if (role == 1) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                p_frag + r * 8 * XLD + j * 8);
+            const int qi = j * 8 + (lane % 4) * 2;
+            x[j][2 * r] = p.x * (x[j][2 * r] - dl_t[qi]) * scale;
+            x[j][2 * r + 1] = p.y * (x[j][2 * r + 1] - dl_t[qi + 1]) * scale;
+          }
+      }
+      // dV += P^T dO or dK += dS^T Q: the queries are the k dimension, the
+      // A operand this warp's fragments rounded to bf16
+      const __nv_bfloat16* bt = role ? Qt : dOt;
+#pragma unroll
+      for (int kj = 0; kj < BS / 16; ++kj) {
+        uint32_t a[4];
+        a[0] = tc::pack_bf16(x[2 * kj][0], x[2 * kj][1]);
+        a[1] = tc::pack_bf16(x[2 * kj][2], x[2 * kj][3]);
+        a[2] = tc::pack_bf16(x[2 * kj + 1][0], x[2 * kj + 1][1]);
+        a[3] = tc::pack_bf16(x[2 * kj + 1][2], x[2 * kj + 1][3]);
+        const int off = kj * 16 * LD + row_off;
+#pragma unroll
+        for (int dn = 0; dn < DP / 16; ++dn) {
+          uint32_t bb[4];
+          tc::ldmatrix_x4_trans(bb, bt + off + dn * 16);
+          tc::mma_bf16(acc[2 * dn], a, bb[0], bb[1]);
+          tc::mma_bf16(acc[2 * dn + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  tc::cp_async_wait<0>();             // K and V, when no step came
+  __nv_bfloat16* ob = role ? dk + b * dks.b + g * dks.h
+                           : dv + b * dvs.b + g * dvs.h;
+  const long long o_s = role ? dks.s : dvs.s;
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = kw0 + lane / 4 + (e / 2) * 8;
+      const int c = j * 8 + (lane % 4) * 2 + (e % 2);
+      if (row < S && c < D) ob[row * o_s + c] = __float2bfloat16_rn(acc[j][e]);
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdWide<DP>::NT, 1)
+flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, Strides qs,
+                         Strides ks, Strides vs, Strides dos, Strides dqs,
+                         int H, int rep, int S, int D, float scale,
+                         float scale_log2, int causal, int window, int vec) {
+  using Tl = BwdWide<DP>;
+  constexpr int BR = Tl::BR, BS = Tl::BS, LD = Tl::LD, XLD = Tl::XLD;
+  constexpr int NS = BS / 16;      // n8 tiles of a warp's S and dP (32 keys)
+  constexpr int NH = DP / 16;      // n8 tiles of its half of dQ
+  extern __shared__ uint4 bwd_wide_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(bwd_wide_smem);
+  __nv_bfloat16* dOs = Qs + Tl::TILE;
+  __nv_bfloat16* Ks = dOs + Tl::TILE;                // [2][BS][LD]
+  __nv_bfloat16* Vs = Ks + 2 * Tl::TILE;             // [2][BS][LD]
+  __nv_bfloat16* dSs = Vs + 2 * Tl::TILE;            // [BR][XLD]
+
+  const int n_q = (S + BR - 1) / BR;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x);  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
+  const int q0 = qt * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp / 4;           // key half of S / dP, column half of dQ
+  const int qw0 = q0 + (warp % 4) * 16;               // this warp's queries
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+  const __nv_bfloat16* kb = k + b * ks.b + g * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + g * vs.h;
+  const long long rows = (static_cast<long long>(b) * H + h) * S;
+
+  const int q_last = min(q0 + BR, S) - 1;
+  int t_lo = 0;
+  const int t_hi = causal ? q_last / BS + 1 : (S + BS - 1) / BS;
+  if (window > 0) {
+    const int lo = q0 - window - BS + 2;
+    t_lo = lo <= 0 ? 0 : (lo + BS - 1) / BS;
+  }
+
+  stage_rows<BR, DP>(Qs, qb, qs.s, q0, S, D, vec);
+  stage_rows<BR, DP>(dOs, dob, dos.s, q0, S, D, vec);
+  if (t_lo < t_hi) {
+    stage_rows<BS, DP>(Ks, kb, ks.s, t_lo * BS, S, D, vec);
+    stage_rows<BS, DP>(Vs, vb, vs.s, t_lo * BS, S, D, vec);
+  }
+  tc::cp_async_commit();
+  // this lane's rows qw0 + lane / 4 (fragment elements 0, 1) and + 8 (2, 3)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw0 + lane / 4 + 8 * r;
+    lse2[r] = row < S ? lse[rows + row] * kLog2e : 0.f;
+    dl[r] = row < S ? delta[rows + row] : 0.f;
+  }
+  float adq[NH][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[j][e] = 0.f;
+  const int frag = ((warp % 4) * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const __nv_bfloat16* ds_frag =
+      dSs + ((warp % 4) * 16 + lane % 16) * XLD + (lane / 16) * 8;
+  __nv_bfloat16* ds_out = dSs + ((warp % 4) * 16 + lane / 4) * XLD +
+                          half * 32 + (lane % 4) * 2;
+  const int col_off = (lane % 8 + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+  const int row_off = (lane % 8 + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();                 // tile t landed; tile t - 1 is done
+    if (t + 1 < t_hi) {
+      stage_rows<BS, DP>(Ks + (st ^ 1) * Tl::TILE, kb, ks.s, (t + 1) * BS, S,
+                         D, vec);
+      stage_rows<BS, DP>(Vs + (st ^ 1) * Tl::TILE, vb, vs.s, (t + 1) * BS, S,
+                         D, vec);
+    }
+    tc::cp_async_commit();
+    const __nv_bfloat16* Kt = Ks + st * Tl::TILE;
+    const __nv_bfloat16* Vt = Vs + st * Tl::TILE;
+    const int k0 = t * BS, kh0 = k0 + half * 32;      // this warp's keys
+    const bool seen = qw0 < S && !(causal && kh0 > qw0 + 15) &&
+                      !(window > 0 && kh0 + 31 <= qw0 - window);
+    const bool edge = qw0 + 16 > S || kh0 + 32 > S ||
+                      (causal && kh0 + 31 > qw0) ||
+                      (window > 0 && kh0 <= qw0 + 15 - window);
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    if (seen) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        tc::ldmatrix_x4(aq, Qs + frag + kk * 16);
+        tc::ldmatrix_x4(ao, dOs + frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          const int off = (half * 32 + np * 16) * LD + col_off + kk * 16;
+          tc::ldmatrix_x4(bk, Kt + off);
+          tc::ldmatrix_x4(bv, Vt + off);
+          tc::mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+          tc::mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+          tc::mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
+          tc::mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = qw0 + lane / 4 + (e / 2) * 8;
+          const int key = kh0 + j * 8 + (lane % 4) * 2 + (e % 2);
+          const bool keep = !edge || visible(row, key, S, causal, window);
+          const float p =
+              keep ? exp2f(s[j][e] * scale_log2 - lse2[e / 2]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dl[e / 2]) * scale;     // ds
+        }
+    }
+    // dS in bf16 (zeros where the warp saw nothing) for the dQ product
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      *reinterpret_cast<uint32_t*>(ds_out + j * 8) =
+          tc::pack_bf16(s[j][0], s[j][1]);
+      *reinterpret_cast<uint32_t*>(ds_out + 8 * XLD + j * 8) =
+          tc::pack_bf16(s[j][2], s[j][3]);
+    }
+    __syncthreads();                 // dS is in shared memory
+    // dQ += dS K over the tile's 64 keys, this warp's 16 rows and column
+    // half; the keys are the k dimension
+    const bool rows_seen = qw0 < S && !(causal && k0 > qw0 + 15) &&
+                           !(window > 0 && k0 + BS - 1 <= qw0 - window);
+    if (rows_seen) {
+#pragma unroll
+      for (int kj = 0; kj < BS / 16; ++kj) {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, ds_frag + kj * 16);
+        const int off = kj * 16 * LD + row_off + half * (DP / 2);
+#pragma unroll
+        for (int dn = 0; dn < DP / 32; ++dn) {
+          uint32_t bk[4];
+          tc::ldmatrix_x4_trans(bk, Kt + off + dn * 16);
+          tc::mma_bf16(adq[2 * dn], a, bk[0], bk[1]);
+          tc::mma_bf16(adq[2 * dn + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  __nv_bfloat16* gb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qw0 + lane / 4 + (e / 2) * 8;
+      const int c = half * (DP / 2) + j * 8 + (lane % 4) * 2 + (e % 2);
+      if (row < S && c < D)
+        gb[row * dqs.s + c] = __float2bfloat16_rn(adq[j][e]);
+    }
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
@@ -1493,11 +1904,21 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// float32 (and float32 copies of mixed inputs) on the CUDA cores
 template <typename T>
 cudaError_t dispatch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (a.D <= 64) return launch_bwd<T, 64>(a, stream);
   if (a.D <= 128) return launch_bwd<T, 128>(a, stream);
   return launch_bwd<T, 256>(a, stream);
+}
+
+cudaError_t launch_delta_bf16(const BwdArgs& a, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  flash_bwd_delta_kernel<bf><<<dim3((a.S + 7) / 8, a.H, a.B), 256, 0,
+                               stream>>>(
+      static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout), a.delta,
+      a.os, a.dos, a.H, a.S, a.D);
+  return cudaGetLastError();
 }
 
 template <int DP>
@@ -1506,11 +1927,7 @@ cudaError_t launch_bwd_mma(const BwdArgs& a, int vec, cudaStream_t stream) {
   const int rep = a.H / a.Hkv;
   const float scale_log2 = a.scale * 1.4426950408889634f;
   using bf = __nv_bfloat16;
-  flash_bwd_delta_kernel<bf><<<dim3((a.S + 7) / 8, a.H, a.B), 256, 0,
-                               stream>>>(
-      static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout), a.delta,
-      a.os, a.dos, a.H, a.S, a.D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta_bf16(a, stream);
   if (err != cudaSuccess) return err;
 
   auto dq_kern = flash_bwd_dq_mma_kernel<DP>;
@@ -1540,9 +1957,53 @@ cudaError_t launch_bwd_mma(const BwdArgs& a, int vec, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bfloat16: the tensor cores up to a head dim of 128 (DP the head dim
-// rounded up to 32, as the forward buckets it); past it, the CUDA-core
-// kernels on bf16 loads, whose registers hold a 256-wide row.
+// The dynamic shared memory a wide kernel asks for, with the SM's carveout
+// at its largest (one block an SM).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int DP>
+cudaError_t launch_bwd_wide(const BwdArgs& a, int vec, cudaStream_t stream) {
+  using Tl = BwdWide<DP>;
+  using bf = __nv_bfloat16;
+  const int rep = a.H / a.Hkv;
+  const float scale_log2 = a.scale * kLog2e;
+  const int n_t = (a.S + Tl::BR - 1) / Tl::BR;
+  cudaError_t err = launch_delta_bf16(a, stream);
+  if (err != cudaSuccess) return err;
+
+  auto dq_kern = flash_bwd_dq_wide_kernel<DP>;
+  err = allow_smem(dq_kern, Tl::DQ_BYTES);
+  if (err != cudaSuccess) return err;
+  dq_kern<<<dim3(n_t, a.H, a.B), Tl::NT, Tl::DQ_BYTES, stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs, a.H,
+      rep, a.S, a.D, a.scale, scale_log2, a.causal, a.window, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto dkv_kern = flash_bwd_dkdv_wide_kernel<DP>;
+  err = allow_smem(dkv_kern, Tl::DKV_BYTES);
+  if (err != cudaSuccess) return err;
+  dkv_kern<<<dim3(n_t, a.Hkv, a.B), Tl::NT, Tl::DKV_BYTES, stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.qs, a.ks,
+      a.vs, a.dos, a.dks, a.dvs, a.H, rep, a.S, a.D, a.scale, scale_log2,
+      a.causal, a.window, vec);
+  return cudaGetLastError();
+}
+
+// bfloat16: the tensor cores at every head dim, DP the head dim rounded up
+// to 32 as the forward buckets it; past 128 the wide kernels.
 cudaError_t dispatch_bwd_bf16(const BwdArgs& a, cudaStream_t stream) {
   const int vec = a.D % 8 == 0 && on16(a.q) && on16(a.k) && on16(a.v) &&
                   on16(a.dout) && strides8(a.qs) && strides8(a.ks) &&
@@ -1552,7 +2013,11 @@ cudaError_t dispatch_bwd_bf16(const BwdArgs& a, cudaStream_t stream) {
     case 2: return launch_bwd_mma<64>(a, vec, stream);
     case 3: return launch_bwd_mma<96>(a, vec, stream);
     case 4: return launch_bwd_mma<128>(a, vec, stream);
-    default: return dispatch_bwd<__nv_bfloat16>(a, stream);
+    case 5: return launch_bwd_wide<160>(a, vec, stream);
+    case 6: return launch_bwd_wide<192>(a, vec, stream);
+    case 7: return launch_bwd_wide<224>(a, vec, stream);
+    case 8: return launch_bwd_wide<256>(a, vec, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 

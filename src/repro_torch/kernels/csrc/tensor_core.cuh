@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// Hopper kernels (sm_90a), as inline PTX: 16-byte cp.async with zero fill,
-// ldmatrix (plain and transposed) and the bf16 m16n8k16 mma.sync with
+// Hopper kernels (sm_90a), as inline PTX: 16- and 4-byte cp.async with zero
+// fill, ldmatrix (plain and transposed) and the bf16 m16n8k16 mma.sync with
 // float32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -28,6 +28,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared through L1, with the same zero fill.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

@@ -40,11 +40,13 @@ reference's ``_flash_bwd`` (``repro/models/layers.py``, the custom VJP of
 ``dk = ds^T q``, with ``dk``/``dv`` summed over the ``H / Hkv`` query heads
 of each kv head (the VJP of the reference's repeated heads). It launches
 three kernels (the ``delta`` pre-pass, ``dK``/``dV`` and ``dQ``), each
-deterministic; ``flash_attention_backward_kernel.launches`` counts calls.
-All-bfloat16 inputs run on the tensor cores up to a head dim of 128 (bf16
-products with float32 sums, P and dS rounded to bf16 as operands; on CUDA
-cores with float32 arithmetic past it), any other mix on float32 copies on
-CUDA cores (see the source note).
+deterministic; ``flash_attention_backward_kernel.launches`` counts calls,
+``flash_attention_backward_kernel.tensor_core_launches`` those on the
+tensor cores. All-bfloat16 inputs run on the tensor cores at every head dim
+up to 256 (bf16 products with float32 sums, P and dS rounded to bf16 as
+operands; past D 128 the wide kernels, eight warps with one accumulator
+each), any other mix on float32 copies on CUDA cores (see the source
+note).
 
 Fake tensors (``torch._subclasses.fake_tensor``) of the card launch nothing
 and count nothing: each wrapper checks them as it would real ones and calls
@@ -296,9 +298,10 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
     the forward's ``lse`` (``[B, H, S]`` float32, contiguous). Strides as
     for the forward (a contiguous last dim); the results go into ``dq``,
     ``dk``, ``dv`` when given (any such strides) or new contiguous tensors,
-    in the dtypes of ``q``, ``k``, ``v``. All bfloat16 runs the bf16 kernels;
-    any other mix the float32 ones on float32 copies. CPU tensors take the
-    plain version."""
+    in the dtypes of ``q``, ``k``, ``v``. All bfloat16 runs the bf16
+    tensor-core kernels (counted in ``tensor_core_launches`` too); any other
+    mix the float32 ones on float32 copies. A failed launch raises. CPU
+    tensors take the plain version."""
     grads = (dq, dk, dv)
     tensors = tuple(t for t in (q, k, v, out, dout, lse) + grads
                     if t is not None)
@@ -358,10 +361,13 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {rc}")
     flash_attention_backward_kernel.launches += 1
+    if work == torch.bfloat16:
+        flash_attention_backward_kernel.tensor_core_launches += 1
     return tuple(r if r is kr else r.copy_(kr) for r, kr in zip(res, kout))
 
 
 flash_attention_backward_kernel.launches = 0
+flash_attention_backward_kernel.tensor_core_launches = 0
 
 
 # The two kernels as custom ops, for fake tensors only (the wrappers above

@@ -195,13 +195,30 @@ def test_backward_matches_reference_vjp(s, window, h, hkv):
     """The plain backward, the CPU Function of the model (q chunks of 64,
     kv sub-chunks of 32) and the whole-sequence Function on CPU tensors,
     each against ``jax.vjp`` of the reference's blockwise attention."""
-    q, k, v, g = _bshd_inputs(s + h + hkv, s, h, hkv)
+    _check_backward_against_reference(s, window, h, hkv, 16, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [160, 192])
+@pytest.mark.parametrize("s", [17, 160])
+@pytest.mark.parametrize("window", [None, 23])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (4, 4)])
+def test_backward_wide_head_dims_match_reference_vjp(d, s, window, h, hkv):
+    """As above at zamba2's D 160 and deepseek-v3's D 192, the head dims
+    of the card's wide tensor-core backward, which is held against this
+    plain version there: its chain back to the reference. atol 5e-6: dq
+    sums 160 keys of 192-long float32 products in another order than the
+    reference, about 1e-6 off on gradients near 1 (rtol 1e-4 as above)."""
+    _check_backward_against_reference(s, window, h, hkv, d, atol=5e-6)
+
+
+def _check_backward_against_reference(s, window, h, hkv, d, atol):
+    q, k, v, g = _bshd_inputs(s + h + hkv, s, h, hkv, d)
     want = _reference_vjp(q, k, v, g, window)
 
     def check(got):
         for a, b in zip(got, want):
             np.testing.assert_allclose(np.asarray(a), b, rtol=1e-4,
-                                       atol=1e-6)
+                                       atol=atol)
 
     bhsd = [torch.tensor(a).transpose(1, 2) for a in (q, k, v, g)]
     lse = torch.empty(2, h, s)

@@ -30,8 +30,9 @@ its plain version within rtol=atol=1e-5 in float32 and 1e-2 in bfloat16, and
 a smoke-size model served on the card goes through it; its lse matches the
 plain version's within 1e-5 (float32). The flash backward kernel agrees with
 its plain version within 1e-4 of each gradient's largest magnitude in
-float32 and relative L2 2e-2 in bfloat16 (the tensor cores up to D 128),
-and repeats bit for bit; attention gradients on the card (through both
+float32 and relative L2 2e-2 in bfloat16 (the tensor cores at every head
+dim up to 256, each bf16 call counted as a tensor-core launch), and repeats
+bit for bit; attention gradients on the card (through both
 kernels) match the CPU's within 1e-4, as do a smoke-size model's loss and
 gradients under remat. The annealing
 kernel ``sa_chains`` is bit-identical to the plain loop that launches
@@ -1130,7 +1131,8 @@ def test_attention_gradients_on_the_card_match_the_cpu(cuda, window):
 
 # (b, h, hkv, s, d, window, dtype, causal): the trained internlm2 layer's
 # heads at a shorter S, h2o-danube's D 80 and window, the smoke configs'
-# float32 shape, odd S and D, D 256, GQA 1/2/4 and non-causal input
+# float32 shape, odd S and D, D 256, GQA 1/2/4, non-causal input, and the
+# bf16 tensor-core route past D 128 over its buckets
 FLASH_BWD_CASES = [
     (2, 16, 8, 512, 128, None, torch.bfloat16, True),
     (1, 8, 2, 300, 80, 100, torch.bfloat16, True),
@@ -1142,8 +1144,8 @@ FLASH_BWD_CASES = [
     (1, 4, 2, 100, 256, 37, torch.float32, True),
     (1, 2, 1, 65, 256, None, torch.bfloat16, True),
     (2, 8, 2, 1, 64, None, torch.float32, True),
-    # zamba2-2.7b's shared block (D 160): bf16 past D 128 on the CUDA-core
-    # route
+    # zamba2-2.7b's shared block (D 160): bf16 past D 128 on the wide
+    # tensor-core kernels
     (1, 32, 32, 1024, 160, None, torch.bfloat16, True),
     (1, 4, 2, 200, 160, 37, torch.bfloat16, True),
     (1, 4, 2, 77, 160, None, torch.float32, True),
@@ -1155,10 +1157,24 @@ FLASH_BWD_CASES = [
     (2, 16, 16, 1024, 64, None, torch.bfloat16, True),
     # the trained MLA/MoE layers: minicpm3-4b's MLA (D 96, MHA) on the
     # tensor cores, qwen3-moe's GQA 32/4 at D 128, deepseek-v3's MLA (D 192)
-    # past D 128 on the CUDA-core route
+    # past D 128 on the wide tensor-core kernels
     (1, 8, 8, 300, 96, None, torch.bfloat16, True),
     (2, 32, 4, 512, 128, None, torch.bfloat16, True),
     (1, 8, 8, 257, 192, None, torch.bfloat16, True),
+    # the wide route: D 130 (not a multiple of 8: element-wise loads), 136,
+    # 200, 224 and 256 under causal, non-causal and windowed masks; GQA 4:1
+    # at D 192; S = 1 and S = 65 (one row past a 64-row tile)
+    (1, 4, 2, 200, 130, None, torch.bfloat16, True),
+    (1, 4, 4, 150, 130, 33, torch.bfloat16, False),
+    (2, 4, 2, 300, 136, 50, torch.bfloat16, True),
+    (1, 4, 2, 130, 200, None, torch.bfloat16, False),
+    (1, 8, 8, 257, 224, 100, torch.bfloat16, True),
+    (1, 4, 2, 333, 256, None, torch.bfloat16, True),
+    (1, 4, 1, 200, 256, 37, torch.bfloat16, False),
+    (2, 16, 4, 512, 192, None, torch.bfloat16, True),
+    (2, 8, 2, 1, 192, None, torch.bfloat16, True),
+    (1, 4, 2, 65, 160, None, torch.bfloat16, True),
+    (1, 4, 2, 65, 224, 7, torch.bfloat16, False),
 ]
 
 
@@ -1183,22 +1199,32 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, b, h, hkv, s, d,
     sums in another order), plus 1e-5 absolute where a gradient is zero up
     to rounding (S = 1: ds = p (dp - delta) cancels exactly, leaving
     float32 noise of the size eps |dp| scale); bfloat16 within relative L2
-    2e-2 per gradient (float32 arithmetic on bfloat16 inputs, one rounding
-    of each result)."""
+    2e-2 per gradient (bf16 products with float32 sums, P and dS rounded
+    to bf16 as operands, one rounding of each result), but at S = 1, where
+    each row sees itself alone (p = 1, dp = delta) and dq, dk cancel to
+    rounding in both versions, those two are held to the float32 bound. A
+    second call is bit-identical (no atomics); a bf16 call is one
+    tensor-core launch."""
     args = _bwd_inputs(cuda, b, h, hkv, s, d, window, dtype, causal)
-    before = flash_attention_backward_kernel.launches
+    before = (flash_attention_backward_kernel.launches,
+              flash_attention_backward_kernel.tensor_core_launches)
     got = flash_attention_backward_kernel(*args, causal=causal,
                                           window=window)
     torch.cuda.synchronize()
-    assert flash_attention_backward_kernel.launches == before + 1
+    assert (flash_attention_backward_kernel.launches,
+            flash_attention_backward_kernel.tensor_core_launches) == (
+                before[0] + 1, before[1] + int(dtype == torch.bfloat16))
+    again = flash_attention_backward_kernel(*args, causal=causal,
+                                            window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = flash_attention_backward_plain(*args, causal=causal,
                                           window=window)
-    for g, w, like in zip(got, want, args[:3]):
+    for i, (g, w, like) in enumerate(zip(got, want, args[:3])):
         assert g.dtype == like.dtype and g.shape == like.shape
         assert bool(torch.isfinite(g.float()).all())
-        if dtype == torch.float32:
+        if dtype == torch.float32 or (s == 1 and i < 2):
             bound = 1e-4 * w.abs().max().item() + 1e-5
-            assert (g - w).abs().max().item() <= bound
+            assert (g.float() - w.float()).abs().max().item() <= bound
         else:
             assert _rel_l2(g, w) <= 2e-2
 
@@ -1222,25 +1248,34 @@ def test_flash_attention_forward_lse_matches_plain(cuda, dtype):
                                                        window=window))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype):
-    """BSHD views in and out, as the model's Function hands them over; two
-    calls give bit-identical gradients (no atomics)."""
+@pytest.mark.parametrize("dtype,d,window", [
+    (torch.float32, 64, 40), (torch.bfloat16, 64, 40),
+    (torch.bfloat16, 192, None), (torch.bfloat16, 130, 40)])
+def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype,
+                                                                d, window):
+    """BSHD views in and out, as the model's Function hands them over, GQA
+    4:1 (at D 192 and D 130 the wide tensor-core route, with 16-byte copies
+    and with element-wise loads); two calls give bit-identical gradients
+    (no atomics), each bf16 call one tensor-core launch."""
     def view(t):
         return t.transpose(1, 2).contiguous().transpose(1, 2)
 
-    *tensors, lse = _bwd_inputs(cuda, 2, 8, 2, 150, 64, 40, dtype, True)
+    *tensors, lse = _bwd_inputs(cuda, 2, 8, 2, 150, d, window, dtype, True)
     args = [view(t) for t in tensors]
     assert not args[0].is_contiguous()
     grads = [view(torch.zeros_like(t)) for t in args[:3]]
-    got = flash_attention_backward_kernel(*args, lse, window=40, dq=grads[0],
-                                          dk=grads[1], dv=grads[2])
+    before = flash_attention_backward_kernel.tensor_core_launches
+    got = flash_attention_backward_kernel(*args, lse, window=window,
+                                          dq=grads[0], dk=grads[1],
+                                          dv=grads[2])
     assert all(a is b for a, b in zip(got, grads))
-    again = flash_attention_backward_kernel(*args, lse, window=40)
+    again = flash_attention_backward_kernel(*args, lse, window=window)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (flash_attention_backward_kernel.tensor_core_launches
+            == before + 2 * int(dtype == torch.bfloat16))
     want = flash_attention_backward_plain(*(t.contiguous() for t in args),
-                                          lse, window=40)
+                                          lse, window=window)
     for g, w in zip(got, want):
         assert _rel_l2(g, w) <= (1e-5 if dtype == torch.float32 else 2e-2)
 
