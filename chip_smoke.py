@@ -8,6 +8,8 @@
     python3 chip_smoke.py --mesh            # only phase 16
     python3 chip_smoke.py --dryrun          # only phase 17
     python3 chip_smoke.py --flash-backward  # phase 12a's backward, timed
+    python3 chip_smoke.py --flash-backward-times    # the timings alone
+    python3 chip_smoke.py --flash-backward-split    # their kernels' split
     python3 chip_smoke.py --flash-backward-digests  # unchanged routes' bits
 
 Phases, each of which fails the run loudly:
@@ -335,11 +337,15 @@ lists ``flash_attention_backward`` (phase 12b's launches, phase 12a's
 times) beside the eight kernels of the earlier phases.
 
 ``--flash-backward`` runs phase 12a's backward sweep alone and times the
-backward at internlm2-1.8b's, zamba2-2.7b's and deepseek-v3's trained shapes
-(about 100 s with the build). ``--flash-backward-digests`` prints a digest of
-the gradients at every sweep case on the routes the wide kernels did not
-change (float32; bf16 up to D 128); copied into an older checkout, it
-prints that checkout's bits on the same inputs.
+backward at every trained shape (``BWD_TIMED``: internlm2-1.8b, qwen3-moe,
+minicpm3-4b, seamless's encoder and decoder, zamba2-2.7b, deepseek-v3)
+against SDPA's backward, with each kernel's device time a call from the
+profiler in a child process (``--flash-backward-split``, which the whole
+run starts in phase 12 too). ``--flash-backward-times`` runs those timings
+alone; ``--flash-backward-digests`` prints a digest of the gradients at
+every sweep case on the routes the wgmma kernels did not change (float32
+at every D; bf16 past D 128). Copied into an older checkout, either of the
+last two measures that checkout's kernels on the same inputs.
 
 ``--wrapper-times`` runs nothing but the host microseconds a call of the LIF
 wrappers at the 13 Spike-VGG16 state shapes (eager ms minus CUDA-graph
@@ -359,6 +365,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -649,17 +656,23 @@ def _check_delta_stream(dev, graph, noc, rng, n_swaps: int = 200):
           f"(tolerance 1e-5) ok")
 
 
+# a kernel's counts of its launches on a route, beside ``launches``
+ROUTE_COUNTS = ("tensor_core", "wgmma")
+
+
 def _reset_counts(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
-        if hasattr(fn, "tensor_core_launches"):
-            fn.tensor_core_launches = 0
+        for route in ROUTE_COUNTS:
+            if hasattr(fn, f"{route}_launches"):
+                setattr(fn, f"{route}_launches", 0)
 
 
 def _counts(kernels) -> dict:
     out = {fn.__name__: fn.launches for fn in kernels}
-    out.update({f"{fn.__name__}.tensor_core": fn.tensor_core_launches
-                for fn in kernels if hasattr(fn, "tensor_core_launches")})
+    out.update({f"{fn.__name__}.{route}": getattr(fn, f"{route}_launches")
+                for fn in kernels for route in ROUTE_COUNTS
+                if hasattr(fn, f"{route}_launches")})
     return out
 
 
@@ -1098,6 +1111,34 @@ def _time_link_traffic_routes(main, launches, err, ptxas, card):
           f"{row['resident_warps_per_sm']} warps) resident per SM of 64 "
           f"warps, {B} blocks on 132 SMs; card {card}")
     return row
+
+
+def _profile_calls(fn, label: str, kernel: str, reps: int = 5) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn``: the device time a call
+    of each kernel whose name holds ``kernel``, by name. Returns ``{kernel
+    name: ms a call}``, or None when no device events came back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and kernel in e.key
+           and e.self_device_time_total > 0]
+    if not own:
+        print(f"[{label}-profile] {reps} calls: device time not measured "
+              "(the profiler recorded no device events)")
+        return None
+    split = {re.search(rf"\w*{kernel}\w*(<[^>]*>)?", e.key).group(0):
+             e.self_device_time_total / 1e3 / reps for e in own}
+    print(f"[{label}-profile] device ms a call over {reps} calls, by "
+          f"kernel: {json.dumps(split)}")
+    return split
 
 
 def _graph_ms(fn, reps: int = 100, replays: int = 20) -> float:
@@ -2719,7 +2760,8 @@ def _route_gradients(dev, cut, run, label, n_apps):
     torch.cuda.empty_cache()
 
 
-def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
+def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err,
+                        splits):
     """Phase 14: the flash kernel at zamba2's D 160 prefill shape against
     its plain version and timed (added to ``flash_row``); zamba2-2.7b (54
     Mamba2 layers, 9 applications of the shared attention block) and
@@ -2763,7 +2805,9 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err):
     _route_gradients(dev, cut, TRAIN_ZAMBA2, "train-zamba2",
                      cut.n_layers // cut.hybrid_period)
     entry = _time_flash_backward(dev, card, bwd_launches, bwd_err,
-                                 ZAMBA2_TRAINED, "zamba2-2.7b")
+                                 ZAMBA2_TRAINED, "zamba2-2.7b",
+                                 split=splits[_split_key("zamba2-2.7b",
+                                                         True)])
     bwd_row["trained_shapes"] = [{k: entry[k] for k in BWD_ENTRY_KEYS}]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3006,7 +3050,8 @@ def _serve_encdec(dev, card, kernels):
     return out
 
 
-def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs):
+def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs,
+                         splits):
     """Phase 15: the flash kernels at seamless's D 64 shapes, non-causal
     (forward held and timed against SDPA, added to ``flash_row``; the
     backward held in phase 12a's sweep, its max abs error ``bwd_err``);
@@ -3045,7 +3090,9 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs):
     entry = _time_flash_backward(dev, card, bwd_launches,
                                  bwd_errs["trained seamless encoder"],
                                  SEAMLESS_BWD, "seamless-m4t-medium",
-                                 causal=False)
+                                 causal=False,
+                                 split=splits[_split_key(
+                                     "seamless-m4t-medium", False)])
     bwd_row.setdefault("trained_shapes", []).append(
         {k: entry[k] for k in BWD_ENTRY_KEYS})
     for arch, label, depth in TRAIN_FAMILIES:
@@ -3065,7 +3112,9 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs):
     entry = _time_flash_backward(dev, card, bwd_launches,
                                  bwd_errs["trained deepseek-v3 layer"],
                                  DEEPSEEK_TRAINED, "deepseek-v3-671b",
-                                 plain=False)
+                                 plain=False,
+                                 split=splits[_split_key("deepseek-v3-671b",
+                                                         True)])
     bwd_row["trained_shapes"].append({k: entry[k] for k in BWD_ENTRY_KEYS})
     # a second witness for deepseek's run, whose MTP term grows as the
     # reference's does at 128 heads (tests/test_torch_train.py)
@@ -3683,7 +3732,11 @@ def _bwd_sweep():
     """Phase 12a's backward cases: (name, B, H, Hkv, S, D, window, dtype,
     causal). Every trained shape of phases 12, 14 and 15; then the bf16
     tensor-core route past D 128 over its buckets (D 130 with element-wise
-    loads, 136, 200, 224, 256), masks, GQA 4:1 and S off the 64-row tile."""
+    loads, 136, 200, 224, 256), masks, GQA 4:1 and S off the 64-row tile;
+    then the wgmma route up to D 128 at D 32 and 96 (padded to 64-column
+    chunks), a window, non-causal, GQA 8:1, S = 1 and S off the tile (the
+    trained shapes at D 64, 96 and 128 take it too; "odd S and D" in bf16,
+    D 20, keeps the mma.sync kernels)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     return [("trained internlm2 layer",) + TRAINED + (None, bf16, True),
@@ -3706,7 +3759,14 @@ def _bwd_sweep():
             ("wide D 256 window", 1, 4, 2, 333, 256, 37, bf16, True),
             ("wide GQA 4:1 D 192", 2, 16, 4, 512, 192, None, bf16, True),
             ("wide S=1 D 192", 2, 8, 2, 1, 192, None, bf16, True),
-            ("wide S=65 D 160", 1, 4, 2, 65, 160, None, bf16, True)]
+            ("wide S=65 D 160", 1, 4, 2, 65, 160, None, bf16, True),
+            ("wgmma D 32 S=65", 1, 4, 2, 65, 32, None, bf16, True),
+            ("wgmma D 64 window", 2, 4, 2, 300, 64, 50, bf16, True),
+            ("wgmma D 96 non-causal S=77", 1, 4, 4, 77, 96, None, bf16,
+             False),
+            ("wgmma GQA 8:1 D 128 window", 1, 16, 2, 333, 128, 100, bf16,
+             True),
+            ("wgmma S=1 D 128", 2, 8, 2, 1, 128, None, bf16, True)]
 
 
 def _digest(tensors) -> str:
@@ -3721,14 +3781,14 @@ def _digest(tensors) -> str:
 
 def _backward_digests(dev):
     """``--flash-backward-digests``: a digest of dq, dk, dv at every case of
-    the sweep on a route the wide kernels left as it was (float32; bf16 up
-    to D 128), from the kernel alone, so a copy of this script in an older
-    checkout prints that checkout's bits on the same inputs."""
+    the sweep on a route the wgmma kernels left as it was (float32 at every
+    D; bf16 past D 128), from the kernel alone, so a copy of this script in
+    an older checkout prints that checkout's bits on the same inputs."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel)
     for name, b, h, hkv, s, d, window, dtype, causal in _bwd_sweep():
-        if dtype == torch.bfloat16 and d > 128:
+        if dtype == torch.bfloat16 and d <= 128:
             continue
         args = _bwd_case(dev, b, h, hkv, s, d, window, dtype, causal=causal)
         got = flash_attention_backward_kernel(*args, causal=causal,
@@ -3745,20 +3805,25 @@ def _check_flash_backward(dev):
     the sweep (every trained shape of phases 12, 14 and 15 among it),
     deterministic, every bf16 call a tensor-core launch; the forward's lse
     against the plain version's; the forward's output bit-identical with
-    and without lse. Returns the max abs error of each case, by name."""
+    and without lse; every bf16 call up to D 128 (D a multiple of 8: every
+    case but "odd S and D") a wgmma launch. Returns the max abs error of
+    each case, by name."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_kernel,
         flash_attention_plain)
     f32, bf16 = torch.float32, torch.bfloat16
     errs = {}
+    fn = flash_attention_backward_kernel
     for name, b, h, hkv, s, d, window, dtype, causal in _bwd_sweep():
         args = _bwd_case(dev, b, h, hkv, s, d, window, dtype, causal=causal)
         kw = dict(causal=causal, window=window)
-        tc = flash_attention_backward_kernel.tensor_core_launches
+        tc, wg = fn.tensor_core_launches, fn.wgmma_launches
         got = flash_attention_backward_kernel(*args, **kw)
         again = flash_attention_backward_kernel(*args, **kw)
-        tc = flash_attention_backward_kernel.tensor_core_launches - tc
+        tc = fn.tensor_core_launches - tc
+        wg = fn.wgmma_launches - wg
+        want_wg = 2 if dtype == bf16 and d <= 128 and d % 8 == 0 else 0
         torch.cuda.synchronize()
         want = _backward_plain_sliced(*args, **kw)
         key = str(dtype).split(".")[1]
@@ -3776,7 +3841,8 @@ def _check_flash_backward(dev):
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         ok = (err <= BWD_TOL[key] and cancel <= BWD_TOL["float32"] and same
-              and finite and tc == (2 if dtype == bf16 else 0))
+              and finite and tc == (2 if dtype == bf16 else 0)
+              and wg == want_wg)
         print(f"[kernel] flash_attention_backward {name} B{b} H{h} Hkv{hkv} "
               f"S{s} D{d} window {window} {dtype}"
               f"{'' if causal else ' non-causal'}: error {err!r} "
@@ -3784,7 +3850,8 @@ def _check_flash_backward(dev):
               f", tolerance {BWD_TOL[key]}; dq, dk, dv relative L2 {per}"
               f"{note}); a "
               f"second run bit-identical: {same}; tensor-core launches {tc} "
-              f"of 2; digest {_digest(got)} {'ok' if ok else 'MISMATCH'}")
+              f"of 2, wgmma {wg} of {want_wg}; digest {_digest(got)} "
+              f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"flash_attention_backward disagrees with "
                                  f"its plain version on {name}")
@@ -3823,10 +3890,7 @@ def _flash_backward_phase():
     """``--flash-backward``: phase 12a's backward checks alone. Builds the
     flash kernels (ptxas' report of each), holds the backward against its
     plain version over the sweep (``_check_flash_backward``) and times it at
-    internlm2-1.8b's, zamba2-2.7b's and deepseek-v3's trained shapes
-    against SDPA's backward (``_time_flash_backward``; deepseek's plain
-    version untimed)."""
-    import gc
+    every trained shape against SDPA's backward (``BWD_TIMED``)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -3844,15 +3908,94 @@ def _flash_backward_phase():
               if e["spill_stores"] or e["spill_loads"]]
     print(f"[build] kernels that spill: {spills if spills else 'none'}")
     errs = _check_flash_backward(dev)
-    for name, shape, model in (
-            ("trained internlm2 layer", TRAINED, "internlm2-1.8b"),
-            ("trained zamba2 shared block", ZAMBA2_TRAINED, "zamba2-2.7b"),
-            ("trained deepseek-v3 layer", DEEPSEEK_TRAINED,
-             "deepseek-v3-671b")):
+    _time_trained_backwards(dev, card, errs, _backward_splits())
+
+
+# (sweep name, shape, model, causal, plain timed) of every trained shape
+# that --flash-backward times against SDPA's backward: the wgmma route's
+# (D 64, 96, 128), then the wide route's; the plain version only where its
+# dense float32 scores stay small
+BWD_TIMED = [
+    ("trained internlm2 layer", TRAINED, "internlm2-1.8b", True, True),
+    ("trained qwen3-moe layer", (2, 32, 4, 4096, 128), "qwen3-moe-30b-a3b",
+     True, False),
+    ("trained minicpm3-4b layer", (2, 40, 40, 4096, 96), "minicpm3-4b",
+     True, False),
+    ("trained seamless encoder", SEAMLESS_BWD, "seamless-m4t-medium", False,
+     True),
+    ("trained seamless decoder self-attention", SEAMLESS_BWD,
+     "seamless-m4t-medium", True, True),
+    ("trained zamba2 shared block", ZAMBA2_TRAINED, "zamba2-2.7b", True,
+     True),
+    ("trained deepseek-v3 layer", DEEPSEEK_TRAINED, "deepseek-v3-671b", True,
+     False)]
+
+
+def _split_key(model, causal) -> str:
+    return f"{model} {'causal' if causal else 'non-causal'}"
+
+
+def _backward_splits() -> dict:
+    """The pre-pass / dQ / dK-dV device time a call at every ``BWD_TIMED``
+    shape, ``{_split_key: {kernel: ms}}``, from torch.profiler in a child
+    process (``--flash-backward-split``): inside the whole script, after
+    its earlier profiles, a profile of a few calls of these kernels comes
+    back empty or partial, while a fresh process records every one of
+    them."""
+    out = _child("--flash-backward-split", "flash-backward-split")
+    line = next(x for x in out.splitlines() if x.startswith("[split] "))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def _flash_backward_split():
+    """``--flash-backward-split``: ``_backward_splits``'s child. Profiles
+    5 calls of the backward at every ``BWD_TIMED`` shape on phase 12a's
+    inputs and prints the splits as one ``[split] {...}`` line."""
+    import gc
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_kernel)
+    dev = torch.device("cuda")
+    splits = {}
+    for _, (b, h, hkv, s, d), model, causal, _ in BWD_TIMED:
+        args = _bwd_case(dev, b, h, hkv, s, d, None, torch.bfloat16, seed=1,
+                         causal=causal)
+        splits[_split_key(model, causal)] = _profile_calls(
+            lambda: flash_attention_backward_kernel(*args, causal=causal),
+            f"{model}-flash-backward", "flash_bwd")
+        del args
         gc.collect()
         torch.cuda.empty_cache()
-        _time_flash_backward(dev, card, None, errs[name], shape, model,
-                             plain=shape != DEEPSEEK_TRAINED)
+    print("[split] " + json.dumps(splits))
+
+
+def _time_trained_backwards(dev, card, errs=None, splits=None):
+    """The backward at every shape of ``BWD_TIMED`` against SDPA's backward
+    (``_time_flash_backward``), each case's error from ``errs`` (phase 12a's;
+    null without it) and its split from ``splits``."""
+    import gc
+    import torch
+    for name, shape, model, causal, plain in BWD_TIMED:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _time_flash_backward(dev, card, None,
+                             None if errs is None else errs[name], shape,
+                             model, causal=causal, plain=plain,
+                             split=(splits or {}).get(
+                                 _split_key(model, causal)))
+
+
+def _flash_backward_times():
+    """``--flash-backward-times``: the timings of ``--flash-backward``
+    alone, through the wrapper and nothing newer, so that a copy of this
+    script in an older checkout times that checkout's kernels at the same
+    shapes."""
+    import torch
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _card_line()
+    print(card)
+    _time_trained_backwards(dev, card)
 
 
 def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int,
@@ -3890,7 +4033,8 @@ def _sdpa_backward_graph_ms(q, k, v, dout, reps: int, replays: int,
 
 
 def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
-                         model="internlm2-1.8b", causal=True, plain=True):
+                         model="internlm2-1.8b", causal=True, plain=True,
+                         split=None):
     """Phases 12a, 14 and 15, ``flash_attention_backward`` row: one layer's
     attention backward at a trained shape (default internlm2-1.8b's: B2,
     H16, Hkv 8, S4096, D128, bf16, causal) through the kernel, its plain
@@ -3898,7 +4042,8 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
     library's error is taken against the kernel, which phase 12a holds
     against the plain version) and the backward of
     ``F.scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``
-    on the same tensors, timed alone."""
+    on the same tensors, timed alone; ``split`` (``_backward_splits``) is
+    the kernels' device ms a call, by kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
@@ -3955,8 +4100,8 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
     }
     row["achieved_tflops"] = n_ops / dev_ms[0] / 1e9
     row["vs_library"] = dev_ms[0] / dev_ms[2]
-    # the call's three kernels (delta pre-pass, dQ, dK/dV) by device time
-    _profile_step(fns[0], f"{model}-flash-backward", "flash_bwd")
+    # the call's three kernels (pre-pass, dQ, dK/dV), device ms a call
+    row["device_split_ms"] = split
     print(f"[time] flash_attention_backward {model} B{b} H{h} Hkv{hkv} S{s} "
           f"D{d} bf16 {mask}: kernel {ms[0]!r} ms, plain {ms[1]!r} ms, SDPA backward "
           f"{ms[2]!r} ms (per call); device (graph) kernel {dev_ms[0]!r}, "
@@ -3965,8 +4110,8 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
           f"{row['bound_ms']!r} ms ({n_ops} flops over {pairs} visible pairs "
           f"at {BF16_OPS_PER_S:.3g} flop/s; {n_bytes} bytes); kernel "
           f"{row['achieved_tflops']!r} TFLOP/s; SDPA vs "
-          f"{'plain' if plain else 'kernel'} relative L2 {lib_err!r}; card "
-          f"{card}")
+          f"{'plain' if plain else 'kernel'} relative L2 {lib_err!r}; device "
+          f"ms a call by kernel {json.dumps(split)}; card {card}")
     return row
 
 
@@ -4117,16 +4262,23 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
                              f"its plain version on the training step's "
                              f"inputs ({len(held)} calls held of "
                              f"{want_bwd})")
+    # the backward calls up to D 128 (D a multiple of 8) run the wgmma
+    # kernels, the calls past it the wide ones
+    want_wgmma = sum(shape[3] <= 128 and shape[3] % 8 == 0
+                     for shape, _, _ in held)
     if (len(rec) != run["steps"]
             or any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec)
             or launches["flash_attention_kernel.tensor_core"]
             != want_fwd * run["steps"]
             or launches["flash_attention_backward_kernel.tensor_core"]
-            != want_bwd * run["steps"]):
+            != want_bwd * run["steps"]
+            or launches["flash_attention_backward_kernel.wgmma"]
+            != want_wgmma * run["steps"]):
         raise AssertionError(f"{label}: flash launches a step "
                              f"{[(r['fwd'], r['bwd']) for r in rec]}, not "
                              f"{want_fwd} forward and {want_bwd} backward, "
-                             f"all on the tensor cores ({launches})")
+                             f"all on the tensor cores, {want_wgmma} of the "
+                             f"backward on wgmma ({launches})")
     # with DeepSeek's MTP head the CE is held to fall and the MTP term to
     # stay finite: its layer's output meets the head without a norm, and
     # at full width that term starts near 60 and grows under AdamW, as the
@@ -4143,7 +4295,10 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
     print(f"[{label}] losses finite, step {len(losses) - 1}'s "
           f"{'ce' if mtp else 'loss'} below step 0's; "
           f"{want_fwd} forward and {want_bwd} backward flash launches a "
-          f"step, all on the tensor cores ok")
+          f"step, all on the tensor cores, {want_wgmma} backward a step on "
+          f"the wgmma kernels "
+          f"({launches['flash_attention_backward_kernel.wgmma']} in "
+          f"{run['steps']} steps) ok")
     prof = rec[-1]["profiled"]
     print(f"[{label}] " + json.dumps({
         "model": cfg.name, "layers": cfg.n_layers,
@@ -5063,6 +5218,12 @@ def main() -> int:
     if sys.argv[1:] == ["--flash-backward"]:
         _flash_backward_phase()
         return 0
+    if sys.argv[1:] == ["--flash-backward-split"]:
+        _flash_backward_split()
+        return 0
+    if sys.argv[1:] == ["--flash-backward-times"]:
+        _flash_backward_times()
+        return 0
     if sys.argv[1:] == ["--flash-backward-digests"]:
         print(_card_line())
         _backward_digests(torch.device("cuda"))
@@ -5388,9 +5549,11 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     bwd_errs = _check_flash_backward(dev)
+    bwd_splits = _backward_splits()
     bwd_launches = _train_lm_path(dev, kernels)
-    bwd_row = _time_flash_backward(dev, card, bwd_launches,
-                                   bwd_errs["trained internlm2 layer"])
+    bwd_row = _time_flash_backward(
+        dev, card, bwd_launches, bwd_errs["trained internlm2 layer"],
+        split=bwd_splits[_split_key("internlm2-1.8b", True)])
     rows.append(bwd_row)
     torch.cuda.reset_peak_memory_stats()
     _train_kernel_vs_plain(dev)
@@ -5405,12 +5568,13 @@ def main() -> int:
     # ---- phase 14: the recurrent families served and trained -----------------
     t0 = time.perf_counter()
     _recurrent_families(dev, card, kernels, flash_row, bwd_row,
-                        bwd_errs["trained zamba2 shared block"])
+                        bwd_errs["trained zamba2 shared block"], bwd_splits)
     print(f"[recurrent] phase 14 in {time.perf_counter() - t0!r} s")
 
     # ---- phase 15: the enc-dec family, and MLA/MoE training -------------------
     t0 = time.perf_counter()
-    _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs)
+    _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs,
+                         bwd_splits)
     print(f"[encdec] phase 15 in {time.perf_counter() - t0!r} s")
 
     # ---- phase 16: training on a device mesh ----------------------------------

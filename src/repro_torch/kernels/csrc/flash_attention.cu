@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -709,29 +710,49 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // trained internlm2-1.8b layer (B2, H16, S4096, D128, causal) that is
 // 3.4e11 flops against 0.2 GB of inputs and gradients.
 //
-// Three launches, each deterministic (no float atomics): the delta
-// pre-pass (a warp a row); dQ, a block per (b, h, q tile) walking its
-// visible kv tiles; dK/dV, a block per (b, kv head, kv tile) walking the q
-// tiles of all its query heads that can see it, heads then tiles in
-// order, with dK and dV in registers, so the GQA sum happens in a fixed
-// order inside the block. Each recomputes the scores and dP it needs (14 D
-// flops a pair in all, FA-2's price for no atomics). Masks, windows and
-// invisible tiles are the forward's. Two routes by dtype, as the forward:
+// Three launches, each deterministic (no float atomics): a pre-pass (delta,
+// a warp a row); dQ, a block per (b, h, q tile) walking its visible kv
+// tiles; dK/dV, a block per (b, kv head, kv tile) walking the q tiles of all
+// its query heads that can see it, heads then tiles in order, with dK and
+// dV in registers, so the GQA sum happens in a fixed order inside the
+// block. Each recomputes the scores and dP it needs (14 D flops a pair in
+// all, FA-2's price for no atomics). Masks, windows and invisible tiles are
+// the forward's. The routes, chosen before the launch by dtype, head dim
+// and alignment (never after a failure):
 //
-// * bfloat16 -> the tensor cores at every head dim (the forward's
-//   ldmatrix / mma.sync fragments; S, dP, P and dS in float32, P and dS
-//   rounded to bf16 as the A operand of the next product, as the forward
-//   rounds P). Up to D 128 flash_bwd_dq_mma_kernel and
-//   flash_bwd_dkdv_mma_kernel (4 warps of 16 rows, tiles loaded by
-//   cp.async, one stage); past it, where a warp's two 16 x D accumulators
-//   would not fit its registers, flash_bwd_dq_wide_kernel and
+// * bfloat16 up to D 128, where TMA can read q, k, v and dO (D a multiple
+//   of 8, pointers and strides on 16 bytes, no zero stride) ->
+//   flash_bwd_dkdv_hop_kernel and flash_bwd_dq_hop_kernel on Hopper's wgmma
+//   (their note below), after flash_bwd_prep_kernel (delta and lse log2 e
+//   in rows padded to 128). What holds a tensor-core backward back, and
+//   what they do about it: (1) load latency: a 3-stage ring of TMA copies
+//   that a producer warp keeps in flight, signalled by mbarriers, instead of
+//   copies waited on inside each step; (2) registers: setmaxnreg gives the
+//   two consumer warpgroups 240 a thread and the producer 24, so dK and dV
+//   (or dQ) and the score fragments of 64 rows fit (one 384-thread block an
+//   SM); (3) dQ's recomputation stays (14 D, deterministic without
+//   atomics; fusing dQ into dK/dV would need an ordered reduction across
+//   blocks), but each kernel runs at the wgmma rate; (4) mma.sync: every
+//   product is a wgmma (S^T = K Q^T and dP^T = V dO^T from shared memory,
+//   dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 in
+//   registers, B MN-major), each its own group so that it overlaps the
+//   element-wise work (below); (5) GQA: a block still walks every query
+//   head of its kv head in order; at qwen3-moe's 32/4 that is 256 blocks
+//   of one per SM, about two even waves under the heavy-first order, and
+//   splitting the heads over blocks (a fixed-order reduction of partial dK,
+//   dV) is left open (PERF.md).
+// * bfloat16 otherwise up to D 128 -> flash_bwd_dq_mma_kernel and
+//   flash_bwd_dkdv_mma_kernel (mma.sync m16n8k16 with ldmatrix fragments, 4
+//   warps of 16 rows, element-wise or 16-byte cp.async loads, one stage).
+// * bfloat16 past D 128 -> flash_bwd_dq_wide_kernel and
 //   flash_bwd_dkdv_wide_kernel (8 warps, one accumulator a warp, a
 //   two-stage ring; their note below).
+// In all three, S, dP, P and dS are float32, and P and dS are rounded to
+// bf16 as the A operand of the next product, as the forward rounds P.
 // * float32 -> flash_bwd_dq_kernel and flash_bwd_dkdv_kernel on CUDA cores
 //   (the forward's float32 design: 256 threads, an R x R patch of the score
 //   tile each, K^T / V^T staged transposed and overwritten by dS, K rows),
 //   float32 throughout, within 1e-4 of the plain version.
-// Later work: wgmma and TMA.
 
 // Tiles of the CUDA-core backward kernels: BM q rows and BM kv rows a tile, 256
 // threads as a 16 x 16 grid, each owning an R x R patch of the BM x BM
@@ -1120,7 +1141,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- the backward on the tensor cores (bfloat16, D <= 128) -----------------
+// ---- the backward on mma.sync (bfloat16, D <= 128, off 16 bytes) ----------
+//
+// The inputs the wgmma kernels below cannot read by TMA (D not a multiple
+// of 8, a pointer or stride off 16 bytes, a zero stride) take these.
 
 // 4 warps of 16 rows each; tiles in shared memory as bf16 rows of LD = DP +
 // 8, MmaTile<DP>'s layout, so stage_rows loads them (cp.async, zero fill).
@@ -1854,6 +1878,495 @@ flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+// ---- the backward on Hopper's wgmma (bfloat16, D <= 128) -------------------
+//
+// Two warp-specialised kernels of 384 threads: two consumer warpgroups
+// (threads 0-255, 64 rows each, 240 registers a thread by setmaxnreg) and a
+// producer warpgroup (24 registers) of which one thread issues every copy.
+// One tile shape serves every copy and operand: 64 rows x 64 columns of bf16
+// (128 bytes a row) in the 128-byte swizzle, loaded by TMA from a 4-d map
+// built from the tensor's own strides (zeros past S and past D); a head dim
+// DP spans NC = DP / 64 rounded up of them (D 96 computes its products' N
+// over 128 columns, D 32 over 64).
+//
+// * dK/dV, a block per (b, kv head g, 128 kv rows), warpgroup w owning keys
+//   k0 + 64 w ...: K and V stay resident; Q and dO tiles of 64 q rows, with
+//   their lse log2 e and delta (cp.async.bulk from the pre-pass's padded
+//   rows), stream through a 3-stage ring (full / empty mbarriers), every q
+//   tile of every query head of g that can see the block, heads then tiles
+//   in order (the GQA sum in a fixed order). A step of warpgroup w:
+//     dP^T = V_w dO^T                    wgmma, A and B K-major in shared
+//     P^T = exp2(S^T scale log2 e - lse log2 e)  (0 where masked)
+//     dV_w += P^T dO                     wgmma, P^T bf16 from registers,
+//                                        dO MN-major in shared memory
+//     S^T(next) = K_w Q(next)^T          wgmma
+//     dS^T = P^T (dP^T - delta) scale    (P^T as rounded for dV)
+//     dK_w += dS^T Q                     wgmma, dS^T bf16 from registers
+//   dK_w and dV_w stay in float32 registers (64 each at DP 128).
+// * dQ, a block per (b, h, 128 q rows), warpgroup w owning queries q0 +
+//   64 w ...: Q and dO resident, K and V tiles of 64 kv rows streamed; dP =
+//   dO_w V^T, P from S = Q_w K^T, S(next), dS in float32, dQ_w += dS K (K
+//   MN-major). 14 D flops a visible pair in all (dQ recomputes S and dP),
+//   no atomics: both kernels write each output element once.
+//
+// Overlap. Each product is its own wgmma group, and wgmma.wait_group lets a
+// warpgroup work while one is in flight: dP's product runs under P's exp2;
+// dV's and the next step's S under dS (the next S is issued before this
+// step's dS work, once dP has landed); only dK (dK/dV) or dQ (dQ) is
+// waited for with nothing to do. No product is in flight across the loop's
+// back edge, and no register is written by other instructions while a
+// product that reads or writes it is in flight, or ptxas serialises every
+// wgmma of the kernel (its C7514 / C7515 notes; a variant that carried the
+// next step's products across the back edge ran 1.9x slower). In dK/dV the
+// two warpgroups take turns to issue each batch of products (named
+// barriers), so one's exp2 and dS run while the other's products fill the
+// tensor cores; in dQ, whose steps are shorter, turns cost more than they
+// gave, and the warpgroups run unsynchronised. The producer keeps the ring
+// loading throughout. Masks are evaluated without branches and only on
+// steps that hold a masked pair.
+template <int DP>
+struct BwdHop {
+  static constexpr int NT = 384;
+  static constexpr int NC = (DP + 63) / 64;     // 64-column chunks of a row
+  static constexpr int KS = DP / 16;            // k16 steps over the head dim
+  static constexpr int TILE = 64 * 64 * 2;      // bytes of a 64 x 64 chunk
+  static constexpr int NS = 3;                  // stages of the ring
+  static constexpr int RES = 4 * NC * TILE;     // resident: 2 x 128 rows
+  static constexpr int STAGE = 2 * NC * TILE;   // streamed: 2 x 64 rows
+  static constexpr int VEC = RES + NS * STAGE;  // lse log2 e, delta (dK/dV)
+  static constexpr int BARS = VEC + NS * 512;
+  static constexpr int BYTES = BARS + 8 * (2 * NS + 1) + 1024;  // + align
+};
+
+// What the wgmma kernels read besides their tensor maps: the pre-pass's
+// rows (lse log2 e and delta, [B, H, s_pad] float32, zeros past S) and the
+// outputs (dK and dV, or dQ and nothing).
+struct HopArgs {
+  const float* lse2;
+  const float* delta;
+  __nv_bfloat16* g0;
+  __nv_bfloat16* g1;
+  Strides g0s, g1s;
+  int H, rep, S, s_pad, D;
+  float scale, scale_log2;
+  int causal, window;
+};
+
+// delta = rowsum(dO * O) and lse log2 e of every row of [B, H, s_pad] (0
+// past S): one warp a row.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ delta,
+                      float* __restrict__ lse2, Strides os, Strides dos, int H,
+                      int S, int s_pad, int D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + warp, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * H + h;
+  float acc = 0.f, l = 0.f;
+  if (row < S) {
+    const __nv_bfloat16* o = out + b * os.b + h * os.h + row * os.s;
+    const __nv_bfloat16* g = dout + b * dos.b + h * dos.h + row * dos.s;
+    for (int d = lane; d < D; d += 32)
+      acc = fmaf(__bfloat162float(o[d]), __bfloat162float(g[d]), acc);
+    l = lse[bh * S + row] * kLog2e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    delta[bh * s_pad + row] = acc;
+    lse2[bh * s_pad + row] = l;
+  }
+}
+
+// acc = A B^T over the head dim (S^T = K Q^T, dP^T = V dO^T, S = Q K^T,
+// dP = dO V^T): 64-row tiles at `a` and `b`, both K-major; one wgmma group.
+template <int DP>
+__device__ __forceinline__ void hop_scores(float (&acc)[32], uint32_t a,
+                                           uint32_t b) {
+  using Tl = BwdHop<DP>;
+#pragma unroll
+  for (int kk = 0; kk < Tl::KS; ++kk) {
+    const uint32_t off = (kk / 4) * Tl::TILE + (kk % 4) * 32;
+    hop::wgmma_m64n64k16_ss(acc, hop::desc_sw128(a + off, 16, 1024),
+                            hop::desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+  hop::wgmma_commit();
+}
+
+// acc[c] += A B over 64 rows of K: A (64 x 64, bf16) from registers, k16
+// step kk in fr[kk]; B the 64-row tile at `b`, MN-major; one wgmma group.
+template <int DP>
+__device__ __forceinline__ void hop_accumulate(float (&acc)[BwdHop<DP>::NC][32],
+                                               const uint32_t (&fr)[4][4],
+                                               uint32_t b) {
+  using Tl = BwdHop<DP>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < Tl::NC; ++c)
+      hop::wgmma_m64n64k16_rs_mn(
+          acc[c], fr[kk],
+          hop::desc_sw128(b + c * Tl::TILE + kk * 2048, Tl::TILE, 1024));
+  hop::wgmma_commit();
+}
+
+// The k16 A fragments of a 64 x 64 accumulator, rounded to bf16.
+__device__ __forceinline__ void hop_pack(uint32_t (&fr)[4][4],
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      fr[kk][r] = tc::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Element e of the accumulator that hop_pack rounded into fr.
+__device__ __forceinline__ float hop_unpack(const uint32_t (&fr)[4][4],
+                                            int e) {
+  const uint32_t u = fr[e / 8][(e % 8) / 2];
+  return __uint_as_float(e % 2 ? u & 0xffff0000u : u << 16);
+}
+
+// visible() without branches, for the wgmma kernels: a branch a score
+// splits a warp inside a step and cost them as much as their products.
+__device__ __forceinline__ bool hop_keep(int qpos, int kpos, int S,
+                                         int causal, int window) {
+  return (qpos < S) & (kpos < S) & (!causal | (kpos <= qpos)) &
+         ((window <= 0) | (kpos > qpos - window));
+}
+
+__device__ __forceinline__ uint8_t* hop_base(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// dK and dV of one (b, kv head g, 128 kv rows); see the note above.
+template <int DP>
+__global__ void __launch_bounds__(BwdHop<DP>::NT, 1)
+flash_bwd_dkdv_hop_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const HopArgs a) {
+  using Tl = BwdHop<DP>;
+  constexpr int NC = Tl::NC, TILE = Tl::TILE, NS = Tl::NS;
+  extern __shared__ uint8_t hop_smem[];
+  uint8_t* base = hop_base(hop_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Tl::BARS);
+  uint64_t* empty = full + NS;
+  uint64_t* once = empty + NS;
+
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int k0 = static_cast<int>(blockIdx.x) * 128;  // tile 0 the heaviest
+  const int S = a.S;
+  const int n_q = (S + 63) / 64;
+  const int qt_lo = a.causal ? k0 / 64 : 0;           // q tiles that see it
+  int qt_hi = n_q;
+  if (a.window > 0) qt_hi = min(n_q, (k0 + 128 + a.window - 2) / 64 + 1);
+  const int nqt = qt_hi - qt_lo;
+  const int n = a.rep * nqt;                          // steps: heads x tiles
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);                   // a consumer warp each
+    }
+    hop::mbar_init(once, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+
+  if (wg == 2) {                                      // the producer
+    hop::regs_dec<24>();
+    if (threadIdx.x == 256) {
+      hop::tma_prefetch_map(&qmap);
+      hop::tma_prefetch_map(&omap);
+      hop::mbar_expect_tx(once, 4 * NC * TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c) {
+          hop::tma_load_4d(base + (w * NC + c) * TILE, &kmap, once, c * 64,
+                           k0 + 64 * w, g, b);
+          hop::tma_load_4d(base + (2 * NC + w * NC + c) * TILE, &vmap, once,
+                           c * 64, k0 + 64 * w, g, b);
+        }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NS;
+        const int h = g * a.rep + i / nqt, q0 = (qt_lo + i % nqt) * 64;
+        hop::mbar_wait(&empty[st], ((i / NS) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[st], 2 * NC * TILE + 512);
+        uint8_t* tiles = base + Tl::RES + st * Tl::STAGE;
+        for (int c = 0; c < NC; ++c) {
+          hop::tma_load_4d(tiles + c * TILE, &qmap, &full[st], c * 64, q0, h,
+                           b);
+          hop::tma_load_4d(tiles + (NC + c) * TILE, &omap, &full[st], c * 64,
+                           q0, h, b);
+        }
+        const long long row = (static_cast<long long>(b) * a.H + h) * a.s_pad
+                              + q0;
+        float* vec = reinterpret_cast<float*>(base + Tl::VEC + st * 512);
+        hop::bulk_load(vec, a.lse2 + row, 256, &full[st]);
+        hop::bulk_load(vec + 64, a.delta + row, 256, &full[st]);
+      }
+    }
+  } else {                                            // consumers
+    hop::regs_inc<240>();
+    const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32;
+    const int kw0 = k0 + 64 * wg;                      // this warpgroup's keys
+    const int key_r = kw0 + 16 * wi + lane / 4;        // + 8 ((e / 2) % 2)
+    const uint32_t kA = hop::smem_u32(base + wg * NC * TILE);
+    const uint32_t vA = hop::smem_u32(base + (2 * NC + wg * NC) * TILE);
+    const uint32_t ring = hop::smem_u32(base + Tl::RES);
+    float dk[NC][32], dv[NC][32], s[32], dp[32], p[32];
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.f;
+    hop::mbar_wait(once, 0);
+    // A step starts with its S^T in registers. The warpgroups take turns to
+    // issue their products (named barrier 1 + w is warpgroup w's turn: it
+    // waits on its own, then lets the other go): warpgroup 0 first, and
+    // warpgroup 1 leaves its last turn unsignalled, so every arrival meets
+    // a wait.
+    if (wg == 1 && n > 0) hop::bar_arrive(1, 256);
+    if (n > 0) {
+      hop::mbar_wait(&full[0], 0);
+      hop::bar_sync(1 + wg, 256);
+      hop::wgmma_fence();
+      hop_scores<DP>(s, kA, ring);
+      hop::bar_arrive(2 - wg, 256);
+      hop::wgmma_wait<0>();
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NS, st1 = (i + 1) % NS;
+      const bool next = i + 1 < n;
+      const int q0 = (qt_lo + i % nqt) * 64;
+      const float* vec =
+          reinterpret_cast<const float*>(base + Tl::VEC + st * 512);
+      const uint32_t qB = ring + st * Tl::STAGE, oB = qB + NC * TILE;
+      const uint32_t qB1 = ring + st1 * Tl::STAGE;
+      hop::fence_regs(s);
+      hop::bar_sync(1 + wg, 256);
+      hop::wgmma_fence();
+      hop_scores<DP>(dp, vA, oB);              // dP^T(i) under P^T's exp2
+      hop::bar_arrive(2 - wg, 256);
+      const bool edge = (a.causal && kw0 + 63 > q0) ||
+                        (a.window > 0 && q0 + 63 - a.window >= kw0) ||
+                        q0 + 64 > S || kw0 + 64 > S;
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+          const float x = exp2f(s[e] * a.scale_log2 - vec[col]);
+          p[e] =
+              hop_keep(q0 + col, key_r + 8 * ((e / 2) % 2), S, a.causal,
+                       a.window) ? x : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int col = 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+          p[e] = exp2f(s[e] * a.scale_log2 - vec[col]);
+        }
+      }
+      hop_pack(pa, p);
+      hop::bar_sync(1 + wg, 256);
+      hop::wgmma_fence();
+      hop_accumulate<DP>(dv, pa, oB);          // dV(i) under dS^T
+      hop::wgmma_wait<1>();                    // dP^T(i)
+      hop::fence_regs(dp);
+      if (next) {                              // S^T(i+1) under dS^T too
+        hop::mbar_wait(&full[st1], ((i + 1) / NS) & 1);
+        hop_scores<DP>(s, kA, qB1);
+      }
+      hop::bar_arrive(2 - wg, 256);
+      float ds[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+        ds[e] = hop_unpack(pa, e) * (dp[e] - vec[64 + col]) * a.scale;
+      }
+      hop_pack(sa, ds);
+      hop::bar_sync(1 + wg, 256);
+      hop::wgmma_fence();
+      hop_accumulate<DP>(dk, sa, qB);
+      if (!(wg == 1 && !next)) hop::bar_arrive(2 - wg, 256);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(pa);
+      hop::fence_regs(sa);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[st]);   // the stage is free
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hop::fence_regs(dk[c]);
+      hop::fence_regs(dv[c]);
+    }
+    __nv_bfloat16* dkb = a.g0 + b * a.g0s.b + g * a.g0s.h;
+    __nv_bfloat16* dvb = a.g1 + b * a.g1s.b + g * a.g1s.h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int row = key_r + 8 * ((e / 2) % 2);
+        const int col = 64 * c + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+        if (row < S && col < a.D) {
+          dkb[row * a.g0s.s + col] = __float2bfloat16_rn(dk[c][e]);
+          dvb[row * a.g1s.s + col] = __float2bfloat16_rn(dv[c][e]);
+        }
+      }
+  }
+}
+
+// dQ of one (b, h, 128 q rows); see the note above.
+template <int DP>
+__global__ void __launch_bounds__(BwdHop<DP>::NT, 1)
+flash_bwd_dq_hop_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const HopArgs a) {
+  using Tl = BwdHop<DP>;
+  constexpr int NC = Tl::NC, TILE = Tl::TILE, NS = Tl::NS;
+  extern __shared__ uint8_t hop_smem[];
+  uint8_t* base = hop_base(hop_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Tl::BARS);
+  uint64_t* empty = full + NS;
+  uint64_t* once = empty + NS;
+
+  const int S = a.S;
+  const int n_qt = (S + 127) / 128;
+  const int qt = a.causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x);  // heavy first
+  const int q0 = qt * 128;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / a.rep;
+  const int t_lo = a.window > 0 ? max(0, q0 - a.window + 1) / 64 : 0;
+  const int t_hi = a.causal ? min(q0 + 127, S - 1) / 64 + 1 : (S + 63) / 64;
+  const int n = t_hi - t_lo;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);
+    }
+    hop::mbar_init(once, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+
+  if (wg == 2) {                                      // the producer
+    hop::regs_dec<24>();
+    if (threadIdx.x == 256) {
+      hop::tma_prefetch_map(&kmap);
+      hop::tma_prefetch_map(&vmap);
+      hop::mbar_expect_tx(once, 4 * NC * TILE);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c) {
+          hop::tma_load_4d(base + (w * NC + c) * TILE, &qmap, once, c * 64,
+                           q0 + 64 * w, h, b);
+          hop::tma_load_4d(base + (2 * NC + w * NC + c) * TILE, &omap, once,
+                           c * 64, q0 + 64 * w, h, b);
+        }
+      for (int j = 0; j < n; ++j) {
+        const int st = j % NS, kv0 = (t_lo + j) * 64;
+        hop::mbar_wait(&empty[st], ((j / NS) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[st], 2 * NC * TILE);
+        uint8_t* tiles = base + Tl::RES + st * Tl::STAGE;
+        for (int c = 0; c < NC; ++c) {
+          hop::tma_load_4d(tiles + c * TILE, &kmap, &full[st], c * 64, kv0, g,
+                           b);
+          hop::tma_load_4d(tiles + (NC + c) * TILE, &vmap, &full[st], c * 64,
+                           kv0, g, b);
+        }
+      }
+    }
+  } else {                                            // consumers
+    hop::regs_inc<240>();
+    const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32;
+    const int qw0 = q0 + 64 * wg;                      // this warpgroup's rows
+    const int row_r = qw0 + 16 * wi + lane / 4;        // + 8 ((e / 2) % 2)
+    const uint32_t qA = hop::smem_u32(base + wg * NC * TILE);
+    const uint32_t oA = hop::smem_u32(base + (2 * NC + wg * NC) * TILE);
+    const uint32_t ring = hop::smem_u32(base + Tl::RES);
+    const long long rows = (static_cast<long long>(b) * a.H + h) * a.s_pad;
+    const float lse2_r[2] = {a.lse2[rows + row_r], a.lse2[rows + row_r + 8]};
+    const float dl_r[2] = {a.delta[rows + row_r], a.delta[rows + row_r + 8]};
+    float dq[NC][32], s[32], dp[32], p[32];
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[c][e] = 0.f;
+    hop::mbar_wait(once, 0);
+    if (n > 0) {
+      hop::mbar_wait(&full[0], 0);
+      hop::wgmma_fence();
+      hop_scores<DP>(s, qA, ring);
+      hop::wgmma_wait<0>();
+    }
+    for (int j = 0; j < n; ++j) {
+      const int st = j % NS, st1 = (j + 1) % NS;
+      const bool next = j + 1 < n;
+      const int kv0 = (t_lo + j) * 64;
+      const uint32_t kB = ring + st * Tl::STAGE;
+      const uint32_t kB1 = ring + st1 * Tl::STAGE;
+      hop::fence_regs(s);
+      hop::wgmma_fence();
+      hop_scores<DP>(dp, oA, kB + NC * TILE);  // dP(j) under P's exp2
+      const bool edge = (a.causal && kv0 + 63 > qw0) ||
+                        (a.window > 0 && qw0 + 63 - a.window >= kv0) ||
+                        qw0 + 64 > S || kv0 + 64 > S;
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = (e / 2) % 2;
+          const int key = kv0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+          const float x = exp2f(s[e] * a.scale_log2 - lse2_r[r]);
+          p[e] = hop_keep(row_r + 8 * r, key, S, a.causal, a.window) ? x
+                                                                     : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          p[e] = exp2f(s[e] * a.scale_log2 - lse2_r[(e / 2) % 2]);
+      }
+      hop::wgmma_wait<0>();                    // dP(j)
+      hop::fence_regs(dp);
+      if (next) {                              // S(j+1) under dS
+        hop::mbar_wait(&full[st1], ((j + 1) / NS) & 1);
+        hop::wgmma_fence();
+        hop_scores<DP>(s, qA, kB1);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        p[e] = p[e] * (dp[e] - dl_r[(e / 2) % 2]) * a.scale;    // dS
+      hop_pack(sa, p);
+      hop::wgmma_fence();
+      hop_accumulate<DP>(dq, sa, kB);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sa);
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[st]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hop::fence_regs(dq[c]);
+    __nv_bfloat16* dqb = a.g0 + b * a.g0s.b + h * a.g0s.h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int row = row_r + 8 * ((e / 2) % 2);
+        const int col = 64 * c + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+        if (row < S && col < a.D)
+          dqb[row * a.g0s.s + col] = __float2bfloat16_rn(dq[c][e]);
+      }
+  }
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
@@ -1969,6 +2482,97 @@ cudaError_t allow_smem(Kernel kern, int bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library links against nothing but cudart.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [B, heads, S, D] bf16 tensor of strides `st` (elements, the head dim
+// contiguous) as a 4-d TMA map of 64 x 64 boxes in the 128-byte swizzle:
+// rows past S and columns past D read as zeros.
+cudaError_t tile_map(CUtensorMap* map, const void* p, const Strides& st,
+                     int B, int heads, int S, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(p), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP>
+cudaError_t launch_bwd_hop(const BwdArgs& a, cudaStream_t stream) {
+  using Tl = BwdHop<DP>;
+  using bf = __nv_bfloat16;
+  const int s_pad = (a.S + 127) / 128 * 128;
+  float* lse2 = a.delta + static_cast<long long>(a.B) * a.H * s_pad;
+  flash_bwd_prep_kernel<<<dim3(s_pad / 8, a.H, a.B), 256, 0, stream>>>(
+      static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, lse2, a.os, a.dos, a.H, a.S, s_pad, a.D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, om;
+  if ((err = tile_map(&qm, a.q, a.qs, a.B, a.H, a.S, a.D)) != cudaSuccess ||
+      (err = tile_map(&km, a.k, a.ks, a.B, a.Hkv, a.S, a.D)) != cudaSuccess ||
+      (err = tile_map(&vm, a.v, a.vs, a.B, a.Hkv, a.S, a.D)) != cudaSuccess ||
+      (err = tile_map(&om, a.dout, a.dos, a.B, a.H, a.S, a.D)) != cudaSuccess)
+    return err;
+  HopArgs args{lse2, a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+               a.dks, a.dvs, a.H, a.H / a.Hkv, a.S, s_pad, a.D, a.scale,
+               a.scale * kLog2e, a.causal, a.window};
+
+  auto dkv_kern = flash_bwd_dkdv_hop_kernel<DP>;
+  err = allow_smem(dkv_kern, Tl::BYTES);
+  if (err != cudaSuccess) return err;
+  dkv_kern<<<dim3(s_pad / 128, a.Hkv, a.B), Tl::NT, Tl::BYTES, stream>>>(
+      qm, km, vm, om, args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  args.g0 = static_cast<bf*>(a.dq);
+  args.g0s = a.dqs;
+  auto dq_kern = flash_bwd_dq_hop_kernel<DP>;
+  err = allow_smem(dq_kern, Tl::BYTES);
+  if (err != cudaSuccess) return err;
+  dq_kern<<<dim3(s_pad / 128, a.H, a.B), Tl::NT, Tl::BYTES, stream>>>(
+      qm, km, vm, om, args);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_bwd_wide(const BwdArgs& a, int vec, cudaStream_t stream) {
   using Tl = BwdWide<DP>;
@@ -2002,13 +2606,33 @@ cudaError_t launch_bwd_wide(const BwdArgs& a, int vec, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+bool strides_positive(const Strides& s) {
+  return s.b > 0 && s.h > 0 && s.s > 0;
+}
+
 // bfloat16: the tensor cores at every head dim, DP the head dim rounded up
-// to 32 as the forward buckets it; past 128 the wide kernels.
-cudaError_t dispatch_bwd_bf16(const BwdArgs& a, cudaStream_t stream) {
+// to 32 as the forward buckets it. Up to 128 the wgmma kernels where TMA
+// can read q, k, v and dO (16-byte copies: `vec`, and no zero stride), the
+// mma.sync ones otherwise; past 128 the wide kernels. `route` receives 2,
+// 1 or 3 (before the launch).
+cudaError_t dispatch_bwd_bf16(const BwdArgs& a, cudaStream_t stream,
+                              int* route) {
   const int vec = a.D % 8 == 0 && on16(a.q) && on16(a.k) && on16(a.v) &&
                   on16(a.dout) && strides8(a.qs) && strides8(a.ks) &&
                   strides8(a.vs) && strides8(a.dos);
-  switch ((a.D + 31) / 32) {
+  const int dp = (a.D + 31) / 32;
+  if (dp <= 4 && vec && strides_positive(a.qs) && strides_positive(a.ks) &&
+      strides_positive(a.vs) && strides_positive(a.dos)) {
+    *route = 2;
+    switch (dp) {
+      case 1: return launch_bwd_hop<32>(a, stream);
+      case 2: return launch_bwd_hop<64>(a, stream);
+      case 3: return launch_bwd_hop<96>(a, stream);
+      default: return launch_bwd_hop<128>(a, stream);
+    }
+  }
+  *route = dp <= 4 ? 1 : 3;
+  switch (dp) {
     case 1: return launch_bwd_mma<32>(a, vec, stream);
     case 2: return launch_bwd_mma<64>(a, vec, stream);
     case 3: return launch_bwd_mma<96>(a, vec, stream);
@@ -2060,10 +2684,13 @@ extern "C" int repro_flash_attention(
 }
 
 // The backward: dq [B, H, S, D], dk and dv [B, Hkv, S, D] from q, k, v, out,
-// dout and the forward's lse (contiguous [B, H, S] float32); `delta`
-// (contiguous [B, H, S] float32) is scratch. Three launches on `stream`:
-// the delta pre-pass, dQ, and dK/dV. Strides as for the forward; dtype 0
-// float32, 1 bfloat16 (every tensor in that dtype).
+// dout and the forward's lse (contiguous [B, H, S] float32); `delta` is
+// scratch of 2 B H s_pad float32, s_pad = S rounded up to 128. Three
+// launches on `stream`: the delta pre-pass, dQ, and dK/dV. Strides as for
+// the forward; dtype 0 float32, 1 bfloat16 (every tensor in that dtype).
+// `route` receives the kernels' route, chosen before any launch: 0 float32
+// on the CUDA cores, 1 bf16 mma.sync up to D 128, 2 bf16 wgmma up to D 128,
+// 3 bf16 past D 128.
 extern "C" int repro_flash_attention_backward(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -2072,7 +2699,8 @@ extern "C" int repro_flash_attention_backward(
     const long long* do_strides, const long long* dq_strides,
     const long long* dk_strides, const long long* dv_strides, int B, int H,
     int Hkv, int S, int D, float scale, int causal, int window, int dtype,
-    int device, void* stream) {
+    int device, void* stream, int* route) {
+  *route = dtype == 0 ? 0 : -1;
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || B > 65535 ||
       H > 65535)
@@ -2089,7 +2717,7 @@ extern "C" int repro_flash_attention_backward(
   if (dtype == 0)
     err = dispatch_bwd<float>(a, st);
   else if (dtype == 1)
-    err = dispatch_bwd_bf16(a, st);
+    err = dispatch_bwd_bf16(a, st, route);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

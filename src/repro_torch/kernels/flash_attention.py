@@ -42,11 +42,16 @@ of each kv head (the VJP of the reference's repeated heads). It launches
 three kernels (the ``delta`` pre-pass, ``dK``/``dV`` and ``dQ``), each
 deterministic; ``flash_attention_backward_kernel.launches`` counts calls,
 ``flash_attention_backward_kernel.tensor_core_launches`` those on the
-tensor cores. All-bfloat16 inputs run on the tensor cores at every head dim
-up to 256 (bf16 products with float32 sums, P and dS rounded to bf16 as
-operands; past D 128 the wide kernels, eight warps with one accumulator
-each), any other mix on float32 copies on CUDA cores (see the source
-note).
+tensor cores and ``flash_attention_backward_kernel.wgmma_launches`` those
+on the wgmma kernels. All-bfloat16 inputs run on the tensor cores at every
+head dim up to 256 (bf16 products with float32 sums, P and dS rounded to
+bf16 as operands): up to D 128 on Hopper's wgmma with TMA loads and
+warp-specialised warpgroups, where TMA can read q, k, v and dout (D a
+multiple of 8, pointers and strides on 16 bytes), and on the mma.sync
+kernels otherwise; past D 128 the wide kernels, eight warps with one
+accumulator each. Any other mix runs on float32 copies on CUDA cores (see
+the source note). The library picks the route before it launches and
+reports it; none is taken after a failure.
 
 Fake tensors (``torch._subclasses.fake_tensor``) of the card launch nothing
 and count nothing: each wrapper checks them as it would real ones and calls
@@ -73,6 +78,10 @@ KERNEL = "flash_attention"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's routes as the library reports them: 0 float32 CUDA cores,
+# 1 bf16 mma.sync up to D 128, 2 bf16 wgmma up to D 128, 3 bf16 past D 128
+_TENSOR_CORE_ROUTES = (1, 2, 3)
+_WGMMA_ROUTE = 2
 
 
 def _check(q, k, v, window, out):
@@ -204,7 +213,9 @@ def _lib():
         bwd = lib.repro_flash_attention_backward
         bwd.restype = ctypes.c_int
         bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [
-            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p,
+                                                    ctypes.POINTER(
+                                                        ctypes.c_int)]
     return lib
 
 
@@ -299,8 +310,11 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
     for the forward (a contiguous last dim); the results go into ``dq``,
     ``dk``, ``dv`` when given (any such strides) or new contiguous tensors,
     in the dtypes of ``q``, ``k``, ``v``. All bfloat16 runs the bf16
-    tensor-core kernels (counted in ``tensor_core_launches`` too); any other
-    mix the float32 ones on float32 copies. A failed launch raises. CPU
+    tensor-core kernels (counted in ``tensor_core_launches`` too): up to D
+    128 the wgmma ones (``wgmma_launches``) where D is a multiple of 8 and
+    q, k, v and dout lie on 16 bytes with strides of whole 16 bytes, the
+    mma.sync ones otherwise; past D 128 the wide ones. Any other mix runs
+    the float32 kernels on float32 copies. A failed launch raises. CPU
     tensors take the plain version."""
     grads = (dq, dk, dv)
     tensors = tuple(t for t in (q, k, v, out, dout, lse) + grads
@@ -347,8 +361,11 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
     kout = [r if r.dtype == work else torch.empty(r.shape, dtype=work,
                                                   device=dev) for r in res]
     q, k, v, out, dout = (t.to(work) for t in (q, k, v, out, dout))
-    delta = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+    # scratch: delta and lse log2 e, each [B, H, S rounded up to 128]
+    delta = torch.empty(2 * b * h * (-(-s // 128) * 128),
+                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    route = ctypes.c_int(-1)
     rc = _lib().repro_flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -356,18 +373,21 @@ def flash_attention_backward_kernel(q, k, v, out, dout, lse, *,
         *(_strides(t) for t in (q, k, v, out, dout, *kout)), b, h,
         k.shape[1], s, d, 1.0 / math.sqrt(d), int(causal),
         0 if window is None else int(window), _DTYPES[work], dev.index or 0,
-        stream)
+        stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {rc}")
     flash_attention_backward_kernel.launches += 1
-    if work == torch.bfloat16:
+    if route.value in _TENSOR_CORE_ROUTES:
         flash_attention_backward_kernel.tensor_core_launches += 1
+    if route.value == _WGMMA_ROUTE:
+        flash_attention_backward_kernel.wgmma_launches += 1
     return tuple(r if r is kr else r.copy_(kr) for r, kr in zip(res, kout))
 
 
 flash_attention_backward_kernel.launches = 0
 flash_attention_backward_kernel.tensor_core_launches = 0
+flash_attention_backward_kernel.wgmma_launches = 0
 
 
 # The two kernels as custom ops, for fake tensors only (the wrappers above

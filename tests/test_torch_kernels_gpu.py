@@ -1175,6 +1175,16 @@ FLASH_BWD_CASES = [
     (2, 8, 2, 1, 192, None, torch.bfloat16, True),
     (1, 4, 2, 65, 160, None, torch.bfloat16, True),
     (1, 4, 2, 65, 224, 7, torch.bfloat16, False),
+    # the wgmma route up to D 128 (D a multiple of 8, 16-byte aligned; the
+    # trained shapes above at D 64, 80, 96 and 128 take it too): D 32 and
+    # S = 65, 40 heads at D 96, GQA 8:1 at D 128, a window at D 64, S = 1,
+    # D 96 non-causal at S = 77
+    (1, 4, 2, 65, 32, None, torch.bfloat16, True),
+    (1, 40, 40, 200, 96, None, torch.bfloat16, True),
+    (1, 16, 2, 333, 128, None, torch.bfloat16, True),
+    (2, 4, 2, 300, 64, 50, torch.bfloat16, True),
+    (2, 8, 2, 1, 128, None, torch.bfloat16, True),
+    (1, 4, 4, 77, 96, None, torch.bfloat16, False),
 ]
 
 
@@ -1204,16 +1214,18 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, b, h, hkv, s, d,
     each row sees itself alone (p = 1, dp = delta) and dq, dk cancel to
     rounding in both versions, those two are held to the float32 bound. A
     second call is bit-identical (no atomics); a bf16 call is one
-    tensor-core launch."""
+    tensor-core launch, up to D 128 with D a multiple of 8 one wgmma
+    launch."""
+    fn = flash_attention_backward_kernel
     args = _bwd_inputs(cuda, b, h, hkv, s, d, window, dtype, causal)
-    before = (flash_attention_backward_kernel.launches,
-              flash_attention_backward_kernel.tensor_core_launches)
+    before = (fn.launches, fn.tensor_core_launches, fn.wgmma_launches)
     got = flash_attention_backward_kernel(*args, causal=causal,
                                           window=window)
     torch.cuda.synchronize()
-    assert (flash_attention_backward_kernel.launches,
-            flash_attention_backward_kernel.tensor_core_launches) == (
-                before[0] + 1, before[1] + int(dtype == torch.bfloat16))
+    bf16 = dtype == torch.bfloat16
+    assert (fn.launches, fn.tensor_core_launches, fn.wgmma_launches) == (
+        before[0] + 1, before[1] + int(bf16),
+        before[2] + int(bf16 and d <= 128 and d % 8 == 0))
     again = flash_attention_backward_kernel(*args, causal=causal,
                                             window=window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1250,13 +1262,16 @@ def test_flash_attention_forward_lse_matches_plain(cuda, dtype):
 
 @pytest.mark.parametrize("dtype,d,window", [
     (torch.float32, 64, 40), (torch.bfloat16, 64, 40),
+    (torch.bfloat16, 96, None), (torch.bfloat16, 128, 40),
     (torch.bfloat16, 192, None), (torch.bfloat16, 130, 40)])
 def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype,
                                                                 d, window):
     """BSHD views in and out, as the model's Function hands them over, GQA
-    4:1 (at D 192 and D 130 the wide tensor-core route, with 16-byte copies
-    and with element-wise loads); two calls give bit-identical gradients
-    (no atomics), each bf16 call one tensor-core launch."""
+    4:1 (at D 64, 96 and 128 the wgmma route, its TMA maps built from the
+    views' strides; at D 192 and D 130 the wide tensor-core route, with
+    16-byte copies and with element-wise loads); two calls give
+    bit-identical gradients (no atomics), each bf16 call one tensor-core
+    launch, up to D 128 one wgmma launch."""
     def view(t):
         return t.transpose(1, 2).contiguous().transpose(1, 2)
 
@@ -1264,7 +1279,8 @@ def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype,
     args = [view(t) for t in tensors]
     assert not args[0].is_contiguous()
     grads = [view(torch.zeros_like(t)) for t in args[:3]]
-    before = flash_attention_backward_kernel.tensor_core_launches
+    fn = flash_attention_backward_kernel
+    before = (fn.tensor_core_launches, fn.wgmma_launches)
     got = flash_attention_backward_kernel(*args, lse, window=window,
                                           dq=grads[0], dk=grads[1],
                                           dv=grads[2])
@@ -1272,12 +1288,39 @@ def test_flash_attention_backward_kernel_strided_and_repeatable(cuda, dtype,
     again = flash_attention_backward_kernel(*args, lse, window=window)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert (flash_attention_backward_kernel.tensor_core_launches
-            == before + 2 * int(dtype == torch.bfloat16))
+    bf16 = dtype == torch.bfloat16
+    assert (fn.tensor_core_launches, fn.wgmma_launches) == (
+        before[0] + 2 * int(bf16), before[1] + 2 * int(bf16 and d <= 128))
     want = flash_attention_backward_plain(*(t.contiguous() for t in args),
                                           lse, window=window)
     for g, w in zip(got, want):
         assert _rel_l2(g, w) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_backward_kernel_off_16_bytes_keeps_mma(cuda, d):
+    """bf16 inputs TMA cannot read (q, k, v and dO two bytes off a 16-byte
+    boundary) take the mma.sync kernels up to D 128: one tensor-core launch
+    and no wgmma launch, within relative L2 2e-2 of the plain version."""
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q, k, v, out, dout, lse = _bwd_inputs(cuda, 1, 4, 2, 150, d, None,
+                                          torch.bfloat16, True)
+    args = [shifted(t) for t in (q, k, v, out, dout)]
+    assert args[0].data_ptr() % 16 != 0
+    fn = flash_attention_backward_kernel
+    before = (fn.tensor_core_launches, fn.wgmma_launches)
+    got = flash_attention_backward_kernel(*args, lse)
+    torch.cuda.synchronize()
+    assert (fn.tensor_core_launches, fn.wgmma_launches) == (before[0] + 1,
+                                                            before[1])
+    want = flash_attention_backward_plain(q, k, v, out, dout, lse)
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) <= 2e-2
 
 
 def test_flash_attention_backward_kernel_rejects_bad_inputs(cuda):
