@@ -48,6 +48,7 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
+from ..obs import profile_range
 from ..sharding.rules import (kv_replicated_constraint, local_rows,
                               write_seq)
 from .loop import scan
@@ -68,10 +69,11 @@ def rmsnorm_specs(d: int):
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
-    return out.to(x.dtype)
+    with profile_range("model.norm"):
+        x32 = x.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(var + eps) * p["scale"].float()
+        return out.to(x.dtype)
 
 
 # ---- rope ----------------------------------------------------------------------
@@ -83,15 +85,16 @@ def rope_freqs(d_head: int, theta: float = 1e4, device=None):
 
 def apply_rope(x, positions, theta: float = 1e4):
     """x [..., S, H, D] (D even), positions [..., S] int."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                 # [D/2]
-    angles = positions[..., None].float() * freqs          # [..., S, D/2]
-    cos = torch.cos(angles)[..., None, :]                  # [..., S, 1, D/2]
-    sin = torch.sin(angles)[..., None, :]
-    x32 = x.float()
-    x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    with profile_range("model.rope"):
+        d = x.shape[-1]
+        freqs = rope_freqs(d, theta, x.device)             # [D/2]
+        angles = positions[..., None].float() * freqs      # [..., S, D/2]
+        cos = torch.cos(angles)[..., None, :]              # [..., S, 1, D/2]
+        sin = torch.sin(angles)[..., None, :]
+        x32 = x.float()
+        x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return out.to(x.dtype)
 
 
 # ---- linear / embedding ---------------------------------------------------------
@@ -123,7 +126,9 @@ def mlp_specs(d: int, f: int, dtype=torch.bfloat16):
 def mlp(p, x):
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    with profile_range("model.swiglu"):
+        a = F.silu(g) * u
+    return a @ p["w_down"]
 
 
 # ---- attention -------------------------------------------------------------------

@@ -52,6 +52,7 @@ from .loop import recomputed, scan
 from .mla import MLAConfig, mla_block, mla_specs
 from .moe import MoEConfig, moe_apply, moe_specs
 from .specs import ParamSpec, load_reference, param, tree_map
+from ..obs import profile_range
 from ..sharding.rules import (activation_constraint, carry_context,
                               gather_params, settle_grad, unshard_dim)
 
@@ -254,7 +255,14 @@ def cache_specs(cfg: LMConfig, batch: int, max_len: int):
 
 def _layer_fwd(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
     """One layer: ``(x, aux, cache)``, aux the MoE's load-balance loss
-    (float32; None for other MLPs, whose aux is 0)."""
+    (float32; None for other MLPs, whose aux is 0). Under
+    ``torch.profiler`` it is the range ``repro_torch.model.layer``, opened
+    again when the layer is recomputed."""
+    with profile_range("model.layer"):
+        return _layer_body(p, seg, cfg, x, positions, cache, pos)
+
+
+def _layer_body(p, seg: Segment, cfg: LMConfig, x, positions, cache, pos):
     h = L.rmsnorm(p["norm1"], x)
     if seg.kind == "attn":
         y, new_cache = L.attention_block(p["attn"], h, positions, cfg, cache,
@@ -356,7 +364,8 @@ def _run_segment(p_stack, seg: Segment, cfg: LMConfig, x, positions,
     k = per or 1
 
     def layer(x, li):
-        p_layer = tree_map(lambda a: a[li], p_stack)
+        with profile_range("model.layer_params"):
+            p_layer = tree_map(lambda a: a[li], p_stack)
         if cache is None:
             body = _maybe_remat(
                 lambda xx: _layer_fwd(gather_params(p_layer), seg, cfg, xx,
@@ -465,12 +474,14 @@ def decode_step(params, cfg: LMConfig, cache, tokens, pos: int):
 def _ce_sum(logits, labels):
     """Summed CE (fp32) over the valid labels and their count. logits
     [B,S,V], labels [B,S] (-1 = pad)."""
-    logits = unshard_dim(logits.float(), -1)      # the gather reads all V
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
-    valid = labels >= 0
-    return (torch.where(valid, lse - ll, torch.zeros_like(lse)).sum(),
-            valid.sum())
+    with profile_range("model.ce"):
+        logits = unshard_dim(logits.float(), -1)  # the gather reads all V
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels.clamp(min=0)[..., None].long())[..., 0]
+        valid = labels >= 0
+        return (torch.where(valid, lse - ll, torch.zeros_like(lse)).sum(),
+                valid.sum())
 
 
 def _token_ce(logits, labels):
@@ -484,15 +495,21 @@ def chunked_ce(head, hidden, labels, chunk: int):
     ``chunk`` positions when that divides the sequence, each chunk's head
     and CE under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint``), so that only one chunk's ``[B, C, V]`` float32
-    logits is alive at a time."""
+    logits is alive at a time. Under ``torch.profiler`` a chunk's head and
+    CE are the range ``repro_torch.model.ce_chunk``, opened again when the
+    chunk is recomputed."""
     if not (chunk and hidden.shape[1] % chunk == 0):
         return _token_ce(head(hidden), labels)
     tot = torch.zeros((), device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
 
+    def ce_chunk(h, lab):
+        with profile_range("model.ce_chunk"):
+            return _ce_sum(head(h), lab)
+
     def step(carry, i):
         s, n = _ckpt.checkpoint(
-            carry_context(recomputed(lambda h, lab: _ce_sum(head(h), lab))),
+            carry_context(recomputed(ce_chunk)),
             hidden[:, i * chunk:(i + 1) * chunk],
             labels[:, i * chunk:(i + 1) * chunk], use_reentrant=False)
         return (carry[0] + s, carry[1] + n), None

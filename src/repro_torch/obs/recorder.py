@@ -1,6 +1,6 @@
 """Structured tracing and metrics for the deployment stack.
 
-One dependency-free :class:`Recorder` collects everything a run emits:
+One :class:`Recorder` collects everything a run emits:
 
 * **spans** — ``with rec.span("deploy.place", method="sa") as sp: ...``
   records a timed region (nesting tracked, attrs attached). The yielded
@@ -27,13 +27,41 @@ The disabled path is zero-overhead by construction: every instrumentation
 site in the hot loops is guarded by ``if recorder is not None`` (the hooks
 thread ``recorder=None`` by default), and :func:`maybe_span` degrades to a
 bare perf_counter pair.
+
+**Profiler ranges** — :func:`profile_range` opens a range named
+``repro_torch.<name>`` in ``torch.profiler``'s trace, on the profiler's
+clock beside the device's kernels, but only while a profiler runs: with
+none it is one flag check and enters nothing, so an untraced run's
+arithmetic, kernels and op traces are those of the code without it. The
+training step's spans (``train.*``, ``model.*``, ``optim.*``) are such
+ranges, and every :meth:`Recorder.span` and :func:`maybe_span` opens one
+too. A range is an op-scope record (``_RecordFunctionFast``), not a
+user annotation: the profiler mirrors a user annotation onto the device's
+timeline as an event of its own, which a reader of device events would
+take for a kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
+
+#: The prefix of every range the program opens in a profiler's trace.
+RANGE_PREFIX = "repro_torch."
+
+_NO_RANGE = nullcontext()
+
+
+def profile_range(name: str):
+    """A context manager: the profiler range ``repro_torch.<name>`` while
+    ``torch.profiler`` runs (read at each call), else a no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _RecordFunctionFast(RANGE_PREFIX + name)
 
 
 @dataclasses.dataclass
@@ -78,7 +106,8 @@ class Recorder:
         self._depth += 1
         t0 = self._clock()
         try:
-            yield sp
+            with profile_range(name):
+                yield sp
         finally:
             sp.duration_s = self._clock() - t0
             self._depth -= 1
@@ -215,7 +244,8 @@ def maybe_span(recorder: Recorder | None, name: str, **attrs):
     sp = Span(name)
     t0 = time.perf_counter()
     try:
-        yield sp
+        with profile_range(name):
+            yield sp
     finally:
         sp.duration_s = time.perf_counter() - t0
 

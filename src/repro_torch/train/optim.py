@@ -39,6 +39,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..device import resolve_device
+from ..obs import profile_range
 from ..models.specs import (ParamSpec, check_tree, is_spec, tree_leaves,
                              tree_map)
 
@@ -289,7 +290,13 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     trees, updated. The arithmetic is elementwise in float32; a large leaf
     is updated in slices of whole rows (``_row_slices``), which gives the
     same numbers with a slice's worth of temporaries. DTensor leaves update
-    their local shards."""
+    their local shards. Under ``torch.profiler`` the whole update, the
+    clipping norm included, is the range ``repro_torch.optim.adamw``."""
+    with profile_range("optim.adamw"):
+        return _adamw_update(grads, state, params, cfg, lr_scale)
+
+
+def _adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale):
     step = int(state["step"]) + 1
     state["step"].fill_(step)
     tag = cfg.state_dtype

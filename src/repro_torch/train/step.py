@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor
 from .optim import (AdamWConfig, adamw_init, adamw_update, at_path,
                     opt_state_specs, placed_like)
 from ..models.loop import scan
+from ..obs import profile_range
 from ..models.specs import tree_leaves, tree_map
 
 
@@ -90,8 +91,10 @@ def _full(t):
 
 
 def _value_and_grad(loss_fn, params, leaves, batch):
-    loss, metrics = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    with profile_range("train.forward"):
+        loss, metrics = loss_fn(params, batch)
+    with profile_range("train.backward"):
+        grads = torch.autograd.grad(loss, leaves)
     grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
     return _full(loss), {k: _full(v) for k, v in metrics.items()}, grads
 
@@ -100,9 +103,15 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
     """``loss_fn(params, batch) -> (loss, metrics: dict of scalars)``.
     Returns ``train_step(params, opt_state, batch, error_state=None) ->
     (params, opt_state, metrics[, error_state])``; ``batch`` is a dict of
-    tensors with the batch first."""
+    tensors with the batch first. Under ``torch.profiler`` the step is the
+    range ``repro_torch.train.step``, each micro-batch's loss
+    ``train.forward`` and its gradients ``train.backward``."""
 
     def train_step(params, opt_state, batch, error_state=None):
+        with profile_range("train.step"):
+            return _train_step(params, opt_state, batch, error_state)
+
+    def _train_step(params, opt_state, batch, error_state):
         flat = tree_leaves(params)
         paths = [path for path, _ in flat]
         leaves = [p.requires_grad_() for _, p in flat]

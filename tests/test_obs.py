@@ -51,6 +51,51 @@ def test_null_recorder_and_maybe_span():
     assert sp2.duration_s >= 0.0
 
 
+def test_port_spans_open_profiler_ranges_only_under_a_profiler(monkeypatch):
+    """The port's recorder spans and ``maybe_span`` open the profiler range
+    ``repro_torch.<name>`` while ``torch.profiler`` runs, and nothing
+    without one; the recorder's own events are the same either way."""
+    pytest.importorskip("torch")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs as t_obs
+    from repro_torch.obs import recorder as t_recorder
+    entered = []
+
+    class Counting:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            entered.append(self.name)
+
+        def __exit__(self, *exc):
+            return False
+
+    def spans():
+        rec = t_obs.Recorder()
+        with rec.span("deploy.place", method="sa"):
+            with t_obs.maybe_span(None, "place.sa"):
+                pass
+        with t_obs.maybe_span(rec, "place.ga"):
+            pass
+        return [(e["name"], e["depth"]) for e in rec.events]
+
+    monkeypatch.setattr(t_recorder, "_RecordFunctionFast", Counting)
+    off = spans()
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = spans()
+    assert on == off == [("deploy.place", 0), ("place.ga", 0)]
+    assert entered == ["repro_torch.deploy.place", "repro_torch.place.sa",
+                       "repro_torch.place.ga"]
+    monkeypatch.undo()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        spans()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert sorted(names) == sorted(entered)
+
+
 def test_counter_and_gauge_semantics():
     rec = Recorder()
     rec.count("c")
