@@ -11,6 +11,7 @@
     python3 chip_smoke.py --flash-backward-times    # the timings alone
     python3 chip_smoke.py --flash-backward-split    # their kernels' split
     python3 chip_smoke.py --flash-backward-digests  # unchanged routes' bits
+    python3 chip_smoke.py --rope            # the RoPE kernel, held and timed
 
 Phases, each of which fails the run loudly:
 
@@ -185,12 +186,17 @@ Phases, each of which fails the run loudly:
     internlm2-1.8b's full width and depth, 6 steps of 2 x 4096 tokens:
     each step's synchronised wall, tokens/s, loss and flash launches (48
     forward, all on the tensor cores, and 24 backward calls a step under
-    ``remat="full"``), losses finite and falling, peak device memory, the
+    ``remat="full"``) and RoPE kernel launches (96 forward, 48 inverse; as
+    ``_rope_calls_a_step`` says in every training run of phases 12, 14,
+    15 and 16), losses finite and falling, peak device memory, the
     last step under torch.profiler (busy share, top kernels, the flash
     backward's share); then 2 steps with ``--grad-compression int8_ef``;
-    (c) one step's loss and gradients at full width, depth cut to 2,
-    through the kernels and through their plain versions (every gradient
-    leaf within relative L2 5e-2); (d) the launcher at the smoke config,
+    the RoPE kernel bit for bit against its plain version at that step's
+    q and k both ways, and timed (the ``rope`` row); (c) one step's loss
+    and gradients at full width, depth cut to 2, through the kernels and
+    through their plain versions, RoPE's included (every gradient leaf
+    within relative L2 5e-2; the RoPE kernel launched on the kernel route
+    only); (d) the launcher at the smoke config,
     6 steps straight against 3, a checkpoint and a relaunch to 6, under
     deterministic algorithms: the step-6 checkpoints bit-identical (in a
     child process, ``--train-restart``, which alone gets
@@ -276,24 +282,25 @@ Phases, each of which fails the run loudly:
     12a in slices); qwen3's step twice from the seed under deterministic
     algorithms, every parameter bit-identical (a child process,
     ``--moe-repeat``);
-16. training on a device mesh, in a child process (``--mesh``) that joins
-    a one-rank NCCL group and builds the 1 x 1 mesh over ``("data",
+16. training on a device mesh, in a child process (``--mesh``) that joins a
+    one-rank NCCL group and builds the 1 x 1 mesh over ``("data",
     "model")``: (a) ``launch.train --mesh 1x1`` at internlm2-1.8b's full
-    width, 4 steps of 2 x 4096 tokens (DTensor parameters, a sharded
-    batch, the step in a mesh context), 48 forward and 24 backward flash
-    launches a step, against the unsharded launcher at the same seed on
-    the same rows (a sharded batch draws row r from shard r): losses and
+    width, 4 steps of 2 x 4096 tokens (DTensor parameters, a sharded batch,
+    the step in a mesh context), 48 forward and 24 backward flash launches
+    a step and 96 forward and 48 inverse RoPE launches (the DTensors rotate
+    on their local shards), against the unsharded launcher at the same seed
+    on the same rows (a sharded batch draws row r from shard r): losses and
     final parameters bit-identical or not, and within relative 1e-6; step
     wall, tokens/s, peak memory and busy share of both, so DTensor's host
     overhead shows; (b) qwen3-moe-30b-a3b at 6 of 48 layers, one forward
     and backward of 2 x 4096 with every ``moe_apply`` on the
     expert-parallel path (an all-to-all on the model axis's group) against
     the single-device path, routes pinned to the latter's: loss and every
-    gradient within relative 1e-6 and the dropped assignments of each
-    layer identical; (c) internlm2-1.8b at full width, depth cut to 2, laid
-    out by ``BASE_RULES``, saved and restored through ``shardings=``, bit
-    for bit; (d) ``batch_for_step`` on the mesh against the rows drawn on
-    the host, exactly; (e) sequence-parallel attention at phi3-medium-14b's
+    gradient within relative 1e-6 and the dropped assignments of each layer
+    identical; (c) internlm2-1.8b at full width, depth cut to 2, laid out
+    by ``BASE_RULES``, saved and restored through ``shardings=``, bit for
+    bit; (d) ``batch_for_step`` on the mesh against the rows drawn on the
+    host, exactly; (e) sequence-parallel attention at phi3-medium-14b's
     attention shape, 1 x 4096 bf16 in 4 sequence shards, each shard through
     ``layers._SeqShardAttention`` (r + 1 flash calls a shard, forward and
     backward) against one kernel call over the whole sequence, within
@@ -305,9 +312,9 @@ Phases, each of which fails the run loudly:
     (``Cell.trace``) unrolled and with its layers folded
     (``models.loop``: three of 24 traced, the middle one counted 22
     times), then the same step for real on a one-rank NCCL mesh, laid out
-    alike: the folded trace's flash ops, each times its count, against
-    the real step's launch counts (equal), its FLOPs against the unrolled
-    trace's (equal) and its matrix-product FLOPs against
+    alike: the folded trace's flash and RoPE ops, each times its count,
+    against the real step's launch counts (equal), its FLOPs against the
+    unrolled trace's (equal) and its matrix-product FLOPs against
     ``FlopCounterMode`` on the real step (within relative 1e-6), its
     predicted peak against ``torch.cuda.max_memory_allocated`` (within
     ``DRYRUN_PEAK_TOL``) and its roofline fraction against the measured
@@ -346,6 +353,15 @@ alone; ``--flash-backward-digests`` prints a digest of the gradients at
 every sweep case on the routes the wgmma kernels did not change (float32
 at every D; bf16 past D 128). Copied into an older checkout, either of the
 last two measures that checkout's kernels on the same inputs.
+
+``--rope`` builds the RoPE kernel (ptxas' report), holds it bit for bit
+against its plain version at internlm2-1.8b's training shapes (q
+``[32, 4096, 16, 128]`` and k ``[32, 4096, 8, 128]``, bf16, positions
+``[4096]``, theta 1e6) in both directions, and times both directions there
+(eager ms a call under CUDA events, device ms a call from a CUDA graph of
+the calls, the profiler's kernel ms) beside their bound (x read once, y
+written once at 3.35 TB/s) and the plain version's ms; one ``[rope]`` JSON
+line a shape and direction.
 
 ``--wrapper-times`` runs nothing but the host microseconds a call of the LIF
 wrappers at the 13 Spike-VGG16 state shapes (eager ms minus CUDA-graph
@@ -656,8 +672,9 @@ def _check_delta_stream(dev, graph, noc, rng, n_swaps: int = 200):
           f"(tolerance 1e-5) ok")
 
 
-# a kernel's counts of its launches on a route, beside ``launches``
-ROUTE_COUNTS = ("tensor_core", "wgmma")
+# a kernel's counts of its launches on a route or in a direction, beside
+# ``launches`` (RoPE's ``backward_launches`` are its inverse rotations)
+ROUTE_COUNTS = ("tensor_core", "wgmma", "backward")
 
 
 def _reset_counts(kernels) -> None:
@@ -1926,6 +1943,24 @@ def _attention_route(forward, backward=None):
         layers._flash_forward, layers._flash_backward = real
 
 
+@contextlib.contextmanager
+def _plain_rope():
+    """Within the scope, the model's RoPE runs the torch ops both ways
+    (``rope_plain``, and with ``inverse`` its gradient) inside its autograd
+    Function, where the kernel ran."""
+    from repro_torch.kernels.rope import rope_plain
+    from repro_torch.models import layers
+    real = layers._rope_kernel
+
+    def plain(x, positions, theta, inverse=False):
+        return rope_plain(x, positions, theta, inverse)
+    layers._rope_kernel = plain
+    try:
+        yield
+    finally:
+        layers._rope_kernel = real
+
+
 def _rel_err(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm()).item()
@@ -2796,8 +2831,9 @@ def _recurrent_families(dev, card, kernels, flash_row, bwd_row, bwd_err,
         print(f"[recurrent] {json.dumps(res)}")
 
     torch.cuda.reset_peak_memory_stats()
-    bwd_launches = _train_lm_path(dev, kernels, TRAIN_ZAMBA2, "train-zamba2",
-                                  int8_ef=False)
+    bwd_launches = _train_lm_path(
+        dev, kernels, TRAIN_ZAMBA2, "train-zamba2",
+        int8_ef=False)["flash_attention_backward_kernel"]
     gc.collect()
     torch.cuda.empty_cache()
     cut = dataclasses.replace(zamba2, segments=(
@@ -3078,8 +3114,9 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bwd_launches = _train_lm_path(dev, kernels, TRAIN_SEAMLESS,
-                                  "train-seamless", int8_ef=False)
+    bwd_launches = _train_lm_path(
+        dev, kernels, TRAIN_SEAMLESS, "train-seamless",
+        int8_ef=False)["flash_attention_backward_kernel"]
     gc.collect()
     torch.cuda.empty_cache()
     cut = dataclasses.replace(get_config("seamless-m4t-medium"),
@@ -3102,9 +3139,9 @@ def _encdec_and_families(dev, card, kernels, flash_row, bwd_row, bwd_errs,
         cfg = get_config(arch)
         if depth is not None:
             cfg = dataclasses.replace(cfg, segments=(Segment(*depth),))
-        bwd_launches = _train_lm_path(dev, kernels,
-                                      dict(TRAIN_FAMILY_RUN, arch=arch),
-                                      label, int8_ef=False, cfg=cfg)
+        bwd_launches = _train_lm_path(
+            dev, kernels, dict(TRAIN_FAMILY_RUN, arch=arch), label,
+            int8_ef=False, cfg=cfg)["flash_attention_backward_kernel"]
     # deepseek's trained layer (D 192, 128 heads) through the wide
     # tensor-core backward, against SDPA's backward
     gc.collect()
@@ -3886,6 +3923,118 @@ def _check_flash_backward(dev):
     return errs
 
 
+# the RoPE calls of internlm2-1.8b's training step (b32s4k): q and k of a
+# layer, bf16, positions [4096], its published theta
+ROPE_TIMED = [("internlm2 q", (32, 4096, 16, 128)),
+              ("internlm2 k", (32, 4096, 8, 128))]
+# those of the main path's step (phase 12, ``TRAIN``), at the registry's
+# theta
+ROPE_MAIN = [(f"trained internlm2 {name}",
+              (TRAIN["batch"], TRAIN["seq"], heads, 128))
+             for name, heads in (("q", 16), ("k", 8))]
+
+
+def _rope_rows(dev, card, calls, theta) -> list:
+    """The RoPE kernel at each ``(label, shape)`` of ``calls`` (bf16,
+    positions ``[S]``): held bit for bit against ``rope_plain`` in both
+    directions (the inverse also against autograd through the plain ops),
+    then each direction timed against its bound (x read once, y written
+    once) and the plain version. One dict a shape and direction."""
+    import torch
+    from repro_torch.kernels import rope as rp
+    rows = []
+    for label, shape in calls:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        d = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        positions = torch.arange(shape[1], device=dev)
+        xg = x.detach().requires_grad_()
+        want = rp.rope_plain(xg, positions, theta)
+        (grad,) = torch.autograd.grad(want, xg, d)
+        got = rp.rope_kernel(x, positions, theta)
+        back = rp.rope_kernel(d, positions, theta, inverse=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                and torch.equal(back.view(torch.int16),
+                                grad.view(torch.int16))):
+            raise AssertionError(f"rope: the kernel departs from its plain "
+                                 f"version at {label} {shape}")
+        del xg, want, grad, got, back
+        bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        for inverse in (False, True):
+            t = x if not inverse else d
+
+            def kernel(t=t, inverse=inverse):
+                return rp.rope_kernel(t, positions, theta, inverse=inverse)
+
+            def plain(t=t, inverse=inverse):
+                return rp.rope_plain(t, positions, theta, inverse)
+
+            row = {"call": label, "shape": list(shape),
+                   "direction": "inverse" if inverse else "forward",
+                   "bit_identical": True,
+                   "ms": _time_ms(kernel, reps=50),
+                   "device_ms": _graph_ms(kernel, reps=20, replays=10),
+                   "profiler_kernel_ms": _kernel_device_ms(kernel,
+                                                           "rope_kernel"),
+                   "bound_ms": bound_ms,
+                   "plain_ms": _time_ms(plain, reps=10, warmup=2),
+                   "plain_device_ms": _graph_ms(plain, reps=5, replays=4),
+                   "card": card}
+            row["roofline_pct"] = 100 * bound_ms / row["device_ms"]
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _time_rope(dev, card, launches) -> dict:
+    """Phase 12, ``rope`` row: the kernel at the main path's q and k
+    (``ROPE_MAIN``), held and timed by :func:`_rope_rows`; the row's times
+    are q's forward, every shape and direction under ``calls``.
+    ``launches`` is the main run's ``_counts``: the kernel's launches both
+    ways, the inverse apart."""
+    from repro_torch.configs import get_config
+    calls = _rope_rows(dev, card, ROPE_MAIN,
+                       get_config(TRAIN["arch"]).rope_theta)
+    q = calls[0]
+    for row in calls:
+        print("[rope] " + json.dumps(row))
+    return {
+        "name": "rope", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rope.cu",
+        "replaces": "none: RoPE is plain JAX (src/repro/models/layers.py:38)",
+        "launches": launches["rope_kernel"] + launches["rope_kernel.backward"],
+        "inverse_launches": launches["rope_kernel.backward"],
+        "max_abs_err": 0.0, "bit_identical": True,
+        "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "device_ms": q["device_ms"],
+        "plain_device_ms": q["plain_device_ms"], "library_device_ms": None,
+        "calls": calls,
+        "path": "the main path's training step (phase 12): q and k of every "
+                "attention, forward, recomputed and inverse, from "
+                "models.layers._Rope; every attention that calls apply_rope "
+                "on the card, a mesh's local shards included (phase 16)"}
+
+
+def _rope_phase():
+    """``--rope``: the RoPE kernel alone. Builds it (ptxas' report), holds
+    it and times it at ``ROPE_TIMED`` (:func:`_rope_rows`)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rope as rp
+    dev = torch.device("cuda")
+    card = _card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.build([rp.KERNEL])
+    print(f"[build] {rp.KERNEL}: {time.perf_counter() - t0:.2f} s")
+    _ptxas_report(rp.KERNEL, _build.build_log(rp.KERNEL))
+    for row in _rope_rows(dev, card, ROPE_TIMED, 1e6):
+        print("[rope] " + json.dumps(row))
+
+
 def _flash_backward_phase():
     """``--flash-backward``: phase 12a's backward checks alone. Builds the
     flash kernels (ptxas' report of each), holds the backward against its
@@ -4118,12 +4267,14 @@ def _time_flash_backward(dev, card, launches, err, shape=TRAINED,
 @contextlib.contextmanager
 def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
     """Within the scope, every step ``launch.train.main`` takes is
-    synchronised and recorded in ``rec``: wall, loss, ce, and the flash
-    forward / backward launches it made; step ``profile_at`` runs under
-    torch.profiler (its wall is recorded apart)."""
+    synchronised and recorded in ``rec``: wall, loss, ce, the flash
+    forward / backward launches and the RoPE kernel's forward / inverse
+    launches it made; step ``profile_at`` runs under torch.profiler (its
+    wall is recorded apart)."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_kernel, flash_attention_kernel)
+    from repro_torch.kernels.rope import rope_kernel
     from repro_torch.launch import train
     real = train.make_train_step
 
@@ -4133,7 +4284,8 @@ def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
         def recorded(*args):
             torch.cuda.synchronize()
             before = (flash_attention_kernel.launches,
-                      flash_attention_backward_kernel.launches)
+                      flash_attention_backward_kernel.launches,
+                      rope_kernel.launches, rope_kernel.backward_launches)
             t0 = time.perf_counter()
             if len(rec) == profile_at:
                 box = []
@@ -4148,7 +4300,9 @@ def _recorded_train_steps(rec, profile_at=None, label="train-lm"):
                 "loss": float(out[2]["loss"]), "ce": float(out[2]["ce"]),
                 "mtp": float(out[2]["mtp"]),
                 "fwd": flash_attention_kernel.launches - before[0],
-                "bwd": flash_attention_backward_kernel.launches - before[1]})
+                "bwd": flash_attention_backward_kernel.launches - before[1],
+                "rope": (rope_kernel.launches - before[2],
+                         rope_kernel.backward_launches - before[3])})
             return out
         return recorded
 
@@ -4188,6 +4342,22 @@ def _flash_calls_a_step(cfg) -> tuple:
     return (2 if cfg.remat == "full" else 1) * n + extra, n + extra
 
 
+def _rope_calls_a_step(cfg) -> tuple:
+    """RoPE kernel launches of one training step of ``cfg``, forward and
+    inverse: q and k of every rotary attention (the enc-dec family's
+    encoder and decoder self-attention; its cross-attention has none), in
+    the pattern of :func:`_flash_calls_a_step`: once forward (again where
+    ``remat="full"`` recomputes it) and once inverse; DeepSeek's MTP layer
+    once each."""
+    from repro_torch.models.encdec import EncDecConfig
+    if isinstance(cfg, EncDecConfig):
+        n, extra = cfg.n_enc_layers + cfg.n_dec_layers, 0
+    else:
+        n, extra = _attention_layers(cfg), int(cfg.mtp)
+    return (2 * ((2 if cfg.remat == "full" else 1) * n + extra),
+            2 * (n + extra))
+
+
 def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
                    int8_ef=True, cfg=None):
     """Phases 12b, 14 and 15: ``python -m repro_torch.launch.train`` at
@@ -4196,7 +4366,9 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
     last profiled where ``profile``; each flash backward call of the first
     held against its plain version on its own inputs, ``_held_backward``),
     then, where ``int8_ef``, 2 steps with int8 error-feedback gradient
-    compression. Returns the flash backward launches of the main run."""
+    compression. Every step launches the RoPE kernel as
+    :func:`_rope_calls_a_step` says. Returns the main run's launches
+    (``_counts(kernels)``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -4217,6 +4389,7 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
           f"{cfg.remat}, logit_chunk {cfg.logit_chunk}; n_params "
           f"{n_params(specs)}; main({argv})")
     want_fwd, want_bwd = _flash_calls_a_step(cfg)
+    want_rope = _rope_calls_a_step(cfg)
     rec, held = [], []
     _reset_counts(kernels)
     torch.cuda.synchronize()
@@ -4239,7 +4412,8 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
               f"mtp {r['mtp']!r}, wall {r['wall']!r} s (synchronised"
               f"{', under the profiler' if r['profiled'] else ''}), "
               f"{tokens / r['wall']!r} tokens/s; flash forward launches "
-              f"{r['fwd']}, backward {r['bwd']}")
+              f"{r['fwd']}, backward {r['bwd']}; RoPE forward and inverse "
+              f"{r['rope']}")
     mean = statistics.fmean(steady)
     print(f"[{label}] main() wall {wall!r} s (weights drawn, first step's "
           f"warm-up included); steps 1-{len(rec) - 2}: mean step wall "
@@ -4279,6 +4453,10 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
                              f"{want_fwd} forward and {want_bwd} backward, "
                              f"all on the tensor cores, {want_wgmma} of the "
                              f"backward on wgmma ({launches})")
+    if any(r["rope"] != want_rope for r in rec):
+        raise AssertionError(f"{label}: RoPE kernel launches a step (forward"
+                             f", inverse) {[r['rope'] for r in rec]}, not "
+                             f"{want_rope}")
     # with DeepSeek's MTP head the CE is held to fall and the MTP term to
     # stay finite: its layer's output meets the head without a norm, and
     # at full width that term starts near 60 and grows under AdamW, as the
@@ -4298,7 +4476,8 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
           f"step, all on the tensor cores, {want_wgmma} backward a step on "
           f"the wgmma kernels "
           f"({launches['flash_attention_backward_kernel.wgmma']} in "
-          f"{run['steps']} steps) ok")
+          f"{run['steps']} steps); {want_rope[0]} forward and "
+          f"{want_rope[1]} inverse RoPE launches a step ok")
     prof = rec[-1]["profiled"]
     print(f"[{label}] " + json.dumps({
         "model": cfg.name, "layers": cfg.n_layers,
@@ -4309,10 +4488,11 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
         "busy": None if prof is None else prof["busy"],
         "kernels": None if prof is None else prof["kernels"],
         "peak_bytes": peak, "flash_forward": want_fwd,
-        "flash_backward": want_bwd}))
+        "flash_backward": want_bwd, "rope_forward": want_rope[0],
+        "rope_inverse": want_rope[1]}))
 
     if not int8_ef:
-        return launches["flash_attention_backward_kernel"]
+        return launches
     rec_ef = []
     torch.cuda.reset_peak_memory_stats()
     with _recorded_train_steps(rec_ef):
@@ -4327,7 +4507,7 @@ def _train_lm_path(dev, kernels, run=TRAIN, label="train-lm", profile=True,
           f"{peak_ef} bytes")
     if len(ef) != 2 or not all(math.isfinite(v) for v in ef):
         raise AssertionError(f"{label} int8_ef: losses {ef}")
-    return launches["flash_attention_backward_kernel"]
+    return launches
 
 
 def _float32(cfg):
@@ -4374,15 +4554,17 @@ def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
     """Phases 12c, 14 and 15: one step's loss and gradients of ``cfg``
     (default internlm2-1.8b at full width, depth cut 24 -> 2, bf16),
     ``run``'s batch x seq tokens: the kernel route (its backward
-    ``backward`` where given) against the plain Function (the plain
-    forward and backward swapped in). Every gradient leaf within relative
-    L2 ``LOGITS_REL_TOL`` and the loss within that share, where ``held``;
-    else only printed."""
+    ``backward`` where given) against the plain route (the plain flash
+    forward and backward and the plain RoPE swapped in; it launches no
+    RoPE kernel, the kernel route :func:`_rope_calls_a_step`'s). Every
+    gradient leaf within relative L2 ``LOGITS_REL_TOL`` and the loss within
+    that share, where ``held``; else only printed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_plain, flash_attention_kernel,
         flash_attention_plain)
+    from repro_torch.kernels.rope import rope_kernel
     from repro_torch.models import encdec, lm
     from repro_torch.models.lm import Segment
     from repro_torch.models.specs import materialize, tree_leaves
@@ -4395,17 +4577,28 @@ def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
     leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
     loss_of = _train_loss(cfg, run, dev)
 
+    rope = []
+
     def grads():
+        before = (rope_kernel.launches, rope_kernel.backward_launches)
         loss = loss_of(params)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        out = loss.detach(), torch.autograd.grad(loss, leaves)
+        rope.append((rope_kernel.launches - before[0],
+                     rope_kernel.backward_launches - before[1]))
+        return out
 
     with (_attention_route(flash_attention_kernel, backward) if backward
           else contextlib.nullcontext()):
         kernel = grads()
     with _attention_route(flash_attention_plain,
-                          flash_attention_backward_plain):
+                          flash_attention_backward_plain), _plain_rope():
         plain = grads()
     torch.cuda.synchronize()
+    if rope != [_rope_calls_a_step(cfg), (0, 0)]:
+        raise AssertionError(f"{label}: RoPE kernel launches (forward, "
+                             f"inverse) on the kernel and plain routes "
+                             f"{rope}, not {[_rope_calls_a_step(cfg)]} and "
+                             "none")
     names = ["/".join(p) for p, _ in tree_leaves(params)]
     errs = {n: _rel_err(a, b) for n, a, b in zip(names, kernel[1], plain[1])}
     worst = max(errs, key=errs.get)
@@ -4413,7 +4606,8 @@ def _train_kernel_vs_plain(dev, cfg=None, run=TRAIN, label="train-lm-route",
           f"{str(cfg.param_dtype).split('.')[1]} weights, one step at "
           f"{run['batch']} x {run['seq']}: loss kernel route "
           f"{kernel[0].item()!r}, plain route {plain[0].item()!r}; gradient "
-          f"relative L2 error: worst {worst} {errs[worst]!r} "
+          f"relative L2 error (RoPE launches on the two routes {rope}): "
+          f"worst {worst} {errs[worst]!r} "
           f"({f'tolerance {LOGITS_REL_TOL}' if held else 'not held'}), "
           f"all {errs}")
     if held and not (errs[worst] <= LOGITS_REL_TOL
@@ -4555,6 +4749,7 @@ def _mesh_launcher(card, kernels, mesh):
     run = MESH_RUN
     cfg = get_config(run["arch"])
     want_fwd, want_bwd = _flash_calls_a_step(cfg)
+    want_rope = _rope_calls_a_step(cfg)
     tokens = run["batch"] * run["seq"]
     argv = ["--arch", run["arch"], "--steps", str(run["steps"]), "--batch",
             str(run["batch"]), "--seq", str(run["seq"])]
@@ -4586,12 +4781,18 @@ def _mesh_launcher(card, kernels, mesh):
               f"{steady!r} s, {tokens / steady!r} tokens/s; peak "
               f"{runs[name]['peak']} bytes; busy share "
               f"{None if prof is None else prof['busy']!r}; flash launches "
-              f"a step {[(r['fwd'], r['bwd']) for r in rec]}; main() wall "
+              f"a step {[(r['fwd'], r['bwd']) for r in rec]}; RoPE "
+              f"launches a step {[r['rope'] for r in rec]}; main() wall "
               f"{wall!r} s; card {card}")
         if any(r["fwd"] != want_fwd or r["bwd"] != want_bwd for r in rec):
             raise AssertionError(f"mesh: {name} made flash launches "
                                  f"{[(r['fwd'], r['bwd']) for r in rec]} a "
                                  f"step, not {want_fwd} and {want_bwd}")
+        # the mesh's DTensors rotate on their local shards, on the kernel
+        if any(r["rope"] != want_rope for r in rec):
+            raise AssertionError(f"mesh: {name} made RoPE launches "
+                                 f"{[r['rope'] for r in rec]} a step, not "
+                                 f"{want_rope}")
         del params
     m, u = runs["mesh 1x1"], runs["unsharded"]
     loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -4620,6 +4821,7 @@ def _mesh_launcher(card, kernels, mesh):
         "unsharded_busy": (u["rec"][-1]["profiled"] or {}).get("busy"),
         "peak_bytes": m["peak"], "unsharded_peak_bytes": u["peak"],
         "flash_forward": want_fwd, "flash_backward": want_bwd,
+        "rope_forward": want_rope[0], "rope_inverse": want_rope[1],
         "launches": m["launches"]}))
     if not (loss_gap <= MESH_REL_TOL and param_gap <= MESH_REL_TOL):
         raise AssertionError("mesh: the 1x1 mesh launcher departs from the "
@@ -4897,6 +5099,7 @@ def _dryrun_trace_vs_real(card):
     from repro_torch.core.trace_analysis import (analyze_trace, dot_flops,
                                                  flash_flops)
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.rope import rope_kernel
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.cells import build_cell
     from repro_torch.launch.mesh import init_distributed, make_test_mesh
@@ -4924,6 +5127,7 @@ def _dryrun_trace_vs_real(card):
     n_bwd = sum(op.count for op in trace.ops
                 if op.base == "flash_attention_backward"
                 and flash_flops(op) > 0)
+    n_rope = sum(op.count for op in trace.ops if op.base == "rope")
     dots = sum(dot_flops(op) * op.count for op in trace.ops)
     coll = dict(st["collectives"], by_link=D.collective_links(trace))
     roof = D.roofline_terms(st["flops"], st["bytes"], coll,
@@ -4947,7 +5151,8 @@ def _dryrun_trace_vs_real(card):
         os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                           MASTER_ADDR="localhost", MASTER_PORT=str(port))
     dev = init_distributed()
-    kernels = (fa.flash_attention_kernel, fa.flash_attention_backward_kernel)
+    kernels = (fa.flash_attention_kernel, fa.flash_attention_backward_kernel,
+               rope_kernel)
     try:
         mesh = make_test_mesh((1, 1))
         real = build_cell(run["arch"], shape, mesh)
@@ -4988,11 +5193,14 @@ def _dryrun_trace_vs_real(card):
     torch.cuda.empty_cache()
     got = (launches["flash_attention_kernel"],
            launches["flash_attention_backward_kernel"])
+    # the RoPE kernel both ways: one repro_torch.rope op a launch
+    rope = launches["rope_kernel"] + launches["rope_kernel.backward"]
     gap = abs(dots - flops) / flops
     pred = memory["peak_bytes_per_device"]
     print(f"[dryrun] (a) the real step on a one-rank NCCL 1 x 1 mesh: flash "
           f"launches {got[0]} forward / {got[1]} backward (trace {n_fwd} / "
-          f"{n_bwd}); FlopCounterMode {flops} FLOPs vs the trace's matrix "
+          f"{n_bwd}), RoPE {rope} both ways (trace {n_rope}); "
+          f"FlopCounterMode {flops} FLOPs vs the trace's matrix "
           f"products {dots!r} (relative gap {gap!r}, tolerance "
           f"{DRYRUN_FLOP_TOL}); peak {peak} bytes vs predicted {pred} "
           f"({(pred - peak) / peak!r} relative); step wall {wall!r} s, "
@@ -5011,6 +5219,7 @@ def _dryrun_trace_vs_real(card):
         "unrolled_peak_bytes":
             traced[False][1]["peak_bytes_per_device"],
         "flash_traced": [n_fwd, n_bwd], "flash_launched": list(got),
+        "rope_traced": n_rope, "rope_launched": rope,
         "trace_matmul_flops": dots, "flop_counter_flops": flops,
         "flop_rel_gap": gap, "trace_flops": st["flops"],
         "trace_bytes": st["bytes"], "predicted_peak_bytes": pred,
@@ -5022,6 +5231,9 @@ def _dryrun_trace_vs_real(card):
         raise AssertionError(f"dryrun: the trace's flash ops {n_fwd} / "
                              f"{n_bwd} are not the real step's launches "
                              f"{got}")
+    if rope != n_rope or not rope:
+        raise AssertionError(f"dryrun: the trace's {n_rope} RoPE ops are not "
+                             f"the real step's {rope} launches")
     if gap > DRYRUN_FLOP_TOL:
         raise AssertionError(f"dryrun: the trace's matrix-product FLOPs "
                              f"depart from FlopCounterMode's by {gap!r}")
@@ -5033,7 +5245,8 @@ def _dryrun_trace_vs_real(card):
         raise AssertionError(f"dryrun: the folded trace's peak {pred} is "
                              f"not within {DRYRUN_PEAK_TOL} of the real "
                              f"step's {peak}")
-    return {"flash_attention": got[0], "flash_attention_backward": got[1]}
+    return {"flash_attention": got[0], "flash_attention_backward": got[1],
+            "rope": rope}
 
 
 def _dryrun_production(card):
@@ -5224,6 +5437,9 @@ def main() -> int:
     if sys.argv[1:] == ["--flash-backward-times"]:
         _flash_backward_times()
         return 0
+    if sys.argv[1:] == ["--rope"]:
+        _rope_phase()
+        return 0
     if sys.argv[1:] == ["--flash-backward-digests"]:
         print(_card_line())
         _backward_digests(torch.device("cuda"))
@@ -5243,6 +5459,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.delta_cost import delta_cost, delta_cost_plain
     from repro_torch.kernels import lif as lif_mod
+    from repro_torch.kernels import rope as rope_mod
     from repro_torch.kernels import spike_matmul as mm_mod
     from repro_torch.kernels.noc_segsum import (KERNEL, link_traffic,
                                                 link_traffic_plain,
@@ -5264,12 +5481,12 @@ def main() -> int:
                delta_mod.sa_chains, lif_mod.lif_step_kernel,
                lif_mod.lif_backward_kernel, mm_mod.spike_matmul_kernel,
                fa_mod.flash_attention_kernel,
-               fa_mod.flash_attention_backward_kernel)
+               fa_mod.flash_attention_backward_kernel, rope_mod.rope_kernel)
 
     # ---- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     names = [KERNEL, delta_mod.KERNEL, lif_mod.KERNEL, mm_mod.KERNEL,
-             fa_mod.KERNEL]
+             fa_mod.KERNEL, rope_mod.KERNEL]
     _build.build(names)
     print(f"[build] {', '.join(names)} (in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
@@ -5550,11 +5767,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     bwd_errs = _check_flash_backward(dev)
     bwd_splits = _backward_splits()
-    bwd_launches = _train_lm_path(dev, kernels)
+    train_launches = _train_lm_path(dev, kernels)
     bwd_row = _time_flash_backward(
-        dev, card, bwd_launches, bwd_errs["trained internlm2 layer"],
+        dev, card, train_launches["flash_attention_backward_kernel"],
+        bwd_errs["trained internlm2 layer"],
         split=bwd_splits[_split_key("internlm2-1.8b", True)])
     rows.append(bwd_row)
+    rows.append(_time_rope(dev, card, train_launches))
     torch.cuda.reset_peak_memory_stats()
     _train_kernel_vs_plain(dev)
     _child("--train-restart", "train-restart")

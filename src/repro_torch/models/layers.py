@@ -48,6 +48,7 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import flash_attention as _fa
+from ..kernels import rope as _rp
 from ..obs import profile_range
 from ..sharding.rules import (kv_replicated_constraint, local_rows,
                               write_seq)
@@ -56,10 +57,12 @@ from .specs import param
 
 NEG_INF = -1e30
 
-# the attention of the kernel route, forward and backward; module attributes
-# so that a check can swap in the plain versions on the card and compare
+# the attention and the RoPE of the kernel route, forward and backward;
+# module attributes so that a check can swap in the plain versions on the
+# card and compare
 _flash_forward = _fa.flash_attention_kernel
 _flash_backward = _fa.flash_attention_backward_kernel
+_rope_kernel = _rp.rope_kernel
 
 
 # ---- norms -------------------------------------------------------------------
@@ -78,23 +81,59 @@ def rmsnorm(p, x, eps: float = 1e-5):
 
 # ---- rope ----------------------------------------------------------------------
 
-def rope_freqs(d_head: int, theta: float = 1e4, device=None):
-    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
-    return 1.0 / (theta ** (exps / d_head))
+class _Rope(torch.autograd.Function):
+    """RoPE of ``x [B, S, H, D]`` in one call of ``_rope_kernel``; the
+    backward is the same kernel rotating the cotangent back (``inverse``),
+    so nothing of x is saved, only the positions."""
+
+    @staticmethod
+    def forward(ctx, x, positions, theta):
+        ctx.save_for_backward(positions)
+        ctx.theta = theta
+        return _rope_kernel(x, positions, theta)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (positions,) = ctx.saved_tensors
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        return _rope_kernel(dy, positions, ctx.theta, inverse=True), None, None
+
+
+def _rope_local(x):
+    """Whether DTensor ``x [B, S, H, D]`` rotates on its local shard: RoPE
+    is elementwise over (b, s, h) and linear, so a batch, sequence or head
+    shard, a replica and a partial sum or mean do; a split head dim would
+    part the pairs (i, i + D/2)."""
+    return x.dim() == 4 and all(
+        p.is_replicate() or (type(p) is Shard and p.dim in (0, 1, 2))
+        or (p.is_partial() and p.reduce_op in ("sum", "avg"))
+        for p in x.placements)
 
 
 def apply_rope(x, positions, theta: float = 1e4):
-    """x [..., S, H, D] (D even), positions [..., S] int."""
+    """x [..., S, H, D] (D even), positions [..., S] int.
+
+    ``[B, S, H, D]`` takes :class:`_Rope` both ways, whose wrapper launches
+    the RoPE kernel on a CUDA (or fake) tensor and runs the torch ops
+    (``kernels.rope.rope_plain``) on a CPU one. A DTensor does so on its
+    local shard where :func:`_rope_local` allows, with its own rows of the
+    positions; any other DTensor takes the torch ops on the DTensor."""
     with profile_range("model.rope"):
-        d = x.shape[-1]
-        freqs = rope_freqs(d, theta, x.device)             # [D/2]
-        angles = positions[..., None].float() * freqs      # [..., S, D/2]
-        cos = torch.cos(angles)[..., None, :]              # [..., S, 1, D/2]
-        sin = torch.sin(angles)[..., None, :]
-        x32 = x.float()
-        x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
-        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-        return out.to(x.dtype)
+        if not isinstance(x, DTensor):
+            return _Rope.apply(x, positions, theta)
+        if isinstance(positions, DTensor) or not _rope_local(x):
+            return _rp.rope_plain(x, positions, theta)
+        # an empty shard's first index may lie past the end
+        b0, nb = local_rows(x, 0)
+        s0, ns = local_rows(x, 1)
+        positions = positions.narrow(-1, min(s0, x.shape[1]), ns)
+        if positions.dim() == 2:
+            positions = positions.narrow(0, min(b0, x.shape[0]), nb)
+        y = _Rope.apply(x.to_local(), positions, theta)
+        return DTensor.from_local(
+            y, x.device_mesh, x.placements, shape=x.shape,
+            stride=tuple(math.prod(x.shape[i + 1:]) for i in range(4)))
 
 
 # ---- linear / embedding ---------------------------------------------------------

@@ -24,7 +24,7 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_every_kernel_shares_a_header():
-    assert len(KERNELS) == 5
+    assert len(KERNELS) == 6
     assert (_build.CSRC / "tensor_core.cuh").exists()
 
 

@@ -42,7 +42,10 @@ and return the reference's dtype, against their plain versions at the
 tolerances above. The placement front end on the card: the policy baseline
 scores through the fused link-traffic kernel, the collision resolver is
 exact against numpy, and fused service searches equal serial ones bit for
-bit.
+bit. The RoPE kernel is bit for bit the torch ops it replaced, forward and
+autograd's gradient, at every model's shape and internlm2's full one, and a
+smoke training step under remat launches it 4 x L times forward and 2 x L
+inverse, each launch in the ``model.rope`` span of its pass.
 """
 import os
 import subprocess
@@ -63,6 +66,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.lif import (  # noqa: E402
     lif_backward_kernel, lif_backward_plain, lif_step_kernel, lif_step_plain)
+from repro_torch.kernels.rope import rope_kernel, rope_plain  # noqa: E402
 from repro_torch.kernels.noc_segsum import (  # noqa: E402
     link_traffic, link_traffic_plain, link_traffic_routes,
     link_traffic_routes_plain)
@@ -1726,3 +1730,154 @@ def test_moe_combine_repeats_bit_for_bit_on_the_card(cuda):
                               capture_output=True, text=True, timeout=600,
                               env=env)
         assert proc.returncode == 0, (mode, proc.stderr[-3000:])
+
+
+# ---- RoPE -------------------------------------------------------------------
+
+# (name, x's base shape, the slice of its last dim RoPE takes, positions:
+# "arange", ("at", p): [p], or ("rows", hi): random int32 [B, S] below hi,
+# theta): the GQA attention's q and k (internlm2, full size too), MLA's
+# strided q_rope and its [B, S, 1, Dr] k_rope, seamless, a decode step, a
+# pair count off the 8-pair chunks and a view off 16 bytes (the pair-a-thread
+# path), and angles past the fast range reduction
+ROPE_CASES = [
+    ("internlm2_q", (2, 300, 16, 128), None, "arange", 1e6),
+    ("internlm2_k", (2, 300, 8, 128), None, "arange", 1e6),
+    ("internlm2_full_q", (32, 4096, 16, 128), None, "arange", 1e6),
+    ("minicpm3_q_rope", (2, 300, 40, 96), (64, 96), "arange", 1e4),
+    ("minicpm3_k_rope", (2, 300, 1, 32), None, "arange", 1e4),
+    ("deepseek_q_rope", (2, 300, 16, 192), (128, 192), "arange", 1e4),
+    ("deepseek_k_rope", (2, 300, 1, 64), None, "arange", 1e4),
+    ("seamless", (4, 300, 16, 64), None, "arange", 1e4),
+    ("decode", (4, 1, 16, 128), None, ("at", 2047), 1e6),
+    ("rows", (3, 300, 4, 64), None, ("rows", 1_000_000), 1e4),
+    ("half_off_chunks", (2, 300, 4, 20), None, "arange", 1e4),
+    ("view_off_16_bytes", (2, 300, 4, 66), (2, 66), "arange", 1e4),
+]
+
+
+def _rope_inputs(case, dtype, dev, seed=0):
+    _, shape, cut, pos, theta = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+    if cut is not None:
+        x = x[..., cut[0]:cut[1]]
+    b, s = shape[:2]
+    if pos == "arange":
+        positions = torch.arange(s, device=dev)
+    elif pos[0] == "at":
+        positions = torch.full((1,), pos[1], dtype=torch.int64, device=dev)
+    else:
+        positions = torch.randint(0, pos[1], (b, s), generator=gen,
+                                  device=dev, dtype=torch.int32)
+    d = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+    d[:, :1] = 0.0                     # zero cotangents: the sign of zero
+    return x, positions, theta, d
+
+
+def _rope_bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("case", ROPE_CASES, ids=[c[0] for c in ROPE_CASES])
+def test_rope_kernel_is_bit_identical_to_the_ops(cuda, case, dtype):
+    """Forward: the kernel against ``rope_plain`` (the torch ops
+    ``apply_rope`` ran before it) on the card. Inverse: against autograd's
+    gradient through those ops and against the plain inverse. Through
+    ``apply_rope`` (the autograd Function) the same bits both ways. One
+    launch a call, counted by direction."""
+    from repro_torch.models import layers
+    x, positions, theta, d = _rope_inputs(case, dtype, cuda)
+    xg = x.detach().requires_grad_()
+    want = rope_plain(xg, positions, theta)
+    (grad,) = torch.autograd.grad(want, xg, d)
+    before = (rope_kernel.launches, rope_kernel.backward_launches)
+    got = rope_kernel(x, positions, theta)
+    back = rope_kernel(d, positions, theta, inverse=True)
+    xf = x.detach().requires_grad_()
+    fwd = layers.apply_rope(xf, positions, theta)
+    (fgrad,) = torch.autograd.grad(fwd, xf, d)
+    torch.cuda.synchronize()
+    assert (rope_kernel.launches, rope_kernel.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(_rope_bits(got), _rope_bits(want))
+    assert torch.equal(_rope_bits(fwd), _rope_bits(want))
+    assert torch.equal(_rope_bits(back), _rope_bits(grad))
+    assert torch.equal(_rope_bits(fgrad), _rope_bits(grad))
+    assert torch.equal(_rope_bits(back), _rope_bits(
+        rope_plain(d, positions, theta, inverse=True)))
+
+
+@pytest.mark.parametrize("what", ["odd head dim", "positions of another "
+                                  "length", "strided head dim",
+                                  "positions on the host"])
+def test_rope_kernel_refuses_what_it_cannot_take(cuda, what):
+    x = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16, device=cuda)
+    positions = torch.arange(8, device=cuda)
+    if what == "odd head dim":
+        x = torch.zeros(2, 8, 4, 63, dtype=torch.bfloat16, device=cuda)
+    elif what == "positions of another length":
+        positions = torch.arange(9, device=cuda)
+    elif what == "strided head dim":
+        x = torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16,
+                        device=cuda)[..., ::2]
+    else:
+        positions = positions.cpu()
+    before = (rope_kernel.launches, rope_kernel.backward_launches)
+    with pytest.raises(ValueError):
+        rope_kernel(x, positions)
+    assert (rope_kernel.launches, rope_kernel.backward_launches) == before
+
+
+def test_rope_kernel_in_a_smoke_training_step(cuda):
+    """internlm2's smoke model, one training step under ``remat="full"``:
+    4 x L forward launches (q and k, forward and recomputed) and 2 x L
+    inverse ones; profiled, ``bench/harness/spans.py`` puts every RoPE
+    kernel in ``model.rope``, 2 x L in each of the forward, recompute and
+    backward passes."""
+    import dataclasses
+    from collections import Counter
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.specs import materialize, tree_map
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_optimizer,
+                                        make_train_step)
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench.harness import spans
+
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"),
+                              remat="full", logit_chunk=8)
+    params = tree_map(lambda t: t.to(cuda), materialize(
+        lm.lm_specs(cfg), torch.Generator().manual_seed(0), device="cpu"))
+    tcfg = TrainConfig(adam=AdamWConfig(lr=1e-3, grad_clip=1.0))
+    step = make_train_step(
+        lambda p, b: lm.lm_loss(p, cfg, b["tokens"], b["labels"]), tcfg)
+    tok = torch.randint(0, cfg.vocab, (2, 33),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = init_optimizer(params, tcfg)
+    n = cfg.n_layers
+    before = (rope_kernel.launches, rope_kernel.backward_launches)
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    assert (rope_kernel.launches, rope_kernel.backward_launches) == (
+        before[0] + 4 * n, before[1] + 2 * n)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    owned = [o for o in spans.attribute(spans.rows(prof))
+             if "rope_kernel" in o.op.name]
+    assert {o.owner for o in owned} == {"model.rope"}
+    assert Counter(o.pass_ for o in owned) == {
+        "forward": 2 * n, "recompute": 2 * n, "backward": 2 * n}

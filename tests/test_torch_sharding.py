@@ -757,6 +757,42 @@ def test_sharded_batches_equal_the_reference_shards(world, mesh):
                                           full)
 
 
+# the layouts of ``case_rope`` in ``torch_mesh_worker.py``, and whether each
+# rotates on its local shards
+ROPE_LAYOUTS = {"batch_seq": True, "seq_heads": True, "heads": True,
+                "seq_seq": True, "partial": True, "head_dim": False}
+
+
+@pytest.mark.parametrize("layout", sorted(ROPE_LAYOUTS))
+def test_rope_of_dtensors_equals_the_whole_tensors(world, layout):
+    """``apply_rope`` of DTensors on the 2 x 4 mesh (uneven batch and
+    sequence shards, a sequence split over both mesh dims, a partial sum),
+    float32 and bf16, positions ``[S]`` and ``[B, S]``: on every rank the
+    gathered output and the gradient equal ``rope_plain`` of the whole
+    tensors bit for bit. Each layout but a split head dim calls the
+    kernel's wrapper on the local shard once each way (the kernel on the
+    card, the plain version here); a split head dim calls it not at all
+    and takes the torch ops on the DTensor."""
+    from repro_torch.kernels.rope import rope_plain
+    ranks = _case(world, "rope")
+    res0 = ranks[0]
+    x32, d32 = (torch.from_numpy(res0[f"rope/{k}"]) for k in ("x", "d"))
+    calls = [1, 1] if ROPE_LAYOUTS[layout] else [0, 0]
+    for dt in (torch.float32, torch.bfloat16):
+        for pname in ("seq", "rows"):
+            positions = torch.from_numpy(res0[f"rope/positions/{pname}"])
+            want = rope_plain(x32.to(dt), positions, 1e6).float().numpy()
+            grad = rope_plain(d32.to(dt), positions, 1e6,
+                              inverse=True).float().numpy()
+            key = f"rope/{layout}/{str(dt).split('.')[1]}/{pname}"
+            for r, res in enumerate(ranks):
+                assert res[f"{key}/calls"].tolist() == calls, (r, key)
+                for got, ref in ((res[f"{key}/y"], want),
+                                 (res[f"{key}/grad"], grad)):
+                    np.testing.assert_array_equal(got.view(np.int32),
+                                                  ref.view(np.int32))
+
+
 def test_launcher_on_a_mesh_matches_reference(world):
     """``launch.train --smoke --mesh 2x4``: each of 6 steps' loss within
     1e-4 of the reference's launcher."""
@@ -811,6 +847,49 @@ def test_flash_attention_on_dtensors_launches_the_kernel(tmp_path, dtype):
         assert torch.equal(got.to_local(), want)
         for a, b in zip(sharded, plain):
             assert torch.equal(a.grad.to_local(), b.grad)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rope_on_dtensors_launches_the_kernel(tmp_path, dtype):
+    """Under a 1 x 1 NCCL mesh, RoPE of a DTensor (batch over ``data``)
+    launches the kernel once forward and once inverse on the local shard
+    and equals the plain tensor's call bit for bit, output and
+    gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels.rope import rope_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_test_mesh((1, 1))
+        sh = p_rules.NamedSharding(mesh, p_rules.batch_partition(mesh, 4))
+        g = torch.Generator(device=dev).manual_seed(0)
+        dt = getattr(torch, dtype)
+        x, dy = (torch.randn(2, 512, 8, 64, generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        positions = torch.arange(512, device=dev)
+        plain = x.clone().requires_grad_()
+        want = L.apply_rope(plain, positions, 1e6)
+        want.backward(dy)
+        sharded = p_rules.distribute(x, sh).requires_grad_()
+        before = (rope_kernel.launches, rope_kernel.backward_launches)
+        got = L.apply_rope(sharded, positions, 1e6)
+        got.backward(p_rules.distribute(dy, sh))
+        torch.cuda.synchronize()
+        assert (rope_kernel.launches - before[0],
+                rope_kernel.backward_launches - before[1]) == (1, 1)
+        assert torch.equal(got.to_local(), want)
+        assert torch.equal(sharded.grad.to_local(), plain.grad)
     finally:
         dist.destroy_process_group()
 

@@ -582,6 +582,71 @@ def case_batches(inp, out, mesh):
             out[f"batch/{name}/{step}/full"] = tokens.full_tensor().numpy()
 
 
+# the layouts of ``case_rope``: (name, placements on the 2 x 4 mesh)
+ROPE_LAYOUTS = (("batch_seq", ("S0", "S1")), ("seq_heads", ("S1", "S2")),
+                ("heads", ("R", "S2")), ("seq_seq", ("S1", "S1")),
+                ("partial", ("P", "R")), ("head_dim", ("S3", "R")))
+
+
+def case_rope(inp, out, mesh):
+    """``apply_rope`` of DTensors ``x [3, 10, 4, 16]`` (uneven shards) laid
+    out as ``ROPE_LAYOUTS`` say, float32 and bf16, positions ``5 + [S]`` and
+    random int32 ``[B, S]``: the output and the gradient of a seeded
+    cotangent, gathered, with the calls of the kernel's wrapper each way
+    (``layers._rope_kernel``, counted). The partial sum holds x on the
+    ranks of ``data`` 0 and zeros on the others."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import layers as L
+
+    kinds = {"R": Replicate(), "P": Partial(),
+             **{f"S{d}": Shard(d) for d in range(4)}}
+    real, calls = L._rope_kernel, []
+
+    def counted(x, positions, theta, inverse=False):
+        calls.append(inverse)
+        return real(x, positions, theta, inverse=inverse)
+
+    gen = torch.Generator().manual_seed(4)
+    x32 = torch.randn(3, 10, 4, 16, generator=gen) * 2
+    d32 = torch.randn(3, 10, 4, 16, generator=gen)
+    pos = {"seq": 5 + torch.arange(10),
+           "rows": torch.randint(0, 300_000, (3, 10), generator=gen,
+                                 dtype=torch.int32)}
+    out["rope/x"], out["rope/d"] = x32.numpy(), d32.numpy()
+    for pname, positions in pos.items():
+        out[f"rope/positions/{pname}"] = positions.numpy()
+    coord = mesh.get_coordinate()
+    L._rope_kernel = counted
+    try:
+        for name, kind in ROPE_LAYOUTS:
+            pl = [kinds[k] for k in kind]
+            for dt in (torch.float32, torch.bfloat16):
+                x, d = x32.to(dt), d32.to(dt)
+                for pname, positions in pos.items():
+                    key = f"rope/{name}/{str(dt).split('.')[1]}/{pname}"
+                    if name == "partial":
+                        xd = DTensor.from_local(
+                            x if coord[0] == 0 else torch.zeros_like(x),
+                            mesh, pl, run_check=False)
+                        dd = DTensor.from_local(d, mesh, [Replicate()] * 2,
+                                                run_check=False)
+                    else:
+                        xd, dd = (torch.distributed.tensor.distribute_tensor(
+                            t, mesh, pl) for t in (x, d))
+                    xd = xd.detach().requires_grad_()
+                    calls.clear()
+                    with implicit_replication():
+                        y = L.apply_rope(xd, positions, 1e6)
+                        y.backward(dd)
+                    out[f"{key}/y"] = y.detach().full_tensor().float().numpy()
+                    out[f"{key}/grad"] = xd.grad.full_tensor().float().numpy()
+                    out[f"{key}/calls"] = np.array(
+                        [calls.count(False), calls.count(True)])
+    finally:
+        L._rope_kernel = real
+
+
 def case_launch(inp, out, mesh):
     """``launch.train --smoke --mesh 2x4`` from the reference's weights,
     every step's loss."""
@@ -626,6 +691,7 @@ def run(rank, d):
                        ("gqa", case_gqa),
                        ("decode", case_decode),
                        ("moe", case_moe), ("batch", case_batches),
+                       ("rope", case_rope),
                        ("launch", case_launch)):
         try:
             case(inp, out, mesh)
